@@ -27,23 +27,49 @@ and then, printing one JSON line per phase:
                union read and per-request slice of phase 3, plan_runs_2d
                on the jobs of the country, seam and all-levels requests
                in float64 and float32;
-5. timing    — each kernel at the main path's shapes, with CUDA events:
-               kernel, plain version, one library call where one
+5. bfs_layer — one BFS layer of Algorithm 1 as a batch: every
+               (triangle, latitude row) pair of phase 2's country and
+               seam-box polygons on the F320 grid, packed with
+               ``pack_polytopes`` and cut by slice_batch at k = 0; the
+               kernel must equal its plain version byte for byte, and
+               ``unpack_sliced`` the host ``slice_vertices`` +
+               ``convex_hull_prune`` on every pair;
+6. batched   — ``batched_plan_2d``, ``batched_plan_runs_2d`` and
+               ``batched_extract_2d`` on one F320 field (float32), 256
+               country-triangle crops at seeded random shifts; lattice,
+               runs and values byte-equal to the plain versions (the
+               same calls with ``device="cpu"``), values equal to
+               ``field[offsets]``, and slice_minor_extents and
+               plan_runs_2d (float32) byte-equal on the inputs the path
+               gave them;
+7. sharded_serve — the port's launcher (``repro_torch.launch.serve``,
+               extract mode) in-process at O1280 (4 times × 4 levels,
+               105,594,880 float64 elements, 0.84 GB on the card), 8
+               client threads, 4 shards, 512 Zipf-drawn requests through
+               the ``AdmissionQueue``; every served value byte-equal to
+               a fresh single-threaded ``PolytopeExtractor`` on the same
+               payload;
+8. timing    — each kernel at the shapes its path gave it, with CUDA
+               events: kernel, plain version, one library call where one
                computes the same function, and the card's bound;
-6. the kernels line, with the launch counts of phases 2-3.
+9. the kernels line, with the launch counts of the paths.
 
-The launch counters are reset just before phase 2 and read just after
-phase 3, so the counts show that the main path ran through the kernels.
-The last line is ``{"ok": true, "device": {...}}``; any failure raises
-and the exit code is non-zero.
+The launch counters are reset just before each path (phases 2-3, 5, 6
+and 7) and read just after it, so the counts show that each path ran
+through its kernels; checks against the plain versions come after the
+counts are read.  The last line is ``{"ok": true, "device": {...}}``;
+any failure raises and the exit code is non-zero.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -52,7 +78,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP64_FLOPS = 34e12             # H100 SXM data sheet, FP64 outside tensor cores
+FP32_FLOPS = 67e12             # H100 SXM data sheet, FP32 outside tensor cores
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: gathered bytes start cold
+SERVE_REQUESTS = 512           # the sharded_serve phase's Zipf draws
 
 
 def emit(obj) -> None:
@@ -140,6 +168,54 @@ def plan_flops(verts, valid, sv0, eps0, tol_rel, n1) -> int:
     return total
 
 
+def slice_batch_cost(verts, mask) -> tuple[int, int]:
+    """Bytes slice_batch must move (vertices, mask and planes read once;
+    candidates and their mask written once) and the float operations
+    these inputs need: per polytope the scale (2 per vertex, 1 for the
+    tolerance) and one distance per vertex; per crossing pair the
+    denominator, the quotient and 3 per kept coordinate."""
+    p, v, d = verts.shape
+    slots = v + v * v
+    n_bytes = p * v * d * 4 + p * v + p * 4 + p * slots * d * 4 + p * slots
+    pairs = int(mask[:, v:].sum())
+    return n_bytes, p * (3 * v + 1) + pairs * (2 + 3 * (d - 1))
+
+
+def extents_cost(x, valid, planes, tol) -> tuple[int, int]:
+    """Bytes slice_minor_extents must move (x, y, mask, planes, tol read
+    once; lo, hi and hit written once) and the float operations these
+    inputs need: one distance per (polytope, plane, vertex) and 5 per
+    (below, above) pair lerp."""
+    b, v = x.shape
+    r = planes.shape[1]
+    e = x.element_size()
+    n_bytes = 2 * b * v * e + b * v + b * r * e + b * e + b * r * (2 * e + 1)
+    dist = x[:, None, :] - planes[:, :, None]                 # (B, R, V)
+    below = (valid[:, None, :] & (dist < -tol[:, None, None])).sum(-1)
+    above = (valid[:, None, :] & (dist > tol[:, None, None])).sum(-1)
+    pairs = int((below * above).sum())
+    return n_bytes, b * r * v + 5 * pairs
+
+
+@contextlib.contextmanager
+def recording(module, name: str):
+    """Record the arguments of every call to ``module.<name>`` while the
+    block runs (the inputs a path hands a kernel, for the checks and
+    timings after it), then restore the function."""
+    fn = getattr(module, name)
+    calls = []
+
+    def rec(*a, **kw):
+        calls.append((a, kw))
+        return fn(*a, **kw)
+
+    setattr(module, name, rec)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, fn)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -162,7 +238,10 @@ def main(argv=None) -> int:
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
     from repro_torch.kernels.gather import kernel as gk, ops as gops
     from repro_torch.kernels.gather import ref as gref
-    from repro_torch.kernels.plan import kernel as pk, ref as pref
+    from repro_torch.kernels.plan import kernel as pk, ops as pops
+    from repro_torch.kernels.plan import ref as pref
+    from repro_torch.kernels.slice import kernel as sk, ops as sops
+    from repro_torch.kernels.slice import ref as sref
     from repro_torch.serve import ExtractionService
 
     class RecordingPlanner(DevicePlanner):
@@ -280,9 +359,11 @@ def main(argv=None) -> int:
           "batch_dedup": st.batch_dedup,
           "bytes_requested": st.bytes_requested,
           "bytes_read": st.bytes_read})
-    launches = dict(LAUNCHES)
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
+    # Launch counts of each path, read just after it ran.
+    path_launches = {"extract_serve": dict(LAUNCHES)}
+    for name in ("gather_rows", "gather_runs", "plan_runs_2d"):
+        assert LAUNCHES[name] > 0, \
+            f"{name} was never launched on the main path"
 
     # -- 4. kernels against their plain versions, on main-path inputs ---
     errs = {"gather_rows": 0.0, "gather_runs": 0.0, "plan_runs_2d": 0.0}
@@ -290,8 +371,8 @@ def main(argv=None) -> int:
 
     def check(kname, got, want, what):
         assert bytes_equal(got, want), f"{kname} != plain version ({what})"
-        errs[kname] = max(errs[kname], max_abs_err(got, want))
-        n_checked[kname] += 1
+        errs[kname] = max(errs.get(kname, 0.0), max_abs_err(got, want))
+        n_checked[kname] = n_checked.get(kname, 0) + 1
 
     blk = gops.BURST_BLOCK
     for name, (cs_np, gidx_np) in burst_inputs.items():
@@ -335,7 +416,213 @@ def main(argv=None) -> int:
     emit({"phase": "kernels", "byte_equal": True, "checked": n_checked,
           "max_abs_err": errs})
 
-    # -- 5. timing at the main path's shapes ----------------------------
+    # -- 5. bfs_layer: one BFS layer of Algorithm 1 as a batch (B5) -----
+    from repro_torch.core.geometry import Polytope, slice_vertices
+    from repro_torch.core.hull import convex_hull_prune
+
+    # The host Slicer's triangles and the latitude rows it would visit
+    # for each (OrderedAxis.indices_in_range, lookup tolerance 1e-9).
+    lat_sorted = np.sort(iwc.latitudes)
+    eps = 1e-9 * max(abs(lat_sorted[0]), abs(lat_sorted[-1]), 1.0)
+    polygons = [p for name in (*COUNTRIES, "seam_box")
+                for p in requests[name].polytopes() if p.axes == ("lat",
+                                                                  "lon")]
+    layer = []
+    for poly in polygons:
+        lo, hi = poly.extents("lat")
+        i0 = np.searchsorted(lat_sorted, lo - eps, side="left")
+        i1 = np.searchsorted(lat_sorted, hi + eps, side="right")
+        layer += [(poly, lat) for lat in lat_sorted[i0:i1]]
+    planes_np = np.asarray([lat for _, lat in layer], np.float32)
+    reset_launches()
+    t0 = time.perf_counter()
+    verts5, valid5 = sops.pack_polytopes([p for p, _ in layer], device=dev)
+    planes5 = torch.from_numpy(planes_np).to(dev)
+    out5, mask5 = sops.slice_batch(verts5, valid5, planes5, k=0)
+    subs = sops.unpack_sliced(out5, mask5, ("lat", "lon"), k=0)
+    layer_s = time.perf_counter() - t0
+    path_launches["bfs_layer"] = dict(LAUNCHES)
+    assert LAUNCHES["slice_batch"] > 0, "slice_batch was never launched"
+
+    got = sk.slice_batch(verts5, valid5, planes5, 0)
+    want = sref.slice_batch(verts5, valid5, planes5, 0)
+    check("slice_batch", got[0], want[0], "bfs layer candidates")
+    check("slice_batch", got[1], want[1], "bfs layer mask")
+    check("slice_batch", out5, want[0], "bfs layer, path output")
+    check("slice_batch", mask5, want[1], "bfs layer, path mask")
+    hits = 0
+    for (poly, _), sub, c in zip(layer, subs, planes_np):
+        host = slice_vertices(poly.points, 0, float(c), tol=1e-6)
+        if host is None:
+            assert sub is None, f"plane {c} misses on the host only"
+            continue
+        hits += 1
+        assert sub is not None, f"plane {c} misses on the card only"
+        a = sorted(map(tuple, np.round(convex_hull_prune(host), 3)))
+        b = sorted(map(tuple, np.round(sub.points, 3)))
+        assert len(a) == len(b) and np.allclose(a, b, atol=2e-3), \
+            f"plane {c}: {a} != {b}"
+    emit({"phase": "bfs_layer", "P": int(verts5.shape[0]),
+          "V": int(verts5.shape[1]), "D": int(verts5.shape[2]),
+          "polygons": len(polygons), "pairs_hit": hits,
+          "seconds": layer_s, "launches": path_launches["bfs_layer"]})
+
+    # -- 6. batched: 256 crops per call on one F320 field (B4, B3, B1) --
+    from repro_torch.core import batched
+
+    n0, n1 = len(lat_sorted), len(iwc.lon_values)
+    axis0 = lat_sorted.astype(np.float32)
+    axis1 = iwc.lon_values.astype(np.float32)
+    # One field (datetime 0, level 0) with its rows in ascending latitude.
+    order = np.argsort(iwc.latitudes)
+    field_np = np.ascontiguousarray(
+        flat_np[:n0 * n1].reshape(n0, n1)[order].astype(np.float32)
+    ).reshape(-1)
+    field = torch.from_numpy(field_np).to(dev)
+    tris = [p.points for name in COUNTRIES
+            for p in requests[name].polytopes() if p.axes == ("lat", "lon")]
+    rng6 = np.random.default_rng(args.seed + 6)
+    n_crops = 256
+    pick = rng6.integers(0, len(tris), n_crops)
+    shift = np.stack([rng6.uniform(-30.0, 15.0, n_crops),
+                      rng6.uniform(10.0, 300.0, n_crops)], axis=1)
+    crops = [Polytope(("lat", "lon"), tris[i] + shift[j])
+             for j, i in enumerate(pick)]
+    # Rows and columns the widest crop spans: the lattice never truncates.
+    ext = np.array([[*c.extents("lat"), *c.extents("lon")] for c in crops])
+    max_rows = 1 + int(max(
+        np.searchsorted(axis0, e[1] + 1e-6, side="right")
+        - np.searchsorted(axis0, e[0] - 1e-6) for e in ext))
+    max_cols = 1 + int(max(
+        np.searchsorted(axis1, e[3] + 1e-6, side="right")
+        - np.searchsorted(axis1, e[2] - 1e-6) for e in ext))
+    verts6, valid6 = sops.pack_polytopes(crops, device=dev)
+    reset_launches()
+    with recording(sops, "slice_minor_extents") as b4_calls, \
+            recording(pops, "plan_runs_2d") as b3_calls:
+        t0 = time.perf_counter()
+        lattice6 = batched.batched_plan_2d(verts6, valid6, axis0, axis1, n0,
+                                           n1, max_rows, max_cols,
+                                           device=dev)
+        runs6 = batched.batched_plan_runs_2d(verts6, valid6, axis0, axis1,
+                                             max_rows, device=dev)
+        ext6 = batched.batched_extract_2d(field, verts6, valid6, axis0,
+                                          axis1, max_rows, max_cols,
+                                          device=dev)
+        torch.cuda.synchronize()
+        batched_s = time.perf_counter() - t0
+    path_launches["batched"] = dict(LAUNCHES)
+    for name in ("slice_minor_extents", "plan_runs_2d", "gather_rows"):
+        assert LAUNCHES[name] > 0, f"{name} was never launched (batched)"
+
+    # The plain versions: the same calls on CPU tensors.
+    cpu_args = (verts6.cpu(), valid6.cpu(), axis0, axis1)
+    plain = {
+        "lattice": batched.batched_plan_2d(*cpu_args, n0, n1, max_rows,
+                                           max_cols, device="cpu"),
+        "runs": batched.batched_plan_runs_2d(*cpu_args, max_rows,
+                                             device="cpu"),
+        "extract": batched.batched_extract_2d(field.cpu(), *cpu_args,
+                                              max_rows, max_cols,
+                                              device="cpu"),
+    }
+    for what, ours in (("lattice", lattice6), ("runs", runs6),
+                       ("extract", ext6)):
+        for a, b in zip(ours, plain[what]):
+            assert bytes_equal(a.cpu(), b), f"batched {what} != plain"
+    vals6, offsets6, npts6 = (t.cpu() for t in ext6)
+    flat_off = offsets6.reshape(n_crops, -1).long()
+    want_vals = np.where(flat_off >= 0,
+                         field_np[flat_off.clamp(min=0).numpy()], 0)
+    assert np.array_equal(vals6.numpy(), want_vals.astype(np.float32)), \
+        "batched values != field[offsets]"
+    starts, lengths, meta = (t.cpu().numpy() for t in runs6)
+    assert int(meta[2]) == int(npts6.sum()), "runs and lattice disagree"
+    run_offsets = np.concatenate([
+        np.arange(s0, s0 + ln) for s0, ln in
+        zip(starts[:meta[0]], lengths[:meta[0]])])
+    lattice_offsets = flat_off[flat_off >= 0].numpy()
+    assert np.array_equal(np.sort(run_offsets), np.sort(lattice_offsets))
+    for a, kw in b4_calls:
+        x, y, valid, planes, tol = a
+        got = sk.slice_minor_extents(x, y, valid, planes, tol)
+        want = sref.slice_minor_extents_rows(x, y, valid, planes, tol)
+        for g, w in zip(got, want):
+            check("slice_minor_extents", g, w, "batched rows")
+    for a, kw in b3_calls:
+        for g, w in zip(pk.plan_runs_2d(*a, **kw), pref.plan_runs_2d(*a,
+                                                                    **kw)):
+            check("plan_runs_2d", g, w, "batched float32")
+    emit({"phase": "batched", "P": n_crops, "V": int(verts6.shape[1]),
+          "max_rows": max_rows, "max_cols": max_cols, "n0": n0, "n1": n1,
+          "n_points": int(npts6.sum()), "n_runs": int(meta[0]),
+          "seconds": batched_s, "launches": path_launches["batched"]})
+
+    # -- 7. sharded_serve: the launcher at O1280 -------------------------
+    from repro_torch.launch import serve as launcher
+
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        bench_out = Path(tmp) / "BENCH_torch_serve.json"
+        serve_argv = ["--mode", "extract", "--grid-n", "1280",
+                      "--threads", "8", "--shards", "4",
+                      "--requests", str(SERVE_REQUESTS),
+                      "--window-ms", "2.0", "--bench-out", str(bench_out)]
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(said), \
+                recording(gk, "gather_rows") as b1_calls:
+            run = launcher.run_extract(launcher.parse_args(serve_argv))
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        bench = json.loads(bench_out.read_text())
+    path_launches["sharded_serve"] = dict(LAUNCHES)
+    assert LAUNCHES["gather_rows"] > 0, "the launcher read on the host"
+    assert run.payload.is_cuda and len(run.served) == SERVE_REQUESTS
+    # B1 against its plain version on every read the launcher made: the
+    # union reads over the payload and each plan's slice of them.
+    assert len(b1_calls) >= LAUNCHES["gather_rows"] > 0
+    for a, kw in b1_calls:
+        check("gather_rows", gk.gather_rows(*a, **kw),
+              gref.gather_rows(*a, **kw), "sharded union read")
+    b1_calls.clear()
+    # The values against the payload on the host, and against a fresh
+    # single-threaded extractor.
+    payload_np = run.payload.cpu().numpy()
+    fresh = PolytopeExtractor(run.weather.cube)
+    reference = {}
+    for rank, res in run.served:
+        if rank not in reference:
+            reference[rank] = fresh.extract(run.population[rank],
+                                            run.payload).values
+        assert res.values.is_cuda and bytes_equal(res.values,
+                                                   reference[rank]), \
+            f"served values of request {rank} != a fresh extractor's"
+        assert bytes_equal(res.values.cpu(), torch.from_numpy(
+            payload_np[res.plan.offsets])), \
+            f"served values of request {rank} != payload[plan.offsets]"
+    del payload_np
+    st = run.service.stats
+    emit({"phase": "sharded_serve", "argv": serve_argv,
+          "elements": run.weather.cube.n_elements,
+          "payload_bytes": int(run.payload.numel()
+                               * run.payload.element_size()),
+          "distinct_requests": len(reference), "seconds": serve_s,
+          "gather_rows_checked": n_checked["gather_rows"],
+          **{k: bench["rows"][0][k] for k in (
+              "requests", "req_per_s", "p50_ms", "p99_ms", "hit_rate",
+              "coalescing_factor")},
+          "hits": st.hits, "misses": st.misses, "delta_hits": st.delta_hits,
+          "batch_dedup": st.batch_dedup, "card": card,
+          "launches": path_launches["sharded_serve"],
+          "launcher_said": said.getvalue().splitlines()})
+    del run, fresh, reference
+
+    # -- 8. timing at the shapes each path gave its kernels -------------
+    launches = {k: sum(p[k] for p in path_launches.values())
+                for k in LAUNCHES}
+    for name, n in launches.items():
+        assert n > 0, f"{name} was launched on no path"
     timer = Timer(dev)
     entries = []
 
@@ -399,10 +686,53 @@ def main(argv=None) -> int:
         "shape": {"J": int(verts.shape[0]), "V": int(verts.shape[1]),
                   "max_rows": int(max_rows), "n0": g["n0"], "n1": g["n1"],
                   "flops": b3_flops, "bytes": b3_bytes}})
+
+    # B4 on its own: the batched path's (polytope, row) cuts, float32.
+    b4_args = b4_calls[0][0]
+    b4_bytes, b4_flops = extents_cost(b4_args[0], b4_args[2], b4_args[3],
+                                      b4_args[4])
+    t_bytes = b4_bytes / HBM_BYTES_PER_S * 1e3
+    t_flops = b4_flops / FP32_FLOPS * 1e3
+    x4, y4, valid4, planes4, tol4 = b4_args
+    entries.append({
+        "name": "slice_minor_extents", "route": "cuda",
+        "source": "src/repro_torch/csrc/slice_extents.cu",
+        "replaces": "src/repro/kernels/slice/ref.py:31",
+        "launches": launches["slice_minor_extents"],
+        "max_abs_err": errs["slice_minor_extents"],
+        "ms": timer(lambda: sk.slice_minor_extents(*b4_args)),
+        "plain_ms": timer(lambda: sref.slice_minor_extents_rows(*b4_args)),
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": None,
+        "shape": {"B": int(x4.shape[0]), "V": int(x4.shape[1]),
+                  "R": int(planes4.shape[1]), "dtype": "float32",
+                  "flops": b4_flops, "bytes": b4_bytes}})
+
+    # B5: the BFS layer of phase 5.
+    b5_bytes, b5_flops = slice_batch_cost(verts5, mask5)
+    t_bytes = b5_bytes / HBM_BYTES_PER_S * 1e3
+    t_flops = b5_flops / FP32_FLOPS * 1e3
+    entries.append({
+        "name": "slice_batch", "route": "cuda",
+        "source": "src/repro_torch/csrc/slice_batch.cu",
+        "replaces": "src/repro/kernels/slice/kernel.py:73",
+        "launches": launches["slice_batch"],
+        "max_abs_err": errs["slice_batch"],
+        "ms": timer(lambda: sk.slice_batch(verts5, valid5, planes5, 0)),
+        "plain_ms": timer(lambda: sref.slice_batch(verts5, valid5, planes5,
+                                                   0)),
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": None,
+        "shape": {"P": int(verts5.shape[0]), "V": int(verts5.shape[1]),
+                  "D": int(verts5.shape[2]), "flops": b5_flops,
+                  "bytes": b5_bytes}})
     emit({"phase": "timing", "card": card})
 
-    # -- 6. the kernels line, the card, the result -----------------------
-    emit({"kernels": entries, "launches": launches})
+    # -- 9. the kernels line, the card, the result -----------------------
+    emit({"kernels": entries, "launches": launches,
+          "path_launches": path_launches})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

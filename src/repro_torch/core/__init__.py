@@ -1,10 +1,11 @@
 # The paper's primary contribution: the Polytope feature-extraction
 # engine — geometry, axes, datacubes, Algorithm-1 slicer, index trees,
 # extraction plans and executors (plus the bounding-box / whole-field
-# baselines the paper compares against).  The batched planner of the
-# JAX package (batched.py, kernel B5) is not ported yet.
+# baselines the paper compares against), and the batched on-device
+# planner for many small 2-D crops (batched.py).
 from .axes import (Axis, CategoricalAxis, CyclicAxis, CyclicTransform,
                    MappedTransform, MergedTransform, OrderedAxis, Transform)
+from .batched import batched_extract_2d, batched_plan_2d, batched_plan_runs_2d
 from .datacube import (BranchingDatacube, Datacube, OctahedralGridDatacube,
                        TensorDatacube, TransformedDatacube)
 from .delta_planner import DeltaPlanner
@@ -36,7 +37,8 @@ __all__ = [
     "DeltaPlanner", "DevicePlanner", "All", "Box", "ConvexPolytope",
     "Disk", "Ellipsoid", "Path",
     "Point", "Polygon", "Request", "Select", "Shape", "Span", "Union",
-    "ear_clip", "Slicer", "SliceStats", "CANON_TOL",
+    "ear_clip", "Slicer", "SliceStats", "batched_extract_2d",
+    "batched_plan_2d", "batched_plan_runs_2d", "CANON_TOL",
     "canonical_hash", "canonical_key", "shape_signature",
     "signature_hash",
 ]

@@ -9,7 +9,8 @@
 #          and the run-length burst gather_runs (B2)
 # plan   — device-resident planning: the Algorithm-1 trailing stage
 #          (slice → column ranges → run emission → compaction) (B3)
-# slice  — the shared slicing core slice_minor_extents (B4)
+# slice  — batched BFS-layer slicing slice_batch (B5) and the shared
+#          slicing core slice_minor_extents (B4)
 #
 # _casting.checked_cast_i32 is the ONLY place an offset-carrying array
 # may be cast to the kernels' int32 index dtype.

@@ -1,1 +1,1 @@
-from . import ref  # noqa: F401
+from . import kernel, ops, ref  # noqa: F401

@@ -1,8 +1,14 @@
-# Extraction serving: plan cache + batched service with shared union reads.
+# Extraction serving: plan cache + batched service with shared union
+# reads, and the sharded service with async admission (sharded.py).
 from .extraction import (CacheStats, ExtractionService, NeighborhoodIndex,
                          PlanCache, ServiceResult, merge_stats,
                          shared_union_gather)
+from .sharded import (AdmissionQueue, AdmissionStats,
+                      ShardedExtractionService, ShardedPlanCache,
+                      deserialize_plan, serialize_plan)
 
 __all__ = ["CacheStats", "ExtractionService", "NeighborhoodIndex",
            "PlanCache", "ServiceResult", "merge_stats",
-           "shared_union_gather"]
+           "shared_union_gather", "AdmissionQueue", "AdmissionStats",
+           "ShardedExtractionService", "ShardedPlanCache",
+           "deserialize_plan", "serialize_plan"]

@@ -24,6 +24,8 @@ from repro_torch.kernels.gather import ops as gops  # noqa: E402
 from repro_torch.kernels.gather import ref as gref  # noqa: E402
 from repro_torch.kernels.plan import kernel as pk  # noqa: E402
 from repro_torch.kernels.plan import ref as pref  # noqa: E402
+from repro_torch.kernels.slice import kernel as sk  # noqa: E402
+from repro_torch.kernels.slice import ref as sref  # noqa: E402
 from repro_torch.serve import ExtractionService  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -164,3 +166,136 @@ def test_burst_gather_of_a_plan(cuda_device, iwc):
     flat = torch.from_numpy(data).to(cuda_device)
     got = gops.gather_plan_runs(flat, plan.run_starts, plan.run_lengths)
     np.testing.assert_array_equal(got.cpu().numpy(), data[plan.offsets])
+
+
+# -- B5 and B4 on its own -----------------------------------------------------
+
+def _slice_inputs(p, v, d, k, seed):
+    """Random layers with on-plane vertices and padded slots: the plane
+    of every third polytope passes through one of its vertices."""
+    rng = np.random.default_rng(seed)
+    verts = rng.uniform(-50, 50, (p, v, d)).astype(np.float32)
+    nvalid = rng.integers(2, v + 1, p)
+    valid = np.arange(v)[None, :] < nvalid[:, None]
+    planes = rng.uniform(-40, 40, p).astype(np.float32)
+    planes[::3] = verts[::3, 0, k]
+    return verts, valid, planes
+
+
+@pytest.mark.parametrize("p,v,d,k", [(4, 6, 3, 0), (10, 8, 4, 2),
+                                     (1, 4, 2, 1), (9, 12, 5, 4),
+                                     (1000, 3, 2, 0), (37, 32, 8, 7)])
+def test_slice_batch(cuda_device, p, v, d, k):
+    tens = [torch.from_numpy(a).to(cuda_device)
+            for a in _slice_inputs(p, v, d, k, seed=p + v + d + k)]
+    before = LAUNCHES["slice_batch"]
+    got = sk.slice_batch(*tens, k)
+    assert LAUNCHES["slice_batch"] == before + 1
+    want = sref.slice_batch(*tens, k)
+    for a, b in zip(got, want):
+        assert _bytes_equal(a, b), (p, v, d, k)
+    assert bool(got[1].any())
+
+
+def test_slice_batch_refuses_what_it_does_not_take(cuda_device):
+    verts, valid, planes = (torch.from_numpy(a) for a in
+                            _slice_inputs(4, 3, 2, 0, seed=0))
+    with pytest.raises(TypeError):
+        sk.slice_batch(verts.double().to(cuda_device),
+                       valid.to(cuda_device),
+                       planes.double().to(cuda_device), 0)
+    with pytest.raises(ValueError):
+        sk.slice_batch(verts, valid, planes, 0)          # CPU tensors
+    with pytest.raises(ValueError):
+        sk.slice_batch(verts.to(cuda_device), valid.to(cuda_device),
+                       planes.to(cuda_device), 2)        # k outside D
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("b,v,r", [(256, 3, 40), (7, 16, 5), (1, 1, 3)])
+def test_slice_minor_extents(cuda_device, dtype, b, v, r):
+    rng = np.random.default_rng(b * v + r)
+    xy = rng.uniform(-20, 20, (2, b, v))
+    valid = np.arange(v)[None, :] < rng.integers(1, v + 1, b)[:, None]
+    planes = rng.uniform(-20, 20, (b, r))
+    planes[:, 0] = xy[0, :, 0]                           # on-plane hits
+    tol = 1e-6 * np.maximum(1.0, np.abs(xy[0]).max(1))
+    x, y, pl, tl = (torch.from_numpy(np.ascontiguousarray(a)).to(
+        cuda_device, dtype) for a in (xy[0], xy[1], planes, tol))
+    vm = torch.from_numpy(valid).to(cuda_device)
+    before = LAUNCHES["slice_minor_extents"]
+    got = sk.slice_minor_extents(x, y, vm, pl, tl)
+    assert LAUNCHES["slice_minor_extents"] == before + 1
+    want = sref.slice_minor_extents(x[:, None, :], y[:, None, :],
+                                    vm[:, None, :], pl, tl[:, None])
+    for a, w in zip(got, want):
+        assert _bytes_equal(a, w), (b, v, r)
+
+
+def test_batched_paths_on_the_card(cuda_device):
+    from repro_torch.core import batched
+    from repro_torch.core.geometry import Polytope
+    from repro_torch.kernels.slice import ops as sops
+
+    rng = np.random.default_rng(3)
+    polys = [Polytope(("a", "b"), rng.uniform(0, 60, (rng.integers(3, 7),
+                                                       2)))
+             for _ in range(64)]
+    axis0 = np.arange(64.0, dtype=np.float32)
+    axis1 = np.arange(80.0, dtype=np.float32)
+    field = torch.from_numpy(rng.normal(size=64 * 80).astype(np.float32))
+    on_card, on_cpu = {}, {}
+    for dev, out in ((cuda_device, on_card), ("cpu", on_cpu)):
+        verts, valid = sops.pack_polytopes(polys, v_max=8, device=dev)
+        before = dict(LAUNCHES)
+        out["lattice"] = batched.batched_plan_2d(
+            verts, valid, axis0, axis1, 64, 80, 64, 64, device=dev)
+        out["runs"] = batched.batched_plan_runs_2d(
+            verts, valid, axis0, axis1, 64, device=dev)
+        out["extract"] = batched.batched_extract_2d(
+            field.to(dev), verts, valid, axis0, axis1, 64, 64, device=dev)
+        if dev == cuda_device:
+            for name in ("slice_minor_extents", "plan_runs_2d",
+                         "gather_rows"):
+                assert LAUNCHES[name] > before[name], name
+    for what in on_cpu:
+        for a, b in zip(on_card[what], on_cpu[what]):
+            assert a.is_cuda and _bytes_equal(a.cpu(), b), what
+
+
+def test_sharded_service_on_the_card(cuda_device, iwc):
+    from repro_torch.serve import AdmissionQueue, ShardedExtractionService
+
+    data = iwc.field_data(seed=6)
+    flat = torch.from_numpy(data).to(cuda_device)
+    svc = ShardedExtractionService(iwc.cube, shards=3)
+    reqs = list(_requests(iwc).values())
+    before = LAUNCHES["gather_rows"]
+    with AdmissionQueue(svc, flat_data=flat, window_s=60.0,
+                        max_batch=len(reqs) + 2) as queue:
+        futs = [queue.submit(r) for r in reqs + reqs[:2]]
+        results = [f.result(timeout=120) for f in futs]
+        adm = queue.snapshot()
+    assert LAUNCHES["gather_rows"] > before
+    assert adm.windows == 1 and adm.coalesced == 2
+    for res in results:
+        assert res.values.is_cuda
+        np.testing.assert_array_equal(res.values.cpu().numpy(),
+                                      data[res.plan.offsets])
+
+
+def test_launcher_on_the_card(cuda_device, tmp_path):
+    from repro_torch.core import PolytopeExtractor
+    from repro_torch.launch import serve
+
+    out = tmp_path / "bench.json"
+    before = LAUNCHES["gather_rows"]
+    run = serve.run_extract(serve.parse_args([
+        "--mode", "extract", "--grid-n", "32", "--requests", "64",
+        "--threads", "4", "--bench-out", str(out)]))
+    assert LAUNCHES["gather_rows"] > before
+    assert run.payload.is_cuda and out.exists()
+    fresh = PolytopeExtractor(run.weather.cube)
+    for rank, res in run.served:
+        want = fresh.extract(run.population[rank], run.payload).values
+        assert _bytes_equal(res.values, want), rank
