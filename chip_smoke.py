@@ -49,15 +49,33 @@ and then, printing one JSON line per phase:
                the ``AdmissionQueue``; every served value byte-equal to
                a fresh single-threaded ``PolytopeExtractor`` on the same
                payload;
-8. timing    — each kernel at the shapes its path gave it, with CUDA
+8. recsys_serve — DLRM-RM2 (26 tables × 10⁶ rows × 64, 6.66 GB of
+               float32 tables) and then DeepFM (39 × 10⁶ × 10 and its
+               width-1 first-order tables, 1.72 GB) at full published
+               width on the card, seeded random weights, each serving
+               one untimed ``serve_p99`` batch of 512, 8 timed ones and
+               one ``serve_bulk`` batch of 262,144 from a
+               ``ClickStream``, with TF32 off; every EmbeddingBag is
+               one gather_rows_bag (B6) launch.  Every B6 call of the
+               path must equal B6's plain version byte for byte, and so
+               must the logits of the same batches with the plain
+               version in B6's place; B6 is also held on the DLRM bulk
+               ids padded to L = 8; the first p99 batch's logits must
+               agree with the port's float64 CPU forward (on the rows the
+               batch reads and the weights copied to the host) within
+               rtol = atol = 1e-4.  Each model is freed before the next;
+9. timing    — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
-               computes the same function, and the card's bound;
-9. the kernels line, with the launch counts of the paths.
+               computes the same function, and the card's bound (B6's at
+               the DLRM ``serve_bulk`` shape, timed in phase 8 while the
+               tables are on the card, with DeepFM's D = 10 and D = 1
+               bulk calls and the padded L = 8 bags as variants);
+10. the kernels line, with the launch counts of the paths.
 
-The launch counters are reset just before each path (phases 2-3, 5, 6
-and 7) and read just after it, so the counts show that each path ran
-through its kernels; checks against the plain versions come after the
-counts are read.  The last line is ``{"ok": true, "device": {...}}``;
+The launch counters are reset just before each path (phases 2-3, 5, 6,
+7 and each model of 8) and read just after it, so the counts show that
+each path ran through its kernels; checks against the plain versions
+come after the counts are read.  The last line is ``{"ok": true, "device": {...}}``;
 any failure raises and the exit code is non-zero.
 """
 
@@ -198,22 +216,226 @@ def extents_cost(x, valid, planes, tol) -> tuple[int, int]:
 
 
 @contextlib.contextmanager
-def recording(module, name: str):
+def swapped(module, name: str, fn):
+    """``module.<name>`` replaced by ``fn`` while the block runs."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def recording(module, name: str, results: bool = False):
     """Record the arguments of every call to ``module.<name>`` while the
     block runs (the inputs a path hands a kernel, for the checks and
-    timings after it), then restore the function."""
+    timings after it), with what it returned if ``results``, then
+    restore the function."""
     fn = getattr(module, name)
     calls = []
 
     def rec(*a, **kw):
-        calls.append((a, kw))
-        return fn(*a, **kw)
+        out = fn(*a, **kw)
+        calls.append((a, kw, out) if results else (a, kw))
+        return out
 
-    setattr(module, name, rec)
-    try:
+    with swapped(module, name, rec):
         yield calls
-    finally:
-        setattr(module, name, fn)
+
+
+def recsys_serve(dev, seed: int, card: str, check,
+                 path_launches: dict) -> dict:
+    """Phase 8: serve DLRM-RM2 and then DeepFM at their published widths
+    on the card, one at a time, check each, and return B6's timing at
+    the DLRM ``serve_bulk`` shape (a kernels-line entry without its
+    counts), with the other timed shapes under ``variants``."""
+    import torch
+
+    from repro_torch.configs import deepfm, dlrm_rm2
+    from repro_torch.models.recsys import DLRM, DeepFM
+
+    # The models inherit the process's float32 matmul settings; the
+    # float64 comparison below is stated for full float32 products.
+    matmul = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+              "float32_matmul_precision":
+                  torch.get_float32_matmul_precision()}
+    assert not matmul["allow_tf32"] and \
+        matmul["float32_matmul_precision"] == "highest", \
+        f"recsys_serve: TF32 is on ({matmul})"
+    timings = []
+    for kind, cfg, cls in (("dlrm", dlrm_rm2._cfg(), DLRM),
+                           ("deepfm", deepfm._cfg(), DeepFM)):
+        row, timed = serve_recsys_model(dev, seed, kind, cfg, cls, check,
+                                        path_launches, extras=kind == "dlrm")
+        timings += timed
+        emit({"phase": "recsys_serve", **row, "matmul": matmul,
+              "card": card})
+        torch.cuda.empty_cache()        # the model is gone: free its tables
+    return {**timings[0], "variants": timings[1:]}
+
+
+def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
+                       path_launches: dict, extras: bool):
+    """One model of phase 8: one untimed ``serve_p99`` batch, 8 timed
+    ``serve_p99`` batches and one ``serve_bulk`` batch, then the checks
+    and B6's timing at each bulk call; with ``extras`` also B6 on padded
+    bags, checked and timed.  Returns (the phase row, the timings)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.dataplane.recsys import ClickStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+    from repro_torch.models.recsys import DLRM, EmbeddingBag
+
+    p99_batch = RECSYS_SHAPES["serve_p99"]["batch"]
+    bulk_batch = RECSYS_SHAPES["serve_bulk"]["batch"]
+
+    def bag_modules(model):
+        return [m for m in model.modules() if isinstance(m, EmbeddingBag)]
+
+    def inputs(model, batch, device, dtype=torch.float32):
+        bags = torch.from_numpy(batch["bags"]).to(device)
+        if not isinstance(model, DLRM):
+            return (bags,)
+        return torch.from_numpy(batch["dense"]).to(dtype).to(device), bags
+
+    def host_forward(model, batch):
+        """The port's float64 CPU forward of ``batch``: each table cut to
+        the rows the batch reads (ids renumbered), every other weight
+        copied to the host."""
+        bags = batch["bags"]
+        ids = [np.unique(col[col >= 0]) for col in bags.transpose(1, 0, 2)]
+        local = np.full_like(bags, -1)
+        for t, u in enumerate(ids):
+            col = bags[:, t]
+            local[:, t] = np.where(col >= 0, np.searchsorted(u, col), -1)
+        cfg64 = dataclasses.replace(model.cfg, dtype=torch.float64,
+                                    rows=max(1, max(map(len, ids))))
+        host = type(model)(cfg64, device="cpu", seed=seed)
+        for src, dst in zip(bag_modules(model), bag_modules(host)):
+            dst.tables.zero_()
+            for t, u in enumerate(ids):
+                rows = torch.from_numpy(u).to(src.tables.device).long()
+                dst.tables[t, :len(u)] = src.tables[t, rows].double().cpu()
+        own = dict(model.named_parameters())
+        for name, param in host.named_parameters():
+            if not name.endswith("tables"):
+                param.copy_(own[name].double().cpu())
+        *dense, _ = inputs(host, batch, "cpu", torch.float64)
+        return host(*dense, torch.from_numpy(local)).numpy()
+
+    start = time.perf_counter()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model = cls(cfg, device=dev, seed=seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        table_bytes = sum(m.tables.numel() * m.tables.element_size()
+                          for m in bag_modules(model))
+        stream = ClickStream(n_sparse=cfg.n_sparse, rows=cfg.rows, seed=0)
+        # Step 9 first, untimed: the model's first call sets up cuBLAS
+        # and the allocator, which is not serving.
+        batches = [stream.batch(step, p99_batch) for step in (9, *range(8))]
+        batches.append(stream.batch(8, bulk_batch))
+        reset_launches()
+        logits, secs = [], []
+        with recording(gk, "gather_rows_bag", results=True) as b6_calls:
+            for batch in batches:
+                t0 = time.perf_counter()
+                logits.append(model(*inputs(model, batch, dev)))
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+        path_launches[f"recsys_{kind}"] = dict(LAUNCHES)
+        assert LAUNCHES["gather_rows_bag"] > 0, \
+            f"{kind}: the embedding bag never launched B6"
+        assert len(b6_calls) == LAUNCHES["gather_rows_bag"]
+        # Every B6 call of the path against the plain version.
+        for a, kw, out in b6_calls:
+            check("gather_rows_bag", out, gref.gather_rows_bag(*a, **kw),
+                  f"{kind} path")
+        # The same module call sequence with the plain version in B6's
+        # place: the logits must not move by a bit.
+        with swapped(gk, "gather_rows_bag", gref.gather_rows_bag):
+            for batch, got in zip(batches, logits):
+                want = model(*inputs(model, batch, dev))
+                assert bytes_equal(got, want), \
+                    f"{kind}: logits with B6 != with its plain version"
+        for got in logits:
+            assert bool(torch.isfinite(got).all()), f"{kind}: non-finite"
+        assert tuple(logits[1].shape) == (p99_batch,)
+        assert tuple(logits[-1].shape) == (bulk_batch,)
+        # The first timed p99 batch (step 0) against the float64 CPU
+        # forward.
+        host = host_forward(model, batches[1])
+        card64 = logits[1].double().cpu().numpy()
+        host_err = float(np.abs(card64 - host).max())
+        assert np.allclose(card64, host, rtol=1e-4, atol=1e-4), \
+            f"{kind}: card logits != float64 CPU forward ({host_err})"
+        p99_ms = [t * 1e3 for t in secs[1:9]]
+        row = {"model": cfg.name, "tables_bytes": table_bytes,
+               "init_s": init_s, "warmup_batch_ms": secs[0] * 1e3,
+               "p99_batch_ms": p99_ms,
+               "p99_batch_ms_p50": float(np.median(p99_ms)),
+               "p99_batch_ms_max": max(p99_ms),
+               "bulk_batch": bulk_batch, "bulk_s": secs[9],
+               "bulk_samples_per_s": bulk_batch / secs[9],
+               "host_f64_max_abs_err": host_err,
+               "b6_calls_checked": len(b6_calls),
+               "launches": path_launches[f"recsys_{kind}"]}
+        # B6 at each call of the bulk batch: DLRM's one (D = 64), DeepFM's
+        # two (D = 10, then its D = 1 first-order bag).
+        n_bulk = len(b6_calls) // len(batches)
+        timings = [bag_timing(dev, *a, f"{cfg.name} serve_bulk")
+                   for a, _, _ in b6_calls[-n_bulk:]]
+        if extras:
+            # B6 on padded bags: the bulk ids (offset into the stacked
+            # tables) reshaped to L = 8, a seeded quarter of slots -1.
+            (table_v, bulk_ids), _, _ = b6_calls[-1]
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            padded = bulk_ids.reshape(-1, 8).clone()
+            padded[torch.rand(padded.shape, generator=gen,
+                              device=dev) < 0.25] = -1
+            check("gather_rows_bag", gk.gather_rows_bag(table_v, padded),
+                  gref.gather_rows_bag(table_v, padded), "padded L = 8")
+            row["padded_bags"] = int(padded.shape[0])
+            timings.append(bag_timing(dev, table_v, padded,
+                                      f"{cfg.name} serve_bulk padded"))
+    row["seconds"] = time.perf_counter() - start
+    return row, timings
+
+
+def bag_timing(dev, table, bags, what: str) -> dict:
+    """B6, its plain version and ``F.embedding_bag`` on the same bags;
+    the bound counts each id, each distinct row read and each output
+    element once (Zipf traffic re-reads hot rows from L2)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    valid = bags >= 0
+    clamped, weights = bags.clamp(min=0), valid.to(table.dtype)
+    distinct = int(torch.unique(bags[valid]).numel())
+    n, d = bags.shape[0], table.shape[1]
+    size = table.element_size()
+    n_bytes = bags.numel() * 4 + distinct * d * size + n * d * size
+    timer = Timer(dev)
+    return {
+        "ms": timer(lambda: gk.gather_rows_bag(table, bags)),
+        "plain_ms": timer(lambda: gref.gather_rows_bag(table, bags)),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(lambda: F.embedding_bag(
+            clamped, table, mode="sum", per_sample_weights=weights)),
+        "shape": {"what": what, "bags": n, "L": int(bags.shape[1]), "D": d,
+                  "N": int(table.shape[0]), "distinct_rows": distinct,
+                  "bytes": n_bytes}}
 
 
 def main(argv=None) -> int:
@@ -618,7 +840,10 @@ def main(argv=None) -> int:
           "launcher_said": said.getvalue().splitlines()})
     del run, fresh, reference
 
-    # -- 8. timing at the shapes each path gave its kernels -------------
+    # -- 8. recsys_serve: DLRM-RM2 and DeepFM at full width (B6) --------
+    b6_timing = recsys_serve(dev, args.seed, card, check, path_launches)
+
+    # -- 9. timing at the shapes each path gave its kernels -------------
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in LAUNCHES}
     for name, n in launches.items():
@@ -728,9 +953,18 @@ def main(argv=None) -> int:
         "shape": {"P": int(verts5.shape[0]), "V": int(verts5.shape[1]),
                   "D": int(verts5.shape[2]), "flops": b5_flops,
                   "bytes": b5_bytes}})
+
+    # B6: the DLRM serve_bulk batch (timed in phase 8), with DeepFM's
+    # bulk calls and the padded bags under "variants".
+    entries.append({
+        "name": "gather_rows_bag", "route": "cuda",
+        "source": "src/repro_torch/csrc/gather.cu",
+        "replaces": "src/repro/kernels/gather/kernel.py:123",
+        "launches": launches["gather_rows_bag"],
+        "max_abs_err": errs["gather_rows_bag"], **b6_timing})
     emit({"phase": "timing", "card": card})
 
-    # -- 9. the kernels line, the card, the result -----------------------
+    # -- 10. the kernels line, the card, the result ----------------------
     emit({"kernels": entries, "launches": launches,
           "path_launches": path_launches})
     print(card, flush=True)

@@ -4,7 +4,9 @@ The extraction system has no weights: its state is the datacube, the
 payload and the requests.  A *spec* is a plain dict of numpy arrays,
 numbers and strings that either implementation can be described by, so
 the same arrays feed both and nothing of one package leaks into the
-other.
+other.  The recsys models do have weights: ``dlrm_from_params`` and
+``deepfm_from_params`` load a parameter tree of numpy arrays, laid out
+as the JAX package's initialisers build it, into the port's modules.
 
 Datacube spec::
 
@@ -42,6 +44,7 @@ from ._device import resolve_device
 from .core import axes as _axes
 from .core import datacube as _datacube
 from .core import shapes as _shapes
+from .models import recsys as _recsys
 
 _SHAPES = {cls.__name__.lower(): cls for cls in (
     _shapes.Select, _shapes.All, _shapes.Span, _shapes.Point, _shapes.Box,
@@ -117,3 +120,45 @@ def payload_to_tensor(flat: np.ndarray, device=None) -> torch.Tensor:
     card), moved once."""
     dev = resolve_device(device)
     return torch.from_numpy(np.ascontiguousarray(flat)).to(dev)
+
+
+def _load(param: torch.Tensor, value: Any, what: str) -> None:
+    arr = np.asarray(value)
+    if tuple(arr.shape) != tuple(param.shape):
+        raise ValueError(f"{what}: shape {arr.shape}, the module's is "
+                         f"{tuple(param.shape)}")
+    with torch.no_grad():
+        param.copy_(torch.from_numpy(np.array(arr, order="C")))
+
+
+def _load_mlp(mlp: torch.nn.Module, tree: dict, what: str) -> None:
+    layers = tree["layers"]
+    if len(layers) != len(mlp.layers):
+        raise ValueError(f"{what}: {len(layers)} layers, the module has "
+                         f"{len(mlp.layers)}")
+    for i, (layer, p) in enumerate(zip(mlp.layers, layers)):
+        _load(layer.w, p["w"], f"{what}.layers[{i}].w")
+        _load(layer.b, p["b"], f"{what}.layers[{i}].b")
+
+
+def dlrm_from_params(cfg: _recsys.DLRMConfig, params: dict,
+                     device=None) -> _recsys.DLRM:
+    """A ``DLRM`` holding ``params``: ``{"bags": {"tables"}, "bot":
+    {"layers": [{"w", "b"}, ...]}, "top": {...}}`` as numpy arrays."""
+    model = _recsys.DLRM(cfg, device=device)
+    _load(model.bags.tables, params["bags"]["tables"], "bags.tables")
+    _load_mlp(model.bot, params["bot"], "bot")
+    _load_mlp(model.top, params["top"], "top")
+    return model
+
+
+def deepfm_from_params(cfg: _recsys.DeepFMConfig, params: dict,
+                       device=None) -> _recsys.DeepFM:
+    """A ``DeepFM`` holding ``params``: ``{"bags": {"tables"}, "linear":
+    {"tables"}, "deep": {"layers": [...]}, "bias"}`` as numpy arrays."""
+    model = _recsys.DeepFM(cfg, device=device)
+    _load(model.bags.tables, params["bags"]["tables"], "bags.tables")
+    _load(model.linear.tables, params["linear"]["tables"], "linear.tables")
+    _load_mlp(model.deep, params["deep"], "deep")
+    _load(model.bias, params["bias"], "bias")
+    return model

@@ -1,15 +1,19 @@
-// The extraction read: kernels B1 (gather_rows) and B2 (gather_runs).
+// The extraction read: kernels B1 (gather_rows) and B2 (gather_runs), and
+// the EmbeddingBag sum of the recsys models: kernel B6 (gather_rows_bag).
 //
 // Replaces the Pallas kernels of the JAX package's
 // kernels/gather/kernel.py: gather_rows (_gather_kernel, the
-// pallas_call at line 71: one scalar-prefetched row DMA per grid step)
-// and gather_runs (_runs_kernel, the pallas_call at line 181: one
-// block-wide DMA per coalesced-run chunk).
+// pallas_call at line 71: one scalar-prefetched row DMA per grid step),
+// gather_rows_bag (_bag_kernel, the pallas_call at line 123: a (B, L)
+// grid, one row DMA per bag slot, summed into the bag's output row over
+// the sequential L axis) and gather_runs (_runs_kernel, the pallas_call
+// at line 181: one block-wide DMA per coalesced-run chunk).
 //
-// Bound on the H100: bytes.  Both are copies with no arithmetic: each
-// output element costs one read of the payload (plus its index or
-// chunk start) and one write, so the floor is
-// (bytes read + bytes written) / 3.35 TB/s.
+// Bound on the H100: bytes.  All three are copies with no or one add per
+// element read: each output element costs one read of the payload (plus
+// its index or chunk start) and one write, so the floor is
+// (bytes read + bytes written) / 3.35 TB/s.  For B6 the rows read are
+// the distinct ids of the batch: Zipf traffic re-reads hot rows from L2.
 //
 // Design: the TPU kernels move one row or one chunk per sequential grid
 // step.  Here every output element has its own thread.  gather_rows
@@ -23,6 +27,20 @@
 // of the whole payload on every call).  Elements move as opaque 1-, 2-,
 // 4- or 8-byte words, so one instantiation serves every dtype of that
 // width.
+//
+// gather_rows_bag gives each bag a group of 1-32 lanes of one warp, the
+// smallest power of two that covers the row in packs of VEC elements
+// (16-byte loads where D and both pointers allow them, else 8 or 4): D
+// = 64 float takes 16 lanes of float4, D = 10 takes 8 lanes of float2,
+// D = 1 one lane, so a narrow row does not leave a warp idle.  Groups
+// walk the bags in a grid-stride loop.  The lanes of a group load a run
+// of the bag's ids together, one id each, and pass them round with
+// __shfl_sync, so each id is read once per bag (for D up to 32 packs;
+// a wider row takes several passes over the columns, each reading the
+// ids again from L1).  A -1 slot loads nothing and adds +0.0.  The sum
+// starts at zero and adds the slots in l order, in the table's dtype:
+// the Pallas kernel's order, so kernel, plain version and Pallas kernel
+// agree byte for byte.  float and double only.
 #include "common.cuh"
 
 template <typename W>
@@ -52,6 +70,60 @@ __global__ void gather_runs_kernel(const W* __restrict__ flat, int64_t n,
     }
 }
 
+// A row pack of VEC elements, aligned so that it loads and stores as one
+// 8- or 16-byte access.
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+    T v[VEC];
+};
+
+template <typename T, int VEC>
+__global__ void gather_rows_bag_kernel(const T* __restrict__ table,
+                                       int64_t d,
+                                       const int32_t* __restrict__ bags,
+                                       int64_t b, int64_t l, int group,
+                                       T* __restrict__ out) {
+    using P = Pack<T, VEC>;
+    const int lane = threadIdx.x & 31;
+    const int g = lane & (group - 1);             // lane within the group
+    const unsigned mask =
+        group == 32 ? 0xffffffffu : ((1u << group) - 1u) << (lane - g);
+    const int64_t per_block = blockDim.x / group;
+    const int64_t stride = (int64_t)gridDim.x * per_block;
+    const int64_t dv = d / VEC;                   // packs per row
+    for (int64_t bag = (int64_t)blockIdx.x * per_block + threadIdx.x / group;
+         bag < b; bag += stride) {
+        const int32_t* ids = bags + bag * l;
+        P* orow = reinterpret_cast<P*>(out + bag * d);
+        for (int64_t c0 = 0; c0 < dv; c0 += group) {
+            const int64_t c = c0 + g;
+            const bool mine = c < dv;
+            P acc;
+#pragma unroll
+            for (int j = 0; j < VEC; ++j) acc.v[j] = T(0);
+            for (int64_t s0 = 0; s0 < l; s0 += group) {
+                const int32_t held = s0 + g < l ? ids[s0 + g] : -1;
+                const int n = (int)(l - s0 < group ? l - s0 : group);
+                for (int k = 0; k < n; ++k) {
+                    const int32_t id = __shfl_sync(mask, held, k, group);
+                    P row;
+                    if (mine && id >= 0) {
+                        row = reinterpret_cast<const P*>(
+                            table + (int64_t)id * d)[c];
+                    } else {
+#pragma unroll
+                        for (int j = 0; j < VEC; ++j) row.v[j] = T(0);
+                    }
+#pragma unroll
+                    for (int j = 0; j < VEC; ++j)
+                        acc.v[j] = acc.v[j] + row.v[j];
+                }
+            }
+            if (mine) orow[c] = acc;
+        }
+    }
+}
+
 template <typename W>
 static void launch_rows(const void* table, int64_t d, const void* idx,
                         int64_t m, void* out, cudaStream_t s) {
@@ -71,6 +143,26 @@ static void launch_runs(const void* flat, int64_t n, const void* starts,
     gather_runs_kernel<W><<<(unsigned)c, threads, 0, s>>>(
         static_cast<const W*>(flat), n, static_cast<const int32_t*>(starts),
         block, static_cast<W*>(out));
+}
+
+template <typename T, int VEC>
+static void launch_bag(const void* table, int64_t d, const void* bags,
+                       int64_t b, int64_t l, void* out, cudaStream_t s) {
+    const int64_t dv = d / VEC;
+    int group = 1;
+    while (group < 32 && group < dv) group <<= 1;
+    const int threads = 256;
+    const int64_t per_block = threads / group;
+    const int64_t want = (b + per_block - 1) / per_block;
+    const int64_t cap = 132 * 32;  // grid-stride past 32 blocks per SM
+    const unsigned blocks = (unsigned)(want < cap ? want : cap);
+    gather_rows_bag_kernel<T, VEC><<<blocks, threads, 0, s>>>(
+        static_cast<const T*>(table), d, static_cast<const int32_t*>(bags),
+        b, l, group, static_cast<T*>(out));
+}
+
+static bool aligned(const void* p, int bytes) {
+    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // out (m, d) = table (n, d)[idx (m,)]; elem_bytes is the dtype's width.
@@ -102,6 +194,37 @@ extern "C" int polytope_gather_runs(int device, const void* flat, int64_t n,
         case 2: launch_runs<uint16_t>(flat, n, starts, c, block, out, s); break;
         case 4: launch_runs<uint32_t>(flat, n, starts, c, block, out, s); break;
         case 8: launch_runs<uint64_t>(flat, n, starts, c, block, out, s); break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return polytope_launch_status();
+}
+
+// out (b, d): out[i] = sum over k < l of table[bags[i, k]], with -1
+// slots adding zero; elem_bytes 4 is float, 8 double.
+extern "C" int polytope_gather_rows_bag(int device, const void* table,
+                                        int64_t d, const void* bags,
+                                        int64_t b, int64_t l, int elem_bytes,
+                                        void* out, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool a16 = aligned(table, 16) && aligned(out, 16);
+    const bool a8 = aligned(table, 8) && aligned(out, 8);
+    switch (elem_bytes) {
+        case 4:
+            if (d % 4 == 0 && a16)
+                launch_bag<float, 4>(table, d, bags, b, l, out, s);
+            else if (d % 2 == 0 && a8)
+                launch_bag<float, 2>(table, d, bags, b, l, out, s);
+            else
+                launch_bag<float, 1>(table, d, bags, b, l, out, s);
+            break;
+        case 8:
+            if (d % 2 == 0 && a16)
+                launch_bag<double, 2>(table, d, bags, b, l, out, s);
+            else
+                launch_bag<double, 1>(table, d, bags, b, l, out, s);
+            break;
         default: return (int)cudaErrorInvalidValue;
     }
     return polytope_launch_status();

@@ -1,12 +1,13 @@
-# Hand-written CUDA kernels for the extraction main path, one subpackage
-# each as <name>/{kernel.py, ops.py, ref.py}: the ctypes-bound CUDA
-# wrapper, the dispatcher (a CUDA tensor launches the kernel, a CPU
-# tensor takes the plain version), and the plain PyTorch version the
-# tests and chip_smoke.py hold the kernel against.  Sources live in
-# ../csrc and are built by _build at first use.
+# Hand-written CUDA kernels for the extraction system and the recsys
+# embedding bag, one subpackage each as <name>/{kernel.py, ops.py,
+# ref.py}: the ctypes-bound CUDA wrapper, the dispatcher (a CUDA tensor
+# launches the kernel, a CPU tensor takes the plain version), and the
+# plain PyTorch version the tests and chip_smoke.py hold the kernel
+# against.  Sources live in ../csrc and are built by _build at first use.
 #
 # gather — exact-byte extraction gathers: per-offset gather_rows (B1)
-#          and the run-length burst gather_runs (B2)
+#          and the run-length burst gather_runs (B2); the EmbeddingBag
+#          sum gather_rows_bag (B6) of the recsys models
 # plan   — device-resident planning: the Algorithm-1 trailing stage
 #          (slice → column ranges → run emission → compaction) (B3)
 # slice  — batched BFS-layer slicing slice_batch (B5) and the shared

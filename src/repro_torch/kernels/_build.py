@@ -41,6 +41,7 @@ SIGNATURES = {
     "gather": {
         "polytope_gather_rows": [_I, _P, _L, _P, _L, _I, _P, _P],
         "polytope_gather_runs": [_I, _P, _L, _P, _L, _I, _I, _P, _P],
+        "polytope_gather_rows_bag": [_I, _P, _L, _P, _L, _L, _I, _P, _P],
     },
     "plan_runs_2d": {
         "polytope_plan_runs_2d": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -59,8 +60,8 @@ SIGNATURES = {
 # Launches of each kernel since the last reset_launches(): a wrapper adds
 # one where it launches its kernel, and nowhere else.
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_runs": 0,
-                            "plan_runs_2d": 0, "slice_minor_extents": 0,
-                            "slice_batch": 0}
+                            "gather_rows_bag": 0, "plan_runs_2d": 0,
+                            "slice_minor_extents": 0, "slice_batch": 0}
 
 
 def reset_launches() -> None:

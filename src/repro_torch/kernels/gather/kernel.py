@@ -9,6 +9,8 @@ whole enclosing block.
 * ``gather_runs`` (B2) — one ``block``-wide contiguous copy per chunk
   start → (C, block), with loads past the end of the payload masked to
   zero (the payload is never padded).
+* ``gather_rows_bag`` (B6) — EmbeddingBag(sum): (N, D) float32/float64
+  table × (B, L) int32 bags padded with -1 → (B, D).
 
 Each wrapper checks its tensors, allocates the output with
 ``torch.empty``, launches on PyTorch's current stream, raises if the
@@ -75,4 +77,30 @@ def gather_runs(flat: torch.Tensor, chunk_starts: torch.Tensor,
         out.data_ptr(), _build.stream_of(dev))
     _build.check(lib, status, "gather_runs")
     LAUNCHES["gather_runs"] += 1
+    return out
+
+
+def gather_rows_bag(table: torch.Tensor, bags: torch.Tensor) -> torch.Tensor:
+    """``out[b] = sum_l table[bags[b, l]]`` on the card, a -1 slot adding
+    +0.0, summed in ``l`` order in the table's dtype.
+
+    table — (N, D) float32 or float64 CUDA tensor
+    bags  — (B, L) int32 CUDA tensor, each in [-1, N)
+    """
+    dev = _build.cuda_device(table, "gather_rows_bag table")
+    _build.expect(table, "gather_rows_bag table", device=dev,
+                  dtype=(torch.float32, torch.float64), shape=(None, None))
+    _build.expect(bags, "gather_rows_bag bags", device=dev,
+                  dtype=torch.int32, shape=(None, None))
+    b, n_slots = bags.shape
+    d = table.shape[1]
+    out = torch.empty((b, d), dtype=table.dtype, device=dev)
+    if b == 0 or d == 0:
+        return out
+    lib = _build.library("gather")
+    status = lib.polytope_gather_rows_bag(
+        dev.index or 0, table.data_ptr(), d, bags.data_ptr(), b, n_slots,
+        table.element_size(), out.data_ptr(), _build.stream_of(dev))
+    _build.check(lib, status, "gather_rows_bag")
+    LAUNCHES["gather_rows_bag"] += 1
     return out

@@ -3,8 +3,9 @@
 The tensor's device decides the path: a CUDA tensor launches the CUDA
 kernel (``kernel``), a CPU tensor takes the plain PyTorch version
 (``ref``).  There is no fallback between them: a failed build or launch
-raises.  ``use_pallas``/``interpret`` keep the JAX package's signatures
-for parity and are ignored — on the port the device decides.
+raises.  ``use_pallas``/``interpret`` of ``gather_rows`` and
+``gather_plan_runs`` keep the JAX package's signatures for parity and
+are ignored — on the port the device decides.
 """
 
 from __future__ import annotations
@@ -32,10 +33,12 @@ def _route(t: torch.Tensor):
 
 
 def _index_tensor(indices, device: torch.device, *, what: str,
-                  n_elements: int) -> torch.Tensor:
+                  n_elements: int,
+                  allow_negative_one: bool = False) -> torch.Tensor:
     """Validate and cast offsets to int32 (host-side for numpy input),
     then place them beside the data."""
-    idx = checked_cast_i32(indices, what=what, n_elements=n_elements)
+    idx = checked_cast_i32(indices, what=what, n_elements=n_elements,
+                           allow_negative_one=allow_negative_one)
     if isinstance(idx, np.ndarray):
         idx = torch.from_numpy(idx)
     return idx.to(device)
@@ -47,6 +50,15 @@ def gather_rows(table: torch.Tensor, indices, use_pallas: bool = False,
     idx = _index_tensor(indices, table.device, what="gather_rows indices",
                         n_elements=table.shape[0])
     return _route(table).gather_rows(table, idx)
+
+
+def gather_rows_bag(table: torch.Tensor, bags) -> torch.Tensor:
+    """Fused EmbeddingBag(sum) over an (N, D) table: ``out[b] =
+    sum_l table[bags[b, l]]`` for (B, L) bags padded with -1 (the only
+    negative value allowed); kernel B6 on the card."""
+    idx = _index_tensor(bags, table.device, what="gather_rows_bag bags",
+                        n_elements=table.shape[0], allow_negative_one=True)
+    return _route(table).gather_rows_bag(table, idx)
 
 
 def chunk_runs(run_starts: np.ndarray, run_lengths: np.ndarray,

@@ -17,6 +17,27 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return table[idx.long()]
 
 
+def gather_rows_bag(table: torch.Tensor, bags: torch.Tensor) -> torch.Tensor:
+    """EmbeddingBag(sum) with -1 padding: ``out[b] = sum_l table[bags[b, l]]``.
+
+    Starts from zeros and adds one bag slot at a time, ``l = 0 .. L-1``,
+    a -1 slot adding +0.0: the Pallas kernel's accumulation over its
+    sequential ``l`` grid axis, which the CUDA kernel keeps too, so all
+    three agree byte for byte.  The sum is in the table's dtype.
+    """
+    bags = checked_cast_i32(bags, what="gather_rows_bag bags",
+                            n_elements=table.shape[0],
+                            allow_negative_one=True)
+    valid = bags >= 0
+    rows = table[bags.clamp(min=0).long()]                  # (B, L, D)
+    zero = torch.zeros((), dtype=table.dtype, device=table.device)
+    out = torch.zeros((bags.shape[0], table.shape[1]), dtype=table.dtype,
+                      device=table.device)
+    for slot in range(bags.shape[1]):
+        out = out + torch.where(valid[:, slot, None], rows[:, slot], zero)
+    return out
+
+
 def gather_runs(flat: torch.Tensor, chunk_starts: torch.Tensor,
                 block: int) -> torch.Tensor:
     """Window loads, (C, block), zero where a window runs past the end

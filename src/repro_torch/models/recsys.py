@@ -1,0 +1,171 @@
+"""RecSys serving models: the EmbeddingBag, DLRM (RM-2) and DeepFM.
+
+The embedding lookup is the hot path, and it is the paper's algorithm on
+the (row, dim) table datacube: the ids plan the rows, and only those
+bytes are read.  ``EmbeddingBag`` sums each bag of ids with kernel B6
+(``gather_rows_bag``, routed by ``kernels.gather.ops``): one launch per
+call over all tables, viewed as one (T·R, D) table.  On CPU tensors it
+runs B6's plain version, which sums the slots in the same order as the
+kernel.
+
+Parameters keep the JAX package's layouts (stacked ``(T, R, D)``
+tables, ``w (d_in, d_out)`` dense weights), so ``repro_torch.carry``
+loads a JAX parameter tree into these modules unchanged.  Serving only:
+B6 has no backward yet, so the tables do not require gradients, and
+losses and training are not ported.  Matrix products are
+``torch.matmul``/``torch.bmm`` at whatever float32 matmul precision the
+process has set (TF32 off by default): the models inherit those settings
+and never set them.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from .._device import resolve_device
+from ..kernels._casting import ensure_i32_addressable
+from ..kernels.gather import ops as gather_ops
+from .layers import MLP
+
+
+class EmbeddingBag(nn.Module):
+    """``n_tables`` stacked tables ``(T, rows, dim)``; ``bags (B, T, L)``
+    with -1 padding → ``(B, T, dim)``."""
+
+    def __init__(self, n_tables: int, rows: int, dim: int, *,
+                 generator: torch.Generator, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        # Flat ids t·R + id are int32.
+        ensure_i32_addressable(n_tables * rows, what="EmbeddingBag tables")
+        tables = torch.empty((n_tables, rows, dim), dtype=dtype,
+                             device=device)
+        # One table at a time, in place: no second copy of the tables.
+        scale = 1.0 / math.sqrt(dim)
+        for t in range(n_tables):
+            tables[t].normal_(0.0, scale, generator=generator)
+        self.tables = nn.Parameter(tables, requires_grad=False)
+
+    def forward(self, bags: torch.Tensor,
+                combine: str = "sum") -> torch.Tensor:
+        if combine not in ("sum", "mean"):
+            raise ValueError(f"combine must be 'sum' or 'mean', got "
+                             f"{combine!r}")
+        n_tables, rows, dim = self.tables.shape
+        if bags.dim() != 3 or bags.shape[1] != n_tables:
+            raise ValueError(f"bags: shape {tuple(bags.shape)}, expected "
+                             f"(B, {n_tables}, L)")
+        # Each table's ids must lie in [-1, rows): past ``rows`` an id
+        # would read the next table's row of the flattened view.  This is
+        # the call's one range check (one read back from the card); it
+        # bounds every flat id below T·R, so B6 is called past ``ops``.
+        if bags.numel():
+            lo, hi = torch.stack(torch.aminmax(bags)).tolist()
+            if lo < -1 or hi >= rows:
+                raise IndexError(
+                    f"EmbeddingBag: ids span [{lo}, {hi}], outside "
+                    f"[-1, {rows}) of each table")
+        b, _, n_slots = bags.shape
+        base = torch.arange(n_tables, device=bags.device,
+                            dtype=torch.int32)[None, :, None] * rows
+        flat = torch.where(bags >= 0, bags.int() + base, -1)
+        table = self.tables.view(n_tables * rows, dim)
+        out = gather_ops._route(table).gather_rows_bag(
+            table, flat.view(b * n_tables, n_slots)).view(b, n_tables, dim)
+        if combine == "mean":
+            count = (bags >= 0).sum(dim=2).clamp(min=1)
+            out = out / count[..., None]
+        return out
+
+
+# ---------------------------------------------------------------------------
+# DLRM (RM-2)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class DLRMConfig:
+    name: str = "dlrm-rm2"
+    n_dense: int = 13
+    n_sparse: int = 26
+    rows: int = 1_000_000
+    embed_dim: int = 64
+    bot_mlp: tuple[int, ...] = (512, 256, 64)
+    top_mlp: tuple[int, ...] = (512, 512, 256, 1)
+    bag_size: int = 1
+    dtype: torch.dtype = torch.float32
+
+
+class DLRM(nn.Module):
+    """Bottom MLP over the dense features, one bag per sparse feature,
+    the pairwise dot interaction, top MLP → logits."""
+
+    def __init__(self, cfg: DLRMConfig, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
+        self.cfg = cfg
+        self.bags = EmbeddingBag(cfg.n_sparse, cfg.rows, cfg.embed_dim, **kw)
+        self.bot = MLP([cfg.n_dense, *cfg.bot_mlp], **kw)
+        n_pairs = (cfg.n_sparse + 1) * cfg.n_sparse // 2
+        self.top = MLP([cfg.embed_dim + n_pairs, *cfg.top_mlp], **kw)
+        # jnp.triu_indices(T + 1, k=1): the pairs (i < j) in row-major order.
+        iu, ju = torch.triu_indices(cfg.n_sparse + 1, cfg.n_sparse + 1, 1,
+                                    device=dev)
+        self.register_buffer("pair_i", iu, persistent=False)
+        self.register_buffer("pair_j", ju, persistent=False)
+
+    def forward(self, dense: torch.Tensor,
+                bags: torch.Tensor) -> torch.Tensor:
+        """dense (B, n_dense), bags (B, n_sparse, L) → logits (B,)."""
+        d = self.bot(dense.to(self.cfg.dtype))                 # (B, D)
+        e = self.bags(bags)                                    # (B, T, D)
+        z = torch.cat([d[:, None, :], e], dim=1)               # (B, T+1, D)
+        inter = torch.bmm(z, z.transpose(1, 2))                # (B, T+1, T+1)
+        flat = inter[:, self.pair_i, self.pair_j]              # (B, pairs)
+        x = torch.cat([d, flat], dim=1)
+        return self.top(x)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# DeepFM
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class DeepFMConfig:
+    name: str = "deepfm"
+    n_sparse: int = 39
+    rows: int = 1_000_000
+    embed_dim: int = 10
+    mlp_dims: tuple[int, ...] = (400, 400, 400)
+    dtype: torch.dtype = torch.float32
+
+
+class DeepFM(nn.Module):
+    """First-order (a D = 1 bag per field), FM second-order and deep
+    terms over the field embeddings, plus a scalar bias → logits."""
+
+    def __init__(self, cfg: DeepFMConfig, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
+        self.cfg = cfg
+        self.bags = EmbeddingBag(cfg.n_sparse, cfg.rows, cfg.embed_dim, **kw)
+        self.linear = EmbeddingBag(cfg.n_sparse, cfg.rows, 1, **kw)
+        self.deep = MLP([cfg.n_sparse * cfg.embed_dim, *cfg.mlp_dims, 1],
+                        **kw)
+        self.bias = nn.Parameter(torch.zeros((), dtype=cfg.dtype,
+                                             device=dev))
+
+    def forward(self, bags: torch.Tensor) -> torch.Tensor:
+        """bags (B, n_sparse, L) → logits (B,)."""
+        v = self.bags(bags)                                    # (B, F, D)
+        lin = self.linear(bags)[..., 0]                        # (B, F)
+        # FM second order: ½[(Σv)² − Σv²]
+        s = v.sum(dim=1)
+        fm = 0.5 * (s.square() - v.square().sum(dim=1)).sum(dim=-1)
+        deep = self.deep(v.reshape(v.shape[0], -1))[:, 0]
+        return self.bias + lin.sum(dim=1) + fm + deep

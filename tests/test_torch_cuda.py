@@ -299,3 +299,65 @@ def test_launcher_on_the_card(cuda_device, tmp_path):
     for rank, res in run.served:
         want = fresh.extract(run.population[rank], run.payload).values
         assert _bytes_equal(res.values, want), rank
+
+
+# -- B6 and the recsys models ----------------------------------------------------
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("l", (1, 8, 32))
+@pytest.mark.parametrize("d", (1, 10, 64, 65))
+def test_gather_rows_bag(cuda_device, d, l, dtype):
+    gen = torch.Generator().manual_seed(100 * d + l)
+    table = torch.randn(1000, d, generator=gen).to(dtype)
+    bags = torch.randint(-1, 1000, (777, l), generator=gen,
+                         dtype=torch.int32)
+    bags[0] = -1                                  # an all-padding bag
+    bags[1, 0] = 999
+    table, bags = table.to(cuda_device), bags.to(cuda_device)
+    before = LAUNCHES["gather_rows_bag"]
+    got = gk.gather_rows_bag(table, bags)
+    assert LAUNCHES["gather_rows_bag"] == before + 1
+    assert _bytes_equal(got, gref.gather_rows_bag(table, bags))
+    assert not bool(got[0].any())
+
+
+def test_gather_rows_bag_empty_batch_and_view(cuda_device):
+    table = torch.randn(100, 64, device=cuda_device)
+    empty = gk.gather_rows_bag(table, torch.zeros(
+        (0, 4), dtype=torch.int32, device=cuda_device))
+    assert empty.shape == (0, 64)
+    # A table view 4 bytes past an aligned start takes the scalar path.
+    shifted = torch.randn(100 * 64 + 1, device=cuda_device)[1:].view(100, 64)
+    bags = torch.randint(-1, 100, (50, 3), dtype=torch.int32,
+                         device=cuda_device)
+    assert _bytes_equal(gk.gather_rows_bag(shifted, bags),
+                        gref.gather_rows_bag(shifted, bags))
+
+
+@pytest.mark.parametrize("dtype", (torch.float16, torch.bfloat16,
+                                   torch.int32))
+def test_gather_rows_bag_refuses_other_dtypes(cuda_device, dtype):
+    table = torch.zeros(8, 4, device=cuda_device).to(dtype)
+    bags = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(TypeError):
+        gk.gather_rows_bag(table, bags)
+
+
+def test_dlrm_on_the_card_equals_plain_bag(cuda_device, monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.dataplane.recsys import ClickStream
+    from repro_torch.models.recsys import DLRM
+
+    cfg = get_config("dlrm-rm2", smoke=True)
+    model = DLRM(cfg, device=cuda_device, seed=3)
+    batch = ClickStream(n_sparse=cfg.n_sparse, rows=cfg.rows).batch(0, 256)
+    dense = torch.from_numpy(batch["dense"]).to(cuda_device)
+    bags = torch.from_numpy(batch["bags"]).to(cuda_device)
+    before = LAUNCHES["gather_rows_bag"]
+    with torch.no_grad():
+        got = model(dense, bags)
+        assert LAUNCHES["gather_rows_bag"] == before + 1
+        monkeypatch.setattr(gk, "gather_rows_bag", gref.gather_rows_bag)
+        want = model(dense, bags)
+    assert got.is_cuda and got.shape == (256,)
+    assert _bytes_equal(got, want)

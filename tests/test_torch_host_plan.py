@@ -113,6 +113,40 @@ class TestImportGuard:
         assert out.returncode == 0, out.stderr
         assert int(out.stdout.strip()) >= 20
 
+    def test_recsys_modules_run_with_jax_blocked(self):
+        code = (
+            "import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import torch\n"
+            "from repro_torch import configs\n"
+            "from repro_torch.configs import common, deepfm, dlrm_rm2\n"
+            "from repro_torch.dataplane.recsys import ClickStream\n"
+            "from repro_torch.models.layers import MLP\n"
+            "from repro_torch.models.recsys import DLRM, DeepFM\n"
+            "b = ClickStream(n_sparse=4, rows=128).batch(0, 8)\n"
+            "m = DLRM(configs.get_config('dlrm-rm2', smoke=True), "
+            "device='cpu')\n"
+            "with torch.no_grad():\n"
+            "    y = m(torch.from_numpy(b['dense']), "
+            "torch.from_numpy(b['bags']))\n"
+            "assert y.shape == (8,) and bool(torch.isfinite(y).all())\n"
+            "f = DeepFM(configs.get_config('deepfm', smoke=True), "
+            "device='cpu')\n"
+            "b = ClickStream(n_sparse=6, rows=64).batch(0, 8)\n"
+            "with torch.no_grad():\n"
+            "    y = f(torch.from_numpy(b['bags']))\n"
+            "assert y.shape == (8,) and bool(torch.isfinite(y).all())\n"
+            "bad = [m for m in sys.modules if m == 'repro' "
+            "or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "from repro_torch.kernels import _build\n"
+            "assert _build._libs == {}, 'kernels built on the CPU path'\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             env={**os.environ,
+                                  "PYTHONPATH": str(REPO / "src")},
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+
     def test_source_names_neither_jax_nor_reference_package(self):
         bad_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
         bad_name = re.compile(r"\brepro\b(?!_torch)")
