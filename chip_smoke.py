@@ -64,19 +64,39 @@ and then, printing one JSON line per phase:
                agree with the port's float64 CPU forward (on the rows the
                batch reads and the weights copied to the host) within
                rtol = atol = 1e-4.  Each model is freed before the next;
-9. timing    — each kernel at the shapes its path gave it, with CUDA
+9. gnn       — NequIP at its published width (5 layers, 32 channels,
+               l_max = 2; seeded random weights carried from a numpy
+               tree with ``carry.nequip_from_params``) on three graph
+               shapes from the port's data plane: 128 padded molecules
+               (energies and forces), the Cora-sized full graph and a
+               sampled Reddit-sized minibatch (node classes), each with
+               one untimed and 8 timed forwards, with TF32 off; every
+               message sum and the energy readout is one segment_sum
+               (B7) launch, 15 per node-class forward and 16 per energy
+               forward.  Every B7 call of the path must equal B7's plain
+               version byte for byte, and so must the outputs with the
+               plain version in B7's place; B7 is also held on the
+               minibatch's l = 2 sum with the padding edges clamped onto
+               node 0 (the JAX package's ids: an 80,417-edge segment);
+               the first timed outputs must agree with the float64 CPU
+               forward of the same weights within rtol = atol = 1e-4;
+10. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B6's at
                the DLRM ``serve_bulk`` shape, timed in phase 8 while the
                tables are on the card, with DeepFM's D = 10 and D = 1
-               bulk calls and the padded L = 8 bags as variants);
-10. the kernels line, with the launch counts of the paths.
+               bulk calls and the padded L = 8 bags as variants; B7's at
+               the minibatch's l = 2 sum, timed in phase 9, with its
+               l = 0 and l = 1 sums, the energy readout and the hub as
+               variants);
+11. the kernels line, with the launch counts of the paths.
 
 The launch counters are reset just before each path (phases 2-3, 5, 6,
-7 and each model of 8) and read just after it, so the counts show that
-each path ran through its kernels; checks against the plain versions
-come after the counts are read.  The last line is ``{"ok": true, "device": {...}}``;
-any failure raises and the exit code is non-zero.
+7, each model of 8 and each shape of 9) and read just after it, so the
+counts show that each path ran through its kernels; checks against the
+plain versions come after the counts are read.  The last line is
+``{"ok": true, "device": {...}}``; any failure raises and the exit
+code is non-zero.
 """
 
 from __future__ import annotations
@@ -99,6 +119,11 @@ FP64_FLOPS = 34e12             # H100 SXM data sheet, FP64 outside tensor cores
 FP32_FLOPS = 67e12             # H100 SXM data sheet, FP32 outside tensor cores
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: gathered bytes start cold
 SERVE_REQUESTS = 512           # the sharded_serve phase's Zipf draws
+# NequIP's graph shapes (GNN_SHAPES of the configuration), in the order
+# the gnn phase serves them, each with one untimed and 8 timed forwards.
+GNN_RUNS = ("molecule", "full_graph_sm", "minibatch_lg")
+GNN_FORWARDS = 8
+GNN_F64 = dict(rtol=1e-4, atol=1e-4)   # card float32 vs CPU float64
 
 
 def emit(obj) -> None:
@@ -244,6 +269,36 @@ def recording(module, name: str, results: bool = False):
         yield calls
 
 
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms while the block runs (warning
+    only where an operation has none)."""
+    import torch
+
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def tf32_off(phase: str) -> dict:
+    """The process's float32 matmul settings, which the models inherit;
+    fails if TF32 is on, since the float64 comparisons are stated for
+    full float32 products."""
+    import torch
+
+    matmul = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+              "float32_matmul_precision":
+                  torch.get_float32_matmul_precision()}
+    assert not matmul["allow_tf32"] and \
+        matmul["float32_matmul_precision"] == "highest", \
+        f"{phase}: TF32 is on ({matmul})"
+    return matmul
+
+
 def recsys_serve(dev, seed: int, card: str, check,
                  path_launches: dict) -> dict:
     """Phase 8: serve DLRM-RM2 and then DeepFM at their published widths
@@ -255,14 +310,7 @@ def recsys_serve(dev, seed: int, card: str, check,
     from repro_torch.configs import deepfm, dlrm_rm2
     from repro_torch.models.recsys import DLRM, DeepFM
 
-    # The models inherit the process's float32 matmul settings; the
-    # float64 comparison below is stated for full float32 products.
-    matmul = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-              "float32_matmul_precision":
-                  torch.get_float32_matmul_precision()}
-    assert not matmul["allow_tf32"] and \
-        matmul["float32_matmul_precision"] == "highest", \
-        f"recsys_serve: TF32 is on ({matmul})"
+    matmul = tf32_off("recsys_serve")
     timings = []
     for kind, cfg, cls in (("dlrm", dlrm_rm2._cfg(), DLRM),
                            ("deepfm", deepfm._cfg(), DeepFM)):
@@ -437,6 +485,309 @@ def bag_timing(dev, table, bags, what: str) -> dict:
                   "N": int(table.shape[0]), "distinct_rows": distinct,
                   "bytes": n_bytes}}
 
+
+def gnn_batch(shape: str) -> dict:
+    """The input of ``shape`` from the port's data plane: 128 padded
+    molecules, the Cora-sized full graph, or one sampled Reddit-sized
+    minibatch (average degree cut from 492 to 50: see PERF.md §4)."""
+    from repro_torch.dataplane import graph
+
+    if shape == "molecule":
+        return graph.molecule_batch(128, 30, 64, pad_nodes=4096,
+                                    pad_edges=8192)
+    if shape == "full_graph_sm":
+        return graph.full_graph_batch(graph.synthetic_graph(2708, 4, 1433, 7),
+                                      3072, 10752)
+    g = graph.synthetic_graph(232_965, 50, 602, 41)
+    return graph.minibatch(g, 1024, [15, 10], 169_984, 168_960)
+
+
+def nequip_tree(cfg, seed: int) -> dict:
+    """Random NequIP weights as numpy arrays, with the layout and scales
+    of the JAX package's ``nequip_init`` (normal · 1/√fan-in, zero
+    biases), drawn from ``seed``."""
+    import math
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, fan_in):
+        return (rng.standard_normal(shape) / math.sqrt(fan_in)).astype(
+            np.float32)
+
+    def mlp(dims):
+        return {"layers": [{"w": normal((a, b), a),
+                            "b": np.zeros((b,), np.float32)}
+                           for a, b in zip(dims[:-1], dims[1:])]}
+
+    c, paths = cfg.channels, cfg.paths
+    layers = []
+    for _ in range(cfg.n_layers):
+        layer = {"radial": mlp([cfg.n_rbf, cfg.radial_hidden,
+                                len(paths) * c]),
+                 "mix": {}, "self": {}, "gate": {}}
+        for l in cfg.ls:
+            k = sum(1 for p in paths if p[2] == l)
+            layer["mix"][str(l)] = normal((k * c, c), k * c)
+            layer["self"][str(l)] = normal((c, c), c)
+            if l > 0:
+                layer["gate"][str(l)] = normal((c, c), c)
+        layers.append(layer)
+    return {"embed": mlp([cfg.d_feat, c]), "layers": layers,
+            "readout": mlp([c, c, cfg.n_out])}
+
+
+def gnn(dev, seed: int, card: str, check, path_launches: dict) -> dict:
+    """Phase 9: NequIP at its published width on three graph shapes,
+    every message sum through B7; returns B7's timing at
+    ``minibatch_lg``'s l = 2 sum (a kernels-line entry without its
+    counts), with the other timed shapes under ``variants``."""
+    import torch
+
+    matmul = tf32_off("gnn")
+    timed = {}
+    for shape in GNN_RUNS:
+        row, calls = serve_gnn_shape(dev, seed, shape, check, path_launches)
+        emit({"phase": "gnn", **row, "matmul": matmul, "card": card})
+        if shape == "molecule":
+            a, _, _ = calls[-1]                  # the energy readout
+            timed["readout"] = segment_timing(dev, *a, "molecule energy "
+                                              "readout")
+        elif shape == "minibatch_lg":
+            # The last layer's three sums (l = 0, 1, 2), then the same
+            # l = 2 messages with the JAX package's ids (padding edges
+            # clamped onto node 0: an 80,417-edge hub, same sums).
+            (m0, i0, s0), _, _ = calls[-3]
+            (m1, i1, s1), _, _ = calls[-2]
+            (m2, i2, s2), _, out2 = calls[-1]
+            timed["l2"] = segment_timing(dev, m2, i2, s2, "minibatch_lg "
+                                         "l = 2")
+            timed["l0"] = segment_timing(dev, m0, i0, s0, "minibatch_lg "
+                                         "l = 0")
+            timed["l1"] = segment_timing(dev, m1, i1, s1, "minibatch_lg "
+                                         "l = 1")
+            timed["hub"] = hub_check_and_timing(dev, m2, i2, s2, out2,
+                                                check)
+        del calls
+        torch.cuda.empty_cache()
+    return {**timed["l2"], "variants": [timed["l0"], timed["l1"],
+                                        timed["readout"], timed["hub"]]}
+
+
+def serve_gnn_shape(dev, seed: int, shape: str, check, path_launches: dict):
+    """One shape of phase 9: one untimed and ``GNN_FORWARDS`` timed
+    forwards (energy and forces for ``molecule``), then the checks.
+    Returns (the phase row, the B7 calls of the path with their
+    results)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.carry import nequip_from_params
+    from repro_torch.configs import nequip as nequip_cfg
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.segment import kernel as segk
+    from repro_torch.kernels.segment import ref as segref
+    from repro_torch.models.nequip import nequip_energy_forces
+
+    start = time.perf_counter()
+    info, cfg = GNN_SHAPES[shape], nequip_cfg.for_shape(shape)
+    batch = gnn_batch(shape)
+    build_s = time.perf_counter() - start
+    ei = batch["edge_index"]
+    assert batch["node_feat"].shape == (info["n_nodes"], info["d_feat"])
+    assert ei.shape == (2, info["n_edges"])
+    energy = cfg.readout == "energy"
+    tree = nequip_tree(cfg, seed)
+
+    def inputs(model, device, dtype):
+        args = [torch.from_numpy(batch["node_feat"]).to(device, dtype),
+                torch.from_numpy(batch["positions"]).to(device, dtype),
+                torch.from_numpy(ei).to(device)]
+        kw = {}
+        if energy:
+            kw = dict(graph_ids=torch.from_numpy(batch["graph_ids"]).to(
+                device), n_graphs=batch["n_graphs"])
+
+        def forward():
+            if energy:
+                return nequip_energy_forces(model, *args, **kw)
+            with torch.no_grad():
+                return (model(*args, **kw),)
+        return forward
+
+    model = nequip_from_params(cfg, tree, device=dev)
+    forward = inputs(model, dev, torch.float32)
+    reset_launches()
+    outs, secs = [], []
+    with recording(segk, "segment_sum", results=True) as calls:
+        for _ in range(1 + GNN_FORWARDS):
+            t0 = time.perf_counter()
+            outs.append(forward())
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    launches = path_launches[f"gnn_{shape}"] = dict(LAUNCHES)
+    per_forward = cfg.n_layers * len(cfg.ls) + energy
+    assert launches["segment_sum"] == (1 + GNN_FORWARDS) * per_forward, \
+        f"{shape}: B7 launched {launches['segment_sum']} times"
+    assert len(calls) == launches["segment_sum"]
+    # Every B7 call of the path against the plain version.
+    with torch.no_grad():
+        for a, kw, out in calls:
+            check("segment_sum", out, segref.segment_sum(*a, **kw),
+                  f"{shape} path")
+    # The same forward with the plain version in B7's place.
+    with swapped(segk, "segment_sum", segref.segment_sum):
+        want = forward()
+    for got in outs:
+        assert bytes_equal(got[0], want[0]), \
+            f"{shape}: output with B7 != with its plain version"
+    if energy:
+        # Forces come from PyTorch's backward, whose gathers' gradients
+        # are summed in an order that may vary from run to run; in
+        # deterministic mode they must not move by a bit either.
+        spread = max(max_abs_err(got[1], outs[1][1]) for got in outs)
+        with deterministic():
+            forces = forward()[1]
+            with swapped(segk, "segment_sum", segref.segment_sum):
+                assert bytes_equal(forces, forward()[1]), \
+                    f"{shape}: forces with B7 != with its plain version"
+    for g in outs[1]:
+        assert bool(torch.isfinite(g).all()), f"{shape}: non-finite"
+    expect = (info["n_graphs"],) if energy else (info["n_nodes"],
+                                                 info["n_out"])
+    assert tuple(outs[1][0].shape) == expect
+    # The first timed forward against the float64 CPU forward of the
+    # same weights.
+    t0 = time.perf_counter()
+    host = nequip_from_params(dataclasses.replace(cfg, dtype=torch.float64),
+                              tree, device="cpu")
+    host_out = inputs(host, "cpu", torch.float64)()
+    host_s = time.perf_counter() - t0
+    errs = {}
+    for name, g, h in zip(("energy", "forces") if energy else ("out",),
+                          outs[1], host_out):
+        g64, h = g.double().cpu().numpy(), h.numpy()
+        errs[name] = float(np.abs(g64 - h).max())
+        assert np.allclose(g64, h, **GNN_F64), \
+            f"{shape} {name}: card != float64 CPU forward ({errs[name]})"
+    profiled = device_profile(forward)
+    fwd_ms = [t * 1e3 for t in secs[1:]]
+    p50 = float(np.median(fwd_ms))
+    n_real = int(((ei[0] >= 0) & (ei[1] >= 0)).sum())
+    dst = ei[1][ei[1] >= 0]
+    row = {"shape": shape, "nodes": info["n_nodes"],
+           "edges": info["n_edges"], "real_edges": n_real,
+           "max_in_degree": int(np.bincount(dst).max()) if dst.size else 0,
+           "d_feat": info["d_feat"], "readout": cfg.readout,
+           "forces": energy, "build_s": build_s,
+           "warmup_forward_ms": secs[0] * 1e3, "forward_ms": fwd_ms,
+           "forward_ms_p50": p50, "forward_ms_max": max(fwd_ms),
+           "edges_per_s": info["n_edges"] / (p50 / 1e3),
+           "real_edges_per_s": n_real / (p50 / 1e3),
+           "host_f64_s": host_s, "host_f64_max_abs_err": errs,
+           "host_f64_tol": GNN_F64, "b7_calls_checked": len(calls),
+           "forces_run_spread": spread if energy else None,
+           "profiled_forward": profiled,
+           "launches": launches}
+    row["seconds"] = time.perf_counter() - start
+    return row, calls
+
+
+def device_profile(fn, top: int = 8) -> dict:
+    """One more call of ``fn`` under ``torch.profiler``: its wall time
+    (host clock, ending in a synchronize, profiler overhead included),
+    the summed time of the CUDA kernels it ran and of B7's among them,
+    the device's idle share of the wall time, and the kernels that took
+    the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            slot = by_name.setdefault(ev.name, [0.0, 0])
+            slot[0] += ev.time_range.elapsed_us() / 1e3
+            slot[1] += 1
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
+            "b7_kernel_ms": sum(ms for name, (ms, _) in by_name.items()
+                                if "segment_sum_kernel" in name),
+            # None where the profiler saw no kernel at all.
+            "idle_share": 1.0 - busy_ms / wall_ms if by_name else None,
+            "kernels": sum(n for _, n in by_name.values()),
+            "top": [{"name": name[:80], "ms": ms, "count": n}
+                    for name, (ms, n) in ranked]}
+
+
+def segment_timing(dev, messages, ids, num_segments: int, what: str) -> dict:
+    """B7 (CSR and kernel), the CSR alone, its plain version and
+    ``index_add_`` on the same sums; the bound counts each id, each row of
+    an edge with a segment and each output element once."""
+    import torch
+
+    from repro_torch.kernels.segment import kernel as segk
+    from repro_torch.kernels.segment import ref as segref
+
+    e, d = messages.shape
+    size = messages.element_size()
+    valid = ids >= 0
+    n_valid = int(valid.sum())
+    n_bytes = e * 4 + n_valid * d * size + num_segments * d * size
+    # index_add_ takes no -1 ids: it is given the valid edges, picked out
+    # before the timing.
+    lib_ids, lib_msg = ids[valid], messages[valid]
+    counts = torch.bincount(ids[valid].long(), minlength=num_segments)
+    timer = Timer(dev)
+    # The plain version takes one step per rank of the largest segment:
+    # on a hub, one timed call is seconds.
+    plain_iters = 20 if int(counts.max()) < 1000 else 1
+    return {
+        "ms": timer(lambda: segk.segment_sum(messages, ids, num_segments)),
+        "csr_ms": timer(lambda: segref.segment_csr(ids, num_segments)),
+        "plain_ms": timer(lambda: segref.segment_sum(messages, ids,
+                                                     num_segments),
+                          iters=plain_iters,
+                          warmup=3 if plain_iters > 1 else 0),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(lambda: torch.zeros(
+            (num_segments, d), dtype=messages.dtype,
+            device=dev).index_add_(0, lib_ids, lib_msg)),
+        "shape": {"what": what, "E": e, "D": d, "S": num_segments,
+                  "valid_edges": n_valid,
+                  "max_segment": int(counts.max()), "bytes": n_bytes,
+                  "dtype": str(messages.dtype).removeprefix("torch."),
+                  "plain_iters": plain_iters}}
+
+
+def hub_check_and_timing(dev, messages, ids, num_segments: int, out,
+                         check) -> dict:
+    """B7 on ``ids`` with the padding edges clamped onto node 0, as the
+    JAX package passes them: the same sums (the padding messages are
+    zero), byte for byte, through one 80,417-edge segment; checked once
+    against the plain version, then timed."""
+    from repro_torch.kernels.segment import kernel as segk
+    from repro_torch.kernels.segment import ref as segref
+
+    hub = ids.clamp(min=0)
+    got = segk.segment_sum(messages, hub, num_segments)
+    assert bytes_equal(got, out), "B7: clamped padding ids change the sum"
+    check("segment_sum", got, segref.segment_sum(messages, hub,
+                                                 num_segments),
+          "minibatch_lg l = 2, clamped padding ids")
+    return segment_timing(dev, messages, hub, num_segments,
+                          "minibatch_lg l = 2, padding clamped onto node 0")
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -843,7 +1194,10 @@ def main(argv=None) -> int:
     # -- 8. recsys_serve: DLRM-RM2 and DeepFM at full width (B6) --------
     b6_timing = recsys_serve(dev, args.seed, card, check, path_launches)
 
-    # -- 9. timing at the shapes each path gave its kernels -------------
+    # -- 9. gnn: NequIP at full width on three graph shapes (B7) --------
+    b7_timing = gnn(dev, args.seed, card, check, path_launches)
+
+    # -- 10. timing at the shapes each path gave its kernels ------------
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in LAUNCHES}
     for name, n in launches.items():
@@ -962,9 +1316,19 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/gather/kernel.py:123",
         "launches": launches["gather_rows_bag"],
         "max_abs_err": errs["gather_rows_bag"], **b6_timing})
+
+    # B7: minibatch_lg's l = 2 message sum (timed in phase 9), with the
+    # l = 0 and l = 1 sums, the energy readout and the hub under
+    # "variants".
+    entries.append({
+        "name": "segment_sum", "route": "cuda",
+        "source": "src/repro_torch/csrc/segment_sum.cu",
+        "replaces": "src/repro/kernels/segment/kernel.py:70",
+        "launches": launches["segment_sum"],
+        "max_abs_err": errs["segment_sum"], **b7_timing})
     emit({"phase": "timing", "card": card})
 
-    # -- 10. the kernels line, the card, the result ----------------------
+    # -- 11. the kernels line, the card, the result ----------------------
     emit({"kernels": entries, "launches": launches,
           "path_launches": path_launches})
     print(card, flush=True)

@@ -4,9 +4,10 @@ The extraction system has no weights: its state is the datacube, the
 payload and the requests.  A *spec* is a plain dict of numpy arrays,
 numbers and strings that either implementation can be described by, so
 the same arrays feed both and nothing of one package leaks into the
-other.  The recsys models do have weights: ``dlrm_from_params`` and
-``deepfm_from_params`` load a parameter tree of numpy arrays, laid out
-as the JAX package's initialisers build it, into the port's modules.
+other.  The models do have weights: ``dlrm_from_params``,
+``deepfm_from_params`` and ``nequip_from_params`` load a parameter tree
+of numpy arrays, laid out as the JAX package's initialisers build it,
+into the port's modules.
 
 Datacube spec::
 
@@ -44,6 +45,7 @@ from ._device import resolve_device
 from .core import axes as _axes
 from .core import datacube as _datacube
 from .core import shapes as _shapes
+from .models import nequip as _nequip
 from .models import recsys as _recsys
 
 _SHAPES = {cls.__name__.lower(): cls for cls in (
@@ -161,4 +163,35 @@ def deepfm_from_params(cfg: _recsys.DeepFMConfig, params: dict,
     _load(model.linear.tables, params["linear"]["tables"], "linear.tables")
     _load_mlp(model.deep, params["deep"], "deep")
     _load(model.bias, params["bias"], "bias")
+    return model
+
+
+def _load_keyed(params: torch.nn.ParameterDict, tree: dict,
+                what: str) -> None:
+    if set(tree) != set(params.keys()):
+        raise ValueError(f"{what}: keys {sorted(tree)}, the module has "
+                         f"{sorted(params.keys())}")
+    for key, value in tree.items():
+        _load(params[key], value, f"{what}[{key!r}]")
+
+
+def nequip_from_params(cfg: _nequip.NequIPConfig, params: dict,
+                       device=None) -> _nequip.NequIP:
+    """A ``NequIP`` holding ``params``: ``{"embed": {"layers": [...]},
+    "readout": {...}, "layers": [{"radial": {...}, "mix": {l: w},
+    "self": {l: w}, "gate": {l: w}}, ...]}`` as numpy arrays, keyed by
+    ``str(l)`` as the JAX package's ``nequip_init`` builds it, and cast
+    to ``cfg.dtype``."""
+    model = _nequip.NequIP(cfg, device=device)
+    layers = params["layers"]
+    if len(layers) != len(model.layers):
+        raise ValueError(f"nequip: {len(layers)} layers, the module has "
+                         f"{len(model.layers)}")
+    _load_mlp(model.embed, params["embed"], "embed")
+    _load_mlp(model.readout, params["readout"], "readout")
+    for i, (layer, p) in enumerate(zip(model.layers, layers)):
+        _load_mlp(layer.radial, p["radial"], f"layers[{i}].radial")
+        _load_keyed(layer.mix, p["mix"], f"layers[{i}].mix")
+        _load_keyed(layer.self_interaction, p["self"], f"layers[{i}].self")
+        _load_keyed(layer.gate, p["gate"], f"layers[{i}].gate")
     return model

@@ -13,6 +13,7 @@ import importlib
 _MODULES = {
     "dlrm-rm2": "dlrm_rm2",
     "deepfm": "deepfm",
+    "nequip": "nequip",
 }
 
 ARCH_IDS = tuple(_MODULES)

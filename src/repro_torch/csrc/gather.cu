@@ -42,6 +42,7 @@
 // the Pallas kernel's order, so kernel, plain version and Pallas kernel
 // agree byte for byte.  float and double only.
 #include "common.cuh"
+#include "rows.cuh"
 
 template <typename W>
 __global__ void gather_rows_kernel(const W* __restrict__ table, int64_t d,
@@ -70,13 +71,6 @@ __global__ void gather_runs_kernel(const W* __restrict__ flat, int64_t n,
     }
 }
 
-// A row pack of VEC elements, aligned so that it loads and stores as one
-// 8- or 16-byte access.
-template <typename T, int VEC>
-struct alignas(sizeof(T) * VEC) Pack {
-    T v[VEC];
-};
-
 template <typename T, int VEC>
 __global__ void gather_rows_bag_kernel(const T* __restrict__ table,
                                        int64_t d,
@@ -84,10 +78,8 @@ __global__ void gather_rows_bag_kernel(const T* __restrict__ table,
                                        int64_t b, int64_t l, int group,
                                        T* __restrict__ out) {
     using P = Pack<T, VEC>;
-    const int lane = threadIdx.x & 31;
-    const int g = lane & (group - 1);             // lane within the group
-    const unsigned mask =
-        group == 32 ? 0xffffffffu : ((1u << group) - 1u) << (lane - g);
+    const int g = threadIdx.x & (group - 1);      // lane within the group
+    const unsigned mask = group_mask(group);
     const int64_t per_block = blockDim.x / group;
     const int64_t stride = (int64_t)gridDim.x * per_block;
     const int64_t dv = d / VEC;                   // packs per row
@@ -148,9 +140,7 @@ static void launch_runs(const void* flat, int64_t n, const void* starts,
 template <typename T, int VEC>
 static void launch_bag(const void* table, int64_t d, const void* bags,
                        int64_t b, int64_t l, void* out, cudaStream_t s) {
-    const int64_t dv = d / VEC;
-    int group = 1;
-    while (group < 32 && group < dv) group <<= 1;
+    const int group = group_for(d / VEC);
     const int threads = 256;
     const int64_t per_block = threads / group;
     const int64_t want = (b + per_block - 1) / per_block;
@@ -159,10 +149,6 @@ static void launch_bag(const void* table, int64_t d, const void* bags,
     gather_rows_bag_kernel<T, VEC><<<blocks, threads, 0, s>>>(
         static_cast<const T*>(table), d, static_cast<const int32_t*>(bags),
         b, l, group, static_cast<T*>(out));
-}
-
-static bool aligned(const void* p, int bytes) {
-    return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 // out (m, d) = table (n, d)[idx (m,)]; elem_bytes is the dtype's width.

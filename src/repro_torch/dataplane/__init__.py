@@ -1,2 +1,4 @@
-# Domain datacubes and request populations (weather), and the synthetic
-# click and interaction streams the recsys models serve (recsys).
+# Domain datacubes and request populations (weather), the synthetic
+# click and interaction streams the recsys models serve (recsys), and
+# the graphs, sampled minibatches and molecule batches NequIP serves
+# (graph).

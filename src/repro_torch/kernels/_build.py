@@ -32,7 +32,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("gather", "plan_runs_2d", "slice_batch", "slice_extents")
+SOURCES = ("gather", "plan_runs_2d", "segment_sum", "slice_batch",
+           "slice_extents")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types: every pointer and the stream
@@ -46,6 +47,9 @@ SIGNATURES = {
     "plan_runs_2d": {
         "polytope_plan_runs_2d": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                   _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    },
+    "segment_sum": {
+        "polytope_segment_sum": [_I, _P, _L, _P, _P, _L, _I, _P, _P],
     },
     "slice_batch": {
         "polytope_slice_batch": [_I, _P, _P, _P, _L, _I, _I, _I, _P, _P,
@@ -61,7 +65,8 @@ SIGNATURES = {
 # one where it launches its kernel, and nowhere else.
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_runs": 0,
                             "gather_rows_bag": 0, "plan_runs_2d": 0,
-                            "slice_minor_extents": 0, "slice_batch": 0}
+                            "slice_minor_extents": 0, "slice_batch": 0,
+                            "segment_sum": 0}
 
 
 def reset_launches() -> None:

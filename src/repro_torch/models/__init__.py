@@ -1,4 +1,5 @@
-# Model layers of the port: the shared dense layers (layers) and the
+# Model layers of the port: the shared dense layers (layers), the
 # recsys serving models DLRM and DeepFM over the B6 EmbeddingBag
-# (recsys).  Parameters keep the JAX package's layouts, so a carried
-# parameter tree (repro_torch.carry) computes the same function.
+# (recsys), and NequIP inference with its message sums on B7 (nequip).
+# Parameters keep the JAX package's layouts, so a carried parameter
+# tree (repro_torch.carry) computes the same function.

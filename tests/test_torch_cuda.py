@@ -7,8 +7,11 @@ without JAX:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 All comparisons are byte for byte: the kernels copy or plan in integer
-and float64/float32 arithmetic that rounds like the plain versions.
+and float64/float32 arithmetic that rounds like the plain versions, and
+the summing kernels (B6, B7) add in the plain versions' order.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -24,6 +27,9 @@ from repro_torch.kernels.gather import ops as gops  # noqa: E402
 from repro_torch.kernels.gather import ref as gref  # noqa: E402
 from repro_torch.kernels.plan import kernel as pk  # noqa: E402
 from repro_torch.kernels.plan import ref as pref  # noqa: E402
+from repro_torch.kernels.segment import kernel as segk  # noqa: E402
+from repro_torch.kernels.segment import ops as segops  # noqa: E402
+from repro_torch.kernels.segment import ref as segref  # noqa: E402
 from repro_torch.kernels.slice import kernel as sk  # noqa: E402
 from repro_torch.kernels.slice import ref as sref  # noqa: E402
 from repro_torch.serve import ExtractionService  # noqa: E402
@@ -361,3 +367,108 @@ def test_dlrm_on_the_card_equals_plain_bag(cuda_device, monkeypatch):
         want = model(dense, bags)
     assert got.is_cuda and got.shape == (256,)
     assert _bytes_equal(got, want)
+
+
+# -- B7 and NequIP ----------------------------------------------------------------
+
+def _segment_case(e, s, d, dtype, seed, hub=10_000):
+    """(e, d) messages and ids in [-1, s): segment 7 a hub of ``hub``
+    edges, segment 11 empty."""
+    gen = torch.Generator().manual_seed(seed)
+    msg = torch.randn(e, d, generator=gen).to(dtype)
+    ids = torch.randint(-1, s, (e,), generator=gen, dtype=torch.int32)
+    ids[ids == 7] = 8
+    ids[torch.randperm(e, generator=gen)[:hub]] = 7
+    ids[ids == 11] = 12
+    return msg, ids
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("d", (1, 10, 32, 160))
+def test_segment_sum(cuda_device, d, dtype):
+    msg, ids = _segment_case(30_000, 3000, d, dtype, seed=d)
+    want_cpu = segref.segment_sum(msg, ids, 3000)
+    msg, ids = msg.to(cuda_device), ids.to(cuda_device)
+    before = LAUNCHES["segment_sum"]
+    got = segk.segment_sum(msg, ids, 3000)
+    assert LAUNCHES["segment_sum"] == before + 1
+    assert _bytes_equal(got, segref.segment_sum(msg, ids, 3000))
+    assert _bytes_equal(got.cpu(), want_cpu)
+    assert not bool(got[11].any())
+    assert int((ids == 7).sum()) == 10_000
+
+
+def test_segment_sum_empty_inputs_and_a_misaligned_view(cuda_device):
+    none = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    out = segk.segment_sum(torch.zeros((0, 4), device=cuda_device), none, 5)
+    assert out.shape == (5, 4) and not bool(out.any())
+    assert segk.segment_sum(torch.zeros((0, 4), device=cuda_device), none,
+                            0).shape == (0, 4)
+    # Messages 4 bytes past an aligned start take the scalar path.
+    msg, ids = _segment_case(2000, 300, 32, torch.float32, seed=1, hub=500)
+    shifted = torch.randn(2000 * 32 + 1, device=cuda_device)[1:].view(2000,
+                                                                       32)
+    shifted.copy_(msg)
+    ids = ids.to(cuda_device)
+    assert _bytes_equal(segk.segment_sum(shifted, ids, 300),
+                        segref.segment_sum(shifted, ids, 300))
+
+
+def test_segment_sum_refuses_what_it_does_not_take(cuda_device):
+    ids = torch.zeros((4,), dtype=torch.int32, device=cuda_device)
+    for dtype in (torch.float16, torch.bfloat16, torch.int32):
+        with pytest.raises(TypeError):
+            segk.segment_sum(torch.zeros((4, 2), device=cuda_device)
+                             .to(dtype), ids, 3)
+    with pytest.raises(TypeError):                       # int64 ids
+        segk.segment_sum(torch.zeros((4, 2), device=cuda_device),
+                         ids.long(), 3)
+    with pytest.raises(ValueError):                      # CPU ids
+        segk.segment_sum(torch.zeros((4, 2), device=cuda_device),
+                         ids.cpu(), 3)
+    with pytest.raises(ValueError):                      # CPU messages
+        segk.segment_sum(torch.zeros((4, 2)), ids, 3)
+    with pytest.raises(ValueError):                      # lengths differ
+        segk.segment_sum(torch.zeros((5, 2), device=cuda_device), ids, 3)
+    with pytest.raises(IndexError):                      # id past S
+        segops.segment_sum(torch.zeros((4, 2), device=cuda_device),
+                           ids + 3, 3)
+
+
+@pytest.mark.parametrize("shape", ("molecule", "full_graph_sm"))
+def test_nequip_on_the_card_equals_plain_segment_sum(cuda_device, shape,
+                                                     monkeypatch):
+    from repro_torch.configs import nequip as nequip_cfg
+    from repro_torch.dataplane import graph
+    from repro_torch.models.nequip import NequIP, nequip_energy_forces
+
+    cfg = nequip_cfg.for_shape(shape, smoke=True)
+    if shape == "molecule":
+        b = graph.molecule_batch(8, pad_nodes=256, pad_edges=600)
+    else:
+        cfg = dataclasses.replace(cfg, d_feat=12)
+        b = graph.full_graph_batch(graph.synthetic_graph(200, 4, 12, 7),
+                                   256, 1024)
+    model = NequIP(cfg, device=cuda_device, seed=3)
+    args = [torch.from_numpy(b[k]).to(cuda_device)
+            for k in ("node_feat", "positions", "edge_index")]
+    kw = {}
+    if shape == "molecule":
+        gid = torch.from_numpy(b["graph_ids"]).to(cuda_device)
+        kw = dict(graph_ids=gid, n_graphs=8)
+
+    def run():
+        if shape == "molecule":
+            return nequip_energy_forces(model, *args, **kw)
+        with torch.no_grad():
+            return (model(*args),)
+
+    before = LAUNCHES["segment_sum"]
+    got = run()
+    per_forward = 3 * cfg.n_layers + (shape == "molecule")
+    assert LAUNCHES["segment_sum"] == before + per_forward
+    monkeypatch.setattr(segk, "segment_sum", segref.segment_sum)
+    want = run()
+    for a, w in zip(got, want):
+        assert a.is_cuda and bool(torch.isfinite(a).all())
+        assert _bytes_equal(a, w)

@@ -147,6 +147,38 @@ class TestImportGuard:
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
 
+    def test_nequip_modules_run_with_jax_blocked(self):
+        code = (
+            "import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import torch\n"
+            "from repro_torch import carry, configs\n"
+            "from repro_torch.configs import common, nequip as cfgs\n"
+            "from repro_torch.dataplane.graph import molecule_batch\n"
+            "from repro_torch.kernels.segment import kernel, ops, ref\n"
+            "from repro_torch.models.nequip import (NequIP, "
+            "nequip_energy_forces)\n"
+            "b = {k: torch.from_numpy(v) if hasattr(v, 'dtype') else v "
+            "for k, v in molecule_batch(4).items()}\n"
+            "m = NequIP(configs.get_config('nequip', smoke=True), "
+            "device='cpu')\n"
+            "e, f = nequip_energy_forces(m, b['node_feat'], "
+            "b['positions'], b['edge_index'], graph_ids=b['graph_ids'], "
+            "n_graphs=4)\n"
+            "assert e.shape == (4,) and f.shape == (120, 3)\n"
+            "assert bool(torch.isfinite(f).all())\n"
+            "assert 'minibatch_lg' in common.GNN_SHAPES\n"
+            "bad = [m for m in sys.modules if m == 'repro' "
+            "or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "from repro_torch.kernels import _build\n"
+            "assert _build._libs == {}, 'kernels built on the CPU path'\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             env={**os.environ,
+                                  "PYTHONPATH": str(REPO / "src")},
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+
     def test_source_names_neither_jax_nor_reference_package(self):
         bad_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
         bad_name = re.compile(r"\brepro\b(?!_torch)")

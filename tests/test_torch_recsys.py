@@ -387,9 +387,9 @@ class TestConfigs:
 
     def test_shapes_and_registry(self):
         assert port_common.RECSYS_SHAPES == REF_SHAPES
-        assert configs.ARCH_IDS == ("dlrm-rm2", "deepfm")
+        assert configs.ARCH_IDS == ("dlrm-rm2", "deepfm", "nequip")
         with pytest.raises(KeyError):
-            configs.get_config("nequip")
+            configs.get_config("bert4rec")
 
     def test_published_table_bytes(self):
         dlrm = configs.get_config("dlrm-rm2")
