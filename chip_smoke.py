@@ -80,7 +80,26 @@ and then, printing one JSON line per phase:
                node 0 (the JAX package's ids: an 80,417-edge segment);
                the first timed outputs must agree with the float64 CPU
                forward of the same weights within rtol = atol = 1e-4;
-10. timing   — each kernel at the shapes its path gave it, with CUDA
+10. lm_serve — GLM-4 9B at its published width (40 layers, d 4096, 32
+               heads over 2 KV heads, vocab 151,552; 8.78 B parameters,
+               17.6 GB of bf16 weights drawn on the card from the run's
+               seed) behind ``ServeEngine`` (16 slots, 4096 pages of 16
+               tokens, 2.68 GB of K/V pool), serving 24 requests with
+               prompts of 512-2048 tokens and 16-48 new tokens each, so
+               admission runs mid-stream; every decode round is one
+               paged_decode_attention (B8) launch per layer.  Every B8
+               call is held against B8's plain version inside the call
+               (the pool changes after it) within the bf16 tolerance of
+               the JAX kernel tests; the first round's logits with the
+               plain version in B8's place, and the logits of two
+               requests against a teacher-forced ``forward`` over their
+               prompt and generated tokens, must agree within the stated
+               bf16 bounds; then the launcher's lm mode (smoke config)
+               in-process; then B8's timings at the last and the first
+               round's shapes, each with one split too, and at
+               ``decode_32k``'s per-layer shape (128 × 32,768 tokens, a
+               4.29 GB pool, shuffled page ids);
+11. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B6's at
                the DLRM ``serve_bulk`` shape, timed in phase 8 while the
@@ -88,13 +107,14 @@ and then, printing one JSON line per phase:
                bulk calls and the padded L = 8 bags as variants; B7's at
                the minibatch's l = 2 sum, timed in phase 9, with its
                l = 0 and l = 1 sums, the energy readout and the hub as
-               variants);
-11. the kernels line, with the launch counts of the paths.
+               variants; B8's timed in phase 10);
+12. the kernels line, with the launch counts of the paths.
 
 The launch counters are reset just before each path (phases 2-3, 5, 6,
-7, each model of 8 and each shape of 9) and read just after it, so the
-counts show that each path ran through its kernels; checks against the
-plain versions come after the counts are read.  The last line is
+7, each model of 8, each shape of 9, the engine and the launcher of 10)
+and read just after it, so the counts show that each path ran through
+its kernels; checks against the plain versions come after the counts
+are read, except B8's, which run inside each call.  The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.
 """
@@ -103,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import io
 import json
 import subprocess
@@ -118,12 +139,44 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP64_FLOPS = 34e12             # H100 SXM data sheet, FP64 outside tensor cores
 FP32_FLOPS = 67e12             # H100 SXM data sheet, FP32 outside tensor cores
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: gathered bytes start cold
+B8_FLUSH_BYTES = 1 << 30       # ~0.32 ms of memset: outlasts B8's launch
 SERVE_REQUESTS = 512           # the sharded_serve phase's Zipf draws
 # NequIP's graph shapes (GNN_SHAPES of the configuration), in the order
 # the gnn phase serves them, each with one untimed and 8 timed forwards.
 GNN_RUNS = ("molecule", "full_graph_sm", "minibatch_lg")
 GNN_FORWARDS = 8
 GNN_F64 = dict(rtol=1e-4, atol=1e-4)   # card float32 vs CPU float64
+BF16_FLOPS = 989e12            # H100 SXM data sheet, bf16 tensor cores, dense
+# The lm_serve phase: GLM-4 9B at full width behind the engine's smoke
+# pool size scaled to 16 live sequences of up to 4096 tokens.
+LM_ENGINE = dict(max_batch=16, max_seq=4096, page_size=16, n_pages=4096)
+LM_REQUESTS = 24               # against 16 slots: admission mid-stream
+LM_PROMPT = (512, 2048)        # prompt tokens, drawn with the run's seed
+LM_NEW = (16, 48)              # max_new_tokens, drawn likewise
+LM_REPLAYS = 8                 # unchecked replays of the first round
+# B8 against its plain version in bf16: the JAX kernel tests' bf16
+# tolerance (tests/test_kernels.py); both sum in float32 in their own
+# order and round the output to bf16, so they differ by an ulp or so.
+B8_BF16 = dict(rtol=2e-2, atol=2e-2)
+# A second bound that scales with the output: both versions round float32
+# results to bf16, so an element may differ by one bf16 ulp of itself,
+# at most 2^-7 of the largest |output|.  B8_BF16's atol alone cannot see
+# much at decode_32k, whose N(0, 1) data over 32,768 tokens give |out|
+# of ~0.01.
+B8_REL = 2.0 ** -7
+# Logits of two computations of the same bf16 model (the decode with B8
+# against the decode with its plain version; the engine's decode against
+# a teacher-forced forward): each of the 40 layers rounds its bf16
+# residual stream (|x| up to ~10, an ulp of 2^-7 x |x|) after products
+# that cuBLAS and B8 sum in other orders, so the final-normed states
+# differ by a few bf16 ulps; through the tied head (151,552 rows of
+# N(0, 0.02²) x 4096) logits of std ~1.3 then differ by up to ~0.1.
+# Over seeds 0-2 (H100) the gaps reached max 0.139, mean 0.0187; B8 with
+# the newest token dropped gave max 0.48-0.56, with the last split
+# dropped mean 0.26-0.29.  The bounds are twice the gaps' largest
+# readings, below both faults.
+LM_LOGITS_MAX = 0.28           # max |difference| of any logit
+LM_LOGITS_MEAN = 0.0375        # mean |difference| over all logits
 
 
 def emit(obj) -> None:
@@ -155,13 +208,15 @@ def max_abs_err(a, b) -> float:
 
 class Timer:
     """Mean device time of ``fn`` over ``iters`` launches, each timed by
-    its own pair of CUDA events after an L2 flush."""
+    its own pair of CUDA events after an L2 flush of ``flush_bytes``.
+    The flush must outlast the host's work of launching ``fn`` (else the
+    card idles between the events): 256 MB takes ~80 µs."""
 
-    def __init__(self, device):
+    def __init__(self, device, flush_bytes: int = L2_FLUSH_BYTES):
         import torch
 
         self.torch = torch
-        self.flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8,
+        self.flush = torch.empty(flush_bytes, dtype=torch.uint8,
                                  device=device)
 
     def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
@@ -697,12 +752,15 @@ def serve_gnn_shape(dev, seed: int, shape: str, check, path_launches: dict):
     return row, calls
 
 
-def device_profile(fn, top: int = 8) -> dict:
+def device_profile(fn, top: int = 8,
+                   named: tuple = ("b7_kernel_ms", "segment_sum_kernel")
+                   ) -> dict:
     """One more call of ``fn`` under ``torch.profiler``: its wall time
     (host clock, ending in a synchronize, profiler overhead included),
-    the summed time of the CUDA kernels it ran and of B7's among them,
-    the device's idle share of the wall time, and the kernels that took
-    the most."""
+    the summed time of the CUDA kernels it ran and of those whose name
+    holds ``named[1]`` among them (under the key ``named[0]``; B7's by
+    default), the device's idle share of the wall time, and the kernels
+    that took the most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -722,8 +780,8 @@ def device_profile(fn, top: int = 8) -> dict:
     busy_ms = sum(ms for ms, _ in by_name.values())
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_ms": wall_ms, "kernel_ms": busy_ms,
-            "b7_kernel_ms": sum(ms for name, (ms, _) in by_name.items()
-                                if "segment_sum_kernel" in name),
+            named[0]: sum(ms for name, (ms, _) in by_name.items()
+                          if named[1] in name),
             # None where the profiler saw no kernel at all.
             "idle_share": 1.0 - busy_ms / wall_ms if by_name else None,
             "kernels": sum(n for _, n in by_name.values()),
@@ -788,6 +846,477 @@ def hub_check_and_timing(dev, messages, ids, num_segments: int, out,
           "minibatch_lg l = 2, clamped padding ids")
     return segment_timing(dev, messages, hub, num_segments,
                           "minibatch_lg l = 2, padding clamped onto node 0")
+
+def b8_gap(got, want) -> dict:
+    """B8's output against its plain version's: the max |difference|,
+    that over the largest |want|, and whether both bf16 bounds hold."""
+    import torch
+
+    err = max_abs_err(got, want)
+    top = float(want.float().abs().max()) if want.numel() else 0.0
+    ok = bool(torch.allclose(got.float(), want.float(), **B8_BF16)) and \
+        err <= B8_REL * top
+    return {"max_abs_err": err, "rel_err": err / top if top else err,
+            "ok": ok}
+
+
+def b8_faults(table, lens, ps: int, n_split: int, n_pages: int) -> dict:
+    """Planted faults of B8, each as the plan that makes the correct
+    kernel compute what a faulty one would: the newest token left out
+    (seq_lens - 1, the off-by-one of C5), the last non-empty split left
+    out of the merge, and every live page read from the next page of the
+    pool (an error in the page address)."""
+    import torch
+
+    lens64 = lens.long()
+    pages = (lens64 + ps - 1) // ps
+    per = ((pages + n_split - 1) // n_split).clamp(min=1)
+    used = (pages + per - 1) // per
+    cut = torch.minimum((used - 1).clamp(min=0) * per * ps, lens64)
+    return {"newest token dropped": (table, (lens64 - 1).clamp(min=0).int()),
+            "last split dropped": (table, cut.int()),
+            "next page of the pool": (
+                torch.where(table >= 0, (table + 1) % n_pages, table), lens)}
+
+
+def logits_gap(got, want) -> dict:
+    """Max and mean |got - want| of two logit arrays, and whether they
+    are within the stated bf16 bounds."""
+    d = (got.float() - want.float()).abs()
+    gap = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean())}
+    gap["ok"] = gap["max_abs_err"] <= LM_LOGITS_MAX and \
+        gap["mean_abs_err"] <= LM_LOGITS_MEAN
+    return gap
+
+
+def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
+    """Phase 10: GLM-4 9B at its published width in bf16 behind
+    ``ServeEngine``, 24 requests through 16 slots; every decode round is
+    one B8 launch per layer.  Checks every B8 call, the first round's
+    logits with B8's plain version swapped in (and that two planted B8
+    faults fall outside the bounds) and two requests against a
+    teacher-forced forward; times the first round replayed without
+    checks; then the launcher's lm mode; then B8's timings (a
+    kernels-line entry without its counts)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import glm4_9b
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.paged_attn import kernel as pak
+    from repro_torch.kernels.paged_attn import ref as paref
+    from repro_torch.launch import serve as launcher
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    matmul = tf32_off("lm_serve")
+    start = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    cfg = glm4_9b._cfg()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = tf.count_params(params)
+    assert n_params == 8_779_010_048, n_params
+    ecfg = EngineConfig(**LM_ENGINE)
+    engine = ServeEngine(params, cfg, ecfg, device=dev)
+
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    news = rng.integers(LM_NEW[0], LM_NEW[1] + 1, LM_REQUESTS)
+    requests = [Request(prompt=rng.integers(0, cfg.vocab, int(n)).astype(
+        np.int32), max_new_tokens=int(m), rid=i)
+        for i, (n, m) in enumerate(zip(lens, news))]
+    # Any 16 sequences at their full length fit the pool: C4 cannot fire.
+    full = sorted(-(-int(n + m) // ecfg.page_size) for n, m in zip(lens, news))
+    assert sum(full[-ecfg.max_batch:]) <= ecfg.n_pages
+    # The first request, and the last, admitted mid-stream.
+    watch = (0, LM_REQUESTS - 1)
+
+    kernel_fn, decode_fn = pak.paged_decode_attention, tf.decode_paged
+    prefill_fn, round_fn = tf.prefill_paged, engine._decode_round
+    b8 = {"calls": 0, "max_abs_err": 0.0, "rel_err": 0.0, "check_s": 0.0,
+          "first": None, "last": None}
+    rounds, prefill_s, first_round = [], [], {}
+    prefill_logits, decode_logits = {}, {rid: [] for rid in watch}
+    live_rids: list = []
+
+    def plain_b8(q, kp, vp, table, lens_, **_):
+        return paref.paged_decode_attention(q, kp, vp, table, lens_)
+
+    def faulty_b8(name: str):
+        def b8_fault(q, kp, vp, table, lens_, **kw):
+            n_split = pak.split_for(q.shape[0], kp.shape[1], table.shape[1],
+                                    q.device)
+            t_, l_ = b8_faults(table, lens_, kp.shape[2], n_split,
+                               kp.shape[0])[name]
+            return kernel_fn(q, kp, vp, t_, l_, **kw)
+        return b8_fault
+
+    def b8_checked(q, kp, vp, table, lens_, **kw):
+        # The pool changes after every call: check at once, on the card.
+        out = kernel_fn(q, kp, vp, table, lens_, **kw)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = plain_b8(q, kp, vp, table, lens_)
+        gap = b8_gap(out, want)
+        err = gap["max_abs_err"]
+        assert bool(torch.isfinite(out).all()), "B8: non-finite output"
+        assert gap["ok"], \
+            f"B8 != its plain version (call {b8['calls']}, {gap})"
+        b8["max_abs_err"] = max(b8["max_abs_err"], err)
+        b8["rel_err"] = max(b8["rel_err"], gap["rel_err"])
+        b8["calls"] += 1
+        b8["last"] = (q, kp, vp, table, lens_)
+        if b8["first"] is None:
+            b8["first"] = b8["last"]
+        b8["check_s"] += time.perf_counter() - t
+        return out
+
+    def decode_rec(params_, cfg_, k_pool, v_pool, *plan):
+        first = not rounds and not first_round
+        if first:
+            t = time.perf_counter()
+            snap = (k_pool.clone(), v_pool.clone())
+            torch.cuda.synchronize()
+            b8["check_s"] += time.perf_counter() - t
+        logits = decode_fn(params_, cfg_, k_pool, v_pool, *plan)
+        if first:
+            # The same round on the pool as it was, B8's plain version
+            # in B8's place.  The snapshot and these logits are kept for
+            # the planted faults after the path: each decode writes its
+            # own new K/V rows before it reads them.
+            t = time.perf_counter()
+            with swapped(pak, "paged_decode_attention", plain_b8):
+                plain = decode_fn(params_, cfg_, *snap, *plan)
+            first_round.update(batch=int(logits.shape[0]), plan=plan,
+                               host_plan=[plan[i].cpu().numpy()
+                                          for i in (2, 3, 0)],
+                               snap=snap, plain=plain,
+                               **logits_gap(logits, plain))
+            torch.cuda.synchronize()
+            b8["check_s"] += time.perf_counter() - t
+        for i, rid in enumerate(live_rids):
+            if rid in decode_logits:
+                decode_logits[rid].append(logits[i].clone())
+        return logits
+
+    def prefill_rec(*a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = prefill_fn(*a)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t)
+        rid = len(prefill_s) - 1             # admission is first come
+        if rid in decode_logits:
+            prefill_logits[rid] = out[0].clone()
+        return out
+
+    def round_rec():
+        live_rids[:] = list(engine.live)
+        if not live_rids:
+            return round_fn()
+        checks = b8["check_s"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        round_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check = b8["check_s"] - checks
+        rounds.append({"ms": (wall - check) * 1e3, "check_ms": check * 1e3,
+                       "batch": len(live_rids),
+                       "util": engine.pager.utilization})
+
+    engine._decode_round = round_rec
+    reset_launches()
+    with swapped(pak, "paged_decode_attention", b8_checked), \
+            swapped(tf, "decode_paged", decode_rec), \
+            swapped(tf, "prefill_paged", prefill_rec):
+        for req in requests:
+            engine.submit(req)
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    launches = path_launches["lm_serve"] = dict(LAUNCHES)
+    n_rounds = len(rounds)
+    assert launches["paged_decode_attention"] == cfg.n_layers * n_rounds, \
+        f"B8 launched {launches['paged_decode_attention']} times in " \
+        f"{n_rounds} decode rounds"
+    assert b8["calls"] == launches["paged_decode_attention"]
+    others = {k: n for k, n in launches.items()
+              if n and k != "paged_decode_attention"}
+    assert not others, f"lm_serve launched other kernels: {others}"
+    assert sorted(r.rid for r in done) == list(range(LM_REQUESTS))
+    for r in done:
+        assert len(r.out_tokens) == r.max_new_tokens
+        assert all(0 <= t < cfg.vocab for t in r.out_tokens)
+    assert engine.pager.utilization == 0.0
+    assert max(r["batch"] for r in rounds) == ecfg.max_batch
+    # The first round with two planted B8 faults in B8's place (their
+    # launches are not the path's), which the logits bounds must tell
+    # from the plain version's.
+    snap, plain = first_round.pop("snap"), first_round.pop("plain")
+    first_round["faults"] = {}
+    for name in ("newest token dropped", "last split dropped"):
+        with swapped(pak, "paged_decode_attention", faulty_b8(name)), \
+                torch.no_grad():
+            bad = decode_fn(params, cfg, *snap, *first_round["plan"])
+        first_round["faults"][name] = logits_gap(bad, plain)
+    del snap, plain, bad
+    # The logits bounds are checked after the phase's line is printed.
+    failed = [] if first_round["ok"] else ["first round, plain B8"]
+    failed += [f"first round, {name}: not caught"
+               for name, gap in first_round["faults"].items() if gap["ok"]]
+
+    # Teacher forcing: the forward over prompt + generated tokens must
+    # give, at each generated position, the engine's logits there.
+    forced = []
+    for rid in watch:
+        req = requests[rid]
+        p, n = len(req.prompt), len(req.out_tokens)
+        seq = np.concatenate([req.prompt, req.out_tokens[:-1]])
+        with torch.no_grad():
+            full_logits, _ = tf.forward(params, cfg, torch.from_numpy(
+                seq[None].astype(np.int64)).to(dev))
+        want = full_logits[0, p - 1:p + n - 1]
+        assert len(decode_logits[rid]) == n - 1
+        got = torch.stack([prefill_logits[rid], *decode_logits[rid]])
+        gap = logits_gap(got, want)
+        agree = float((want.argmax(-1).cpu() == torch.tensor(
+            req.out_tokens)).float().mean())
+        forced.append({"rid": rid, "prompt": p, "generated": n,
+                       "argmax_agrees": agree, **gap})
+        if not gap["ok"]:
+            failed.append(f"request {rid}: teacher-forced logits")
+        del full_logits, want, got
+    peak = torch.cuda.max_memory_allocated()
+    # The first round's decode step replayed as the engine runs it (the
+    # plan copied to the card, the step, the argmax read back) with no
+    # check and no profiler, then once more profiled.  Both write their
+    # K/V rows into pages that are free by now.
+    plan = first_round.pop("plan")
+    table_np, lens_np, tokens_np = first_round.pop("host_plan")
+    nb, pmax = table_np.shape
+
+    def replay_round():
+        flat = torch.from_numpy(np.concatenate(
+            [table_np.reshape(-1), lens_np, tokens_np])).to(dev)
+        seq_lens = flat[nb * pmax:nb * pmax + nb]
+        with torch.no_grad():
+            logits = tf.decode_paged(
+                params, cfg, engine.k_pool, engine.v_pool,
+                flat[nb * pmax + nb:], seq_lens - 1,
+                flat[:nb * pmax].view(nb, pmax), seq_lens)
+        return torch.argmax(logits, dim=-1).tolist()
+
+    replay_ms = []
+    torch.cuda.synchronize()
+    for _ in range(LM_REPLAYS):
+        t = time.perf_counter()
+        replay_round()
+        replay_ms.append((time.perf_counter() - t) * 1e3)
+    with torch.no_grad():
+        profiled = device_profile(
+            lambda: tf.decode_paged(params, cfg, engine.k_pool,
+                                    engine.v_pool, *plan),
+            named=("b8_kernel_ms", "paged_attn_kernel"))
+    del plan
+    replay_p50 = float(np.median(replay_ms))
+    replayed = {"batch": nb, "rounds_ms": replay_ms,
+                "round_ms_p50": replay_p50,
+                "decode_tokens_per_s": nb / (replay_p50 / 1e3),
+                "checked_round_ms": rounds[0]["ms"],
+                # The profiled step's kernel time over this wall time.
+                "idle_share": 1.0 - profiled["kernel_ms"] / replay_p50}
+
+    # The launcher's lm mode, in-process on the card (smoke config).
+    reset_launches()
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        run = launcher.run_lm(launcher.parse_args(["--mode", "lm"]))
+    torch.cuda.synchronize()
+    path_launches["lm_launcher"] = dict(LAUNCHES)
+    assert run.engine.k_pool.is_cuda and len(run.done) == 8
+    assert LAUNCHES["paged_decode_attention"] > 0
+    assert LAUNCHES["paged_decode_attention"] % run.engine.cfg.n_layers == 0
+
+    ms = [r["ms"] for r in rounds]
+    decoded = sum(r["batch"] for r in rounds)
+    row = {"model": cfg.name, "params": n_params,
+           "weight_bytes": n_params * 2, "init_s": init_s,
+           "engine": LM_ENGINE, "requests": LM_REQUESTS,
+           "prompt_tokens": int(lens.sum()),
+           "tokens_served": sum(len(r.out_tokens) for r in done),
+           "decode_rounds": n_rounds,
+           "round_ms_p50": float(np.median(ms)), "round_ms_max": max(ms),
+           "round_batch_max": max(r["batch"] for r in rounds),
+           "decode_tokens_per_s": decoded / (sum(ms) / 1e3),
+           "prefill_s": sum(prefill_s),
+           "prefill_tokens_per_s": int(lens.sum()) / sum(prefill_s),
+           "serve_s": serve_s, "check_s": b8["check_s"],
+           "pool_util_max": max(r["util"] for r in rounds),
+           "b8_calls_checked": b8["calls"],
+           "b8_max_abs_err": b8["max_abs_err"], "b8_rel_err": b8["rel_err"],
+           "b8_tol": {**B8_BF16, "rel": B8_REL},
+           "first_round_plain_b8": first_round,
+           "teacher_forced": forced, "replayed_first_round": replayed,
+           "profiled_first_round": profiled,
+           "logits_bounds": {"max": LM_LOGITS_MAX, "mean": LM_LOGITS_MEAN},
+           "peak_gb": peak / 1e9, "held_before_gb": held_before / 1e9,
+           "launches": launches, "launcher_launches":
+               path_launches["lm_launcher"],
+           "launcher_said": said.getvalue().splitlines(),
+           "matmul": matmul, "card": card}
+    row["seconds"] = time.perf_counter() - start
+    emit({"phase": "lm_serve", **row})
+    assert not failed, f"lm_serve: logits out of bounds: {failed}"
+
+    # B8's timings: the last round's shape, the first (full) round's, and
+    # each with one split (the kernel without the merge pass).
+    last, first = b8["last"], b8["first"]
+    timed = b8_timing(dev, *last, "last decode round, layer 40")
+    variants = [b8_timing(dev, *first, "first decode round, layer 1",
+                          drill=True),
+                b8_timing(dev, *last, "last decode round, one split",
+                          n_split=1),
+                b8_timing(dev, *first, "first decode round, one split",
+                          n_split=1)]
+    path_err = b8["max_abs_err"]
+    # Free the model and the pools before decode_32k's 4.29 GB pool.
+    del engine._decode_round, engine, params, run, last, first
+    b8.clear()
+    decode_logits.clear()
+    prefill_logits.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    variants += b8_decode_32k(dev, seed)
+    torch.cuda.empty_cache()
+    return {**timed, "max_abs_err": max(path_err, timed["max_abs_err"]),
+            "variants": variants}
+
+
+def b8_timing(dev, q, kp, vp, table, lens, what: str,
+              n_split: int | None = None, drill: bool = False) -> dict:
+    """B8, its plain version and ``F.scaled_dot_product_attention`` on
+    the same attention; with ``drill``, also whether the bounds catch
+    each planted fault of ``b8_faults`` (the last two must be caught).  The bound counts the live K and V rows, q, the
+    output, the live table entries and the lengths once, and 4 flops per
+    (head, live token, dim) at the bf16 tensor-core (or float32) peak.
+    The library call gets K/V already gathered into the dense
+    (B, KVH, PMAX·PS, Dh) rectangle, dead slots masked: it reads that
+    rectangle, and the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_attn import kernel as pak
+    from repro_torch.kernels.paged_attn import ref as paref
+
+    b, h, dh = q.shape
+    _, kvh, ps, _ = kp.shape
+    pmax = table.shape[1]
+    es = q.element_size()
+    live = int(lens.sum())
+    live_pages = int(((lens.long() + ps - 1) // ps).sum())
+    n_bytes = 2 * live * kvh * dh * es + 2 * q.numel() * es \
+        + live_pages * 4 + b * 4
+    flops = 4 * h * dh * live
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / peak * 1e3
+    n_split = n_split or pak.split_for(b, kvh, pmax, dev)
+    got = pak.paged_decode_attention(q, kp, vp, table, lens,
+                                     n_split=n_split)
+    want = paref.paged_decode_attention(q, kp, vp, table, lens)
+    gap = b8_gap(got, want)
+    err = gap["max_abs_err"]
+    assert gap["ok"], f"B8 ({what}) != its plain version ({gap})"
+    faults = {}
+    if drill:
+        for name, (t_, l_) in b8_faults(table, lens, ps, n_split,
+                                        kp.shape[0]).items():
+            bad = b8_gap(pak.paged_decode_attention(q, kp, vp, t_, l_,
+                                                    n_split=n_split), want)
+            faults[name] = {**bad, "caught": not bad["ok"]}
+        missed = [name for name in ("last split dropped",
+                                    "next page of the pool")
+                  if not faults[name]["caught"]]
+        assert not missed, f"B8 ({what}): planted faults not caught: {missed}"
+    rows = table.clamp(min=0).long()
+    kd = kp[rows].movedim(2, 1).reshape(b, kvh, pmax * ps, dh)
+    vd = vp[rows].movedim(2, 1).reshape(b, kvh, pmax * ps, dh)
+    mask = None
+    if live < b * pmax * ps:
+        mask = (torch.arange(pmax * ps, device=dev)[None, :]
+                < lens.long()[:, None])[:, None, None, :]
+    q4 = q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, kd, vd, attn_mask=mask,
+                                              enable_gqa=True)
+
+    lib_err = max_abs_err(library()[:, :, 0], want)
+    assert torch.allclose(library()[:, :, 0].float(), want.float(),
+                          **B8_BF16), f"SDPA ({what}) != B8's function"
+    # B8's wrapper does more host work than a flush of 256 MB lasts.
+    timer = Timer(dev, flush_bytes=B8_FLUSH_BYTES)
+    out = {
+        "ms": timer(lambda: pak.paged_decode_attention(
+            q, kp, vp, table, lens, n_split=n_split)),
+        "plain_ms": timer(lambda: paref.paged_decode_attention(
+            q, kp, vp, table, lens), iters=5),
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": timer(library),
+        "max_abs_err": err, "rel_err": gap["rel_err"],
+        **({"faults": faults} if drill else {}),
+        "shape": {"what": what, "B": b, "H": h, "KVH": kvh, "Dh": dh,
+                  "PS": ps, "PMAX": pmax, "live_tokens": live,
+                  "max_len": int(lens.max()),
+                  "n_split": n_split,
+                  "dtype": str(q.dtype).removeprefix("torch."),
+                  "bytes": n_bytes, "flops": flops,
+                  "library_reads_bytes": 2 * kd.numel() * es,
+                  "library_max_abs_err": lib_err}}
+    del kd, vd
+    return out
+
+
+def b8_decode_32k(dev, seed: int) -> list:
+    """B8 at ``LM_SHAPES["decode_32k"]``'s per-layer shape for GLM-4 9B:
+    128 sequences of 32,768 tokens, 32 heads over 2 KV heads, Dh 128,
+    bf16, one layer's pool of 262,144 pages of 16 (4.29 GB of K and V),
+    every page live, page ids shuffled; checked against the plain version
+    once, then timed with the automatic split and with one split."""
+    import torch
+
+    from repro_torch.configs.common import LM_SHAPES
+    from repro_torch.configs import glm4_9b
+
+    cfg = glm4_9b._cfg()
+    b, s = LM_SHAPES["decode_32k"]["batch"], LM_SHAPES["decode_32k"]["seq"]
+    ps = LM_ENGINE["page_size"]
+    pages = s // ps
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(dtype=cfg.dtype, device=dev)
+    shape = (b * pages, cfg.n_kv_heads, ps, cfg.d_head)
+    kp = torch.empty(shape, **kw).normal_(generator=gen)
+    vp = torch.empty(shape, **kw).normal_(generator=gen)
+    q = torch.empty((b, cfg.n_heads, cfg.d_head), **kw).normal_(
+        generator=gen)
+    table = torch.randperm(b * pages, device=dev, generator=gen).int().view(
+        b, pages)
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    out = [b8_timing(dev, q, kp, vp, table, lens, "decode_32k, one layer",
+                     drill=True),
+           b8_timing(dev, q, kp, vp, table, lens,
+                     "decode_32k, one layer, one split", n_split=1)]
+    del kp, vp
+    return out
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1197,7 +1726,10 @@ def main(argv=None) -> int:
     # -- 9. gnn: NequIP at full width on three graph shapes (B7) --------
     b7_timing = gnn(dev, args.seed, card, check, path_launches)
 
-    # -- 10. timing at the shapes each path gave its kernels ------------
+    # -- 10. lm_serve: GLM-4 9B at full width behind the engine (B8) ---
+    b8_timing_entry = lm_serve(dev, args.seed, card, path_launches)
+
+    # -- 11. timing at the shapes each path gave its kernels ------------
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in LAUNCHES}
     for name, n in launches.items():
@@ -1326,9 +1858,19 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/segment/kernel.py:70",
         "launches": launches["segment_sum"],
         "max_abs_err": errs["segment_sum"], **b7_timing})
+
+    # B8: the last decode round of lm_serve (timed in phase 10), with the
+    # first round's, both with one split, and the decode_32k per-layer
+    # shape under "variants"; max_abs_err over every call of the path.
+    entries.append({
+        "name": "paged_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attn.cu",
+        "replaces": "src/repro/kernels/paged_attn/kernel.py:123",
+        "launches": launches["paged_decode_attention"],
+        **b8_timing_entry})
     emit({"phase": "timing", "card": card})
 
-    # -- 11. the kernels line, the card, the result ----------------------
+    # -- 12. the kernels line, the card, the result ----------------------
     emit({"kernels": entries, "launches": launches,
           "path_launches": path_launches})
     print(card, flush=True)

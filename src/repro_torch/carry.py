@@ -7,7 +7,8 @@ the same arrays feed both and nothing of one package leaks into the
 other.  The models do have weights: ``dlrm_from_params``,
 ``deepfm_from_params`` and ``nequip_from_params`` load a parameter tree
 of numpy arrays, laid out as the JAX package's initialisers build it,
-into the port's modules.
+into the port's modules, and ``transformer_from_params`` turns such a
+tree into the dense decoder's parameter dict.
 
 Datacube spec::
 
@@ -47,6 +48,7 @@ from .core import datacube as _datacube
 from .core import shapes as _shapes
 from .models import nequip as _nequip
 from .models import recsys as _recsys
+from .models import transformer as _transformer
 
 _SHAPES = {cls.__name__.lower(): cls for cls in (
     _shapes.Select, _shapes.All, _shapes.Span, _shapes.Point, _shapes.Box,
@@ -195,3 +197,58 @@ def nequip_from_params(cfg: _nequip.NequIPConfig, params: dict,
         _load_keyed(layer.self_interaction, p["self"], f"layers[{i}].self")
         _load_keyed(layer.gate, p["gate"], f"layers[{i}].gate")
     return model
+
+
+def _carry_tree(tree: dict, want: dict, what: str, device: torch.device,
+                dtype: torch.dtype, layer: int | None = None) -> dict:
+    """``tree`` (numpy arrays; with ``layer``, stacked along a leading
+    layer axis and taken at ``layer``) as tensors shaped like ``want``."""
+    if set(tree) != set(want):
+        raise ValueError(f"{what}: keys {sorted(tree)}, expected "
+                         f"{sorted(want)}")
+    out = {}
+    for key, spec in want.items():
+        name = f"{what}.{key}"
+        if isinstance(spec, dict):
+            out[key] = _carry_tree(tree[key], spec, name, device, dtype,
+                                   layer)
+            continue
+        arr = np.asarray(tree[key])
+        if layer is not None:
+            arr = arr[layer]
+        if tuple(arr.shape) != tuple(spec.shape):
+            raise ValueError(f"{name}: shape {arr.shape}, expected "
+                             f"{tuple(spec.shape)}")
+        out[key] = torch.from_numpy(np.array(arr, order="C")).to(
+            device=device, dtype=dtype)
+    return out
+
+
+def transformer_from_params(cfg: _transformer.TransformerConfig,
+                            params: dict, device=None) -> dict:
+    """The port's parameter dict for ``params``, a tree of numpy arrays
+    as the JAX package's ``init_params`` builds it: ``{"embed":
+    {"table"}, "final_norm": {"scale"}, "groups": [stacked layers]}``
+    (and ``"head"`` for untied embeddings).  The one group of a dense
+    model holds each layer leaf stacked (L, ...): it is unstacked into
+    ``params["layers"]``.  Every shape is checked; the tensors are cast
+    to ``cfg.dtype`` on ``device`` (None = the card)."""
+    want = _transformer.init_params(cfg, device="meta")
+    dev = resolve_device(device)
+    groups = params.get("groups", [])
+    if len(groups) != 1:
+        raise ValueError(f"{cfg.name}: {len(groups)} layer groups, a "
+                         f"dense model has one")
+    top = {k: v for k, v in params.items() if k != "groups"}
+    top_want = {k: v for k, v in want.items() if k != "layers"}
+    out = _carry_tree(top, top_want, cfg.name, dev, cfg.dtype)
+    for leaf in _transformer.tree_leaves(groups[0]):
+        if np.shape(leaf)[:1] != (cfg.n_layers,):
+            raise ValueError(f"{cfg.name}: a stacked layer leaf of shape "
+                             f"{np.shape(leaf)}, expected {cfg.n_layers} "
+                             f"layers")
+    out["layers"] = [
+        _carry_tree(groups[0], spec, f"{cfg.name}.layers[{i}]", dev,
+                    cfg.dtype, layer=i)
+        for i, spec in enumerate(want["layers"])]
+    return out

@@ -14,6 +14,9 @@ _MODULES = {
     "dlrm-rm2": "dlrm_rm2",
     "deepfm": "deepfm",
     "nequip": "nequip",
+    "glm4-9b": "glm4_9b",
+    "granite-3-8b": "granite_3_8b",
+    "yi-34b": "yi_34b",
 }
 
 ARCH_IDS = tuple(_MODULES)

@@ -1,5 +1,13 @@
-"""Shapes the models are served at: the recsys batch sizes per traffic
-kind and NequIP's graph shapes, as in the JAX package's configuration."""
+"""Shapes the models are served at: the LM sequence and batch sizes,
+the recsys batch sizes per traffic kind and NequIP's graph shapes, as in
+the JAX package's configuration."""
+
+LM_SHAPES = {
+    "train_4k": dict(seq=4096, batch=256, kind="train"),
+    "prefill_32k": dict(seq=32768, batch=32, kind="prefill"),
+    "decode_32k": dict(seq=32768, batch=128, kind="decode"),
+    "long_500k": dict(seq=524288, batch=1, kind="decode"),
+}
 
 RECSYS_SHAPES = {
     "train_batch": dict(batch=65_536, kind="train"),

@@ -1,10 +1,10 @@
 # Hand-written CUDA kernels for the extraction system, the recsys
-# embedding bag and the GNN message sum, one subpackage each as
-# <name>/{kernel.py, ops.py, ref.py}: the ctypes-bound CUDA wrapper, the
-# dispatcher (a CUDA tensor launches the kernel, a CPU tensor takes the
-# plain version), and the plain PyTorch version the tests and
-# chip_smoke.py hold the kernel against.  Sources live in ../csrc and
-# are built by _build at first use.
+# embedding bag, the GNN message sum and the LM decode attention, one
+# subpackage each as <name>/{kernel.py, ops.py, ref.py}: the
+# ctypes-bound CUDA wrapper, the dispatcher (a CUDA tensor launches the
+# kernel, a CPU tensor takes the plain version), and the plain PyTorch
+# version the tests and chip_smoke.py hold the kernel against.  Sources
+# live in ../csrc and are built by _build at first use.
 #
 # gather — exact-byte extraction gathers: per-offset gather_rows (B1)
 #          and the run-length burst gather_runs (B2); the EmbeddingBag
@@ -15,12 +15,14 @@
 #          slicing core slice_minor_extents (B4)
 # segment — the GNN message aggregation segment_sum (B7), and
 #           segment_max as a plain version only
+# paged_attn — the LM engine's decode attention over the paged KV pool,
+#           paged_decode_attention (B8)
 #
 # _casting.checked_cast_i32 is the ONLY place an offset-carrying array
 # may be cast to the kernels' int32 index dtype.
-from . import gather, plan, segment, slice  # noqa: F401
+from . import gather, paged_attn, plan, segment, slice  # noqa: F401
 from ._build import LAUNCHES, reset_launches
 from ._casting import checked_cast_i32, ensure_i32_addressable
 
-__all__ = ["gather", "plan", "segment", "slice", "LAUNCHES",
+__all__ = ["gather", "paged_attn", "plan", "segment", "slice", "LAUNCHES",
            "reset_launches", "checked_cast_i32", "ensure_i32_addressable"]

@@ -32,8 +32,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("gather", "plan_runs_2d", "segment_sum", "slice_batch",
-           "slice_extents")
+SOURCES = ("gather", "paged_attn", "plan_runs_2d", "segment_sum",
+           "slice_batch", "slice_extents")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types: every pointer and the stream
@@ -43,6 +43,11 @@ SIGNATURES = {
         "polytope_gather_rows": [_I, _P, _L, _P, _L, _I, _P, _P],
         "polytope_gather_runs": [_I, _P, _L, _P, _L, _I, _I, _P, _P],
         "polytope_gather_rows_bag": [_I, _P, _L, _P, _L, _L, _I, _P, _P],
+    },
+    "paged_attn": {
+        "polytope_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I,
+                                            _I, _I, _I, _I, _I, _I, _P, _P,
+                                            _P],
     },
     "plan_runs_2d": {
         "polytope_plan_runs_2d": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -66,7 +71,7 @@ SIGNATURES = {
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_runs": 0,
                             "gather_rows_bag": 0, "plan_runs_2d": 0,
                             "slice_minor_extents": 0, "slice_batch": 0,
-                            "segment_sum": 0}
+                            "segment_sum": 0, "paged_decode_attention": 0}
 
 
 def reset_launches() -> None:

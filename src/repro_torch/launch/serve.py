@@ -7,8 +7,14 @@ values from a payload that lives on the card:
 
     python -m repro_torch.launch.serve --mode extract --grid-n 1280
 
-``--device cpu`` serves a CPU tensor with the plain PyTorch versions of
-the kernels.  ``lm`` mode (the LM engine) is not ported yet.
+``lm`` — the continuous-batching LM engine over the paged KV cache, on
+the architecture's smoke configuration with random weights (seed 0),
+each decode round's attention through kernel B8:
+
+    python -m repro_torch.launch.serve --mode lm --arch glm4-9b
+
+``--device cpu`` runs either mode with the plain PyTorch versions of
+the kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +41,52 @@ class ExtractRun:
     payload: Any
     population: list
     served: list
+
+
+@dataclass
+class LMRun:
+    """What one ``run_lm`` served: the finished requests, the engine
+    (its pager and page pool), the tokens produced and the wall time."""
+
+    done: list
+    engine: Any
+    tokens: int
+    seconds: float
+
+
+def run_lm(args) -> LMRun:
+    """Serve ``--requests`` random prompts of 4-23 tokens, each for
+    ``--max-new-tokens`` tokens, through ``ServeEngine`` on the smoke
+    configuration of ``--arch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import TransformerConfig, init_params
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    try:
+        cfg = get_config(args.arch, smoke=True)
+    except KeyError as err:
+        raise SystemExit(str(err)) from None
+    if not isinstance(cfg, TransformerConfig):
+        raise SystemExit(f"{args.arch} is not an LM")
+    params = init_params(cfg, device=args.device, seed=0)
+    engine = ServeEngine(params, cfg, EngineConfig(
+        max_batch=4, max_seq=128, page_size=16, n_pages=256),
+        device=args.device)
+
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(args.requests):
+        engine.submit(Request(
+            prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24)
+                                ).astype(np.int32),
+            max_new_tokens=args.max_new_tokens))
+    done = engine.run()
+    dt = time.perf_counter() - t0
+    n_tok = sum(len(r.out_tokens) for r in done)
+    print(f"served {len(done)} requests / {n_tok} tokens in {dt:.1f}s "
+          f"({n_tok / dt:.1f} tok/s) on {engine.device}")
+    print(f"KV pool utilization at end: {engine.pager.utilization:.0%}")
+    return LMRun(done=done, engine=engine, tokens=n_tok, seconds=dt)
 
 
 def run_extract(args) -> ExtractRun:
@@ -132,6 +184,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--mode", choices=["lm", "extract"], default="extract")
     ap.add_argument("--requests", type=int, default=8)
+    # lm mode
+    ap.add_argument("--arch", default="glm4-9b")
+    ap.add_argument("--max-new-tokens", type=int, default=16)
+    # extract mode
     ap.add_argument("--grid-n", type=int, default=32)
     ap.add_argument("--threads", type=int, default=8)
     ap.add_argument("--shards", type=int, default=4)
@@ -141,8 +197,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--bench-out", default="BENCH_torch_serve.json")
     ap.add_argument("--device", default="cuda",
-                    help="where the payload lives and the reads run "
-                         "('cpu' runs the plain PyTorch versions)")
+                    help="where the payload or the weights live and the "
+                         "kernels run ('cpu' runs the plain PyTorch "
+                         "versions)")
     return ap.parse_args(argv)
 
 
@@ -151,7 +208,7 @@ def main(argv=None) -> None:
     if args.mode == "extract":
         run_extract(args)
     else:
-        raise SystemExit("lm mode is not ported yet (ROADMAP A10)")
+        run_lm(args)
 
 
 if __name__ == "__main__":

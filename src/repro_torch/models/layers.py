@@ -1,10 +1,17 @@
-"""Shared dense layers as ``nn.Module``s.
+"""Shared layers: dense layers as ``nn.Module``s, and the transformer's
+norms, feed-forward, rotary embeddings and embeddings as functions on
+parameter dicts.
 
 The weight keeps the JAX layout ``w (d_in, d_out)`` beside the bias
 ``b``, so a layer computes ``x @ w + b`` exactly as the JAX package
-writes it, and a carried parameter tree loads without transposes.
-Initialisers draw from an explicit ``torch.Generator`` on the target
-device; nothing reads PyTorch's global generator.
+writes it, and a carried parameter tree loads without transposes.  The
+transformer's parameters are nested dicts of tensors with the JAX
+package's keys (``{"scale"}``, ``{"w_gate", "w_up", "w_down"}``,
+``{"table"}``), computed on by plain functions with the JAX package's
+names and casts.  Initialisers draw from an explicit
+``torch.Generator`` on the target device; nothing reads PyTorch's
+global generator.  On the ``meta`` device they allocate and draw
+nothing (shapes only, for parameter counts).
 """
 
 from __future__ import annotations
@@ -52,3 +59,88 @@ class MLP(nn.Module):
             if i < last:
                 x = torch.relu(x)
         return x
+
+
+# -- the transformer's layers, on parameter dicts ---------------------------
+
+def normal(shape: tuple[int, ...], std: float, *,
+           generator: "torch.Generator | None", device: torch.device,
+           dtype: torch.dtype) -> torch.Tensor:
+    """A tensor drawn normal · ``std`` in place, in ``dtype`` on
+    ``device`` (left undrawn on the ``meta`` device)."""
+    t = torch.empty(shape, dtype=dtype, device=device)
+    if t.device.type != "meta":
+        t.normal_(0.0, std, generator=generator)
+    return t
+
+
+def dense_init(d_in: int, d_out: int, scale: float | None = None,
+               **kw) -> dict:
+    """``{"w": (d_in, d_out)}`` drawn normal · ``scale`` (1/√d_in)."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return {"w": normal((d_in, d_out), scale, **kw)}
+
+
+def rmsnorm_init(d: int, *, device: torch.device, dtype: torch.dtype,
+                 **_) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    """RMS norm in float32, scaled, cast back to ``x``'s dtype."""
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def glu_ffn_init(d_model: int, d_ff: int, **kw) -> dict:
+    return {
+        "w_gate": dense_init(d_model, d_ff, **kw)["w"],
+        "w_up": dense_init(d_model, d_ff, **kw)["w"],
+        "w_down": dense_init(d_ff, d_model, scale=1.0 / math.sqrt(d_ff),
+                             **kw)["w"],
+    }
+
+
+def glu_ffn(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: ``(silu(x @ w_gate) * (x @ w_up)) @ w_down``."""
+    g = x @ params["w_gate"].to(x.dtype)
+    u = x @ params["w_up"].to(x.dtype)
+    return (torch.nn.functional.silu(g) * u) @ params["w_down"].to(x.dtype)
+
+
+def rope_freqs(positions: torch.Tensor, d: int, theta: float = 10_000.0
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables for RoPE in float32.  positions (…,) → (…, d/2)."""
+    exps = torch.arange(0, d, 2, dtype=torch.float32,
+                        device=positions.device) / d
+    inv = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                       device=positions.device), exps)
+    ang = positions[..., None].float() * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+               ) -> torch.Tensor:
+    """x (…, S, H, D) with cos/sin (…, S, D/2): rotates the two halves
+    of each head (not interleaved pairs), in float32."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    c = cos[..., None, :]   # broadcast over heads
+    s = sin[..., None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s],
+                     dim=-1).to(x.dtype)
+
+
+def embedding_init(vocab: int, d: int, **kw) -> dict:
+    return {"table": normal((vocab, d), 0.02, **kw)}
+
+
+def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
+    return params["table"][ids]
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied softmax head: ``x @ table.T``."""
+    return x @ params["table"].to(x.dtype).T

@@ -6,9 +6,13 @@ without JAX:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-All comparisons are byte for byte: the kernels copy or plan in integer
-and float64/float32 arithmetic that rounds like the plain versions, and
-the summing kernels (B6, B7) add in the plain versions' order.
+The comparisons of B1-B7 are byte for byte: those kernels copy or plan
+in integer and float64/float32 arithmetic that rounds like the plain
+versions, and the summing kernels (B6, B7) add in the plain versions'
+order.  B8 (paged decode attention) sums its float32 scores, softmax and
+V products in its own order (per 32-token step, then across KV splits):
+it is held against its plain version within rtol = atol = 2e-5 in
+float32 and 2e-2 in bfloat16, the JAX kernel tests' tolerances.
 """
 
 import dataclasses
@@ -25,6 +29,9 @@ from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.gather import kernel as gk  # noqa: E402
 from repro_torch.kernels.gather import ops as gops  # noqa: E402
 from repro_torch.kernels.gather import ref as gref  # noqa: E402
+from repro_torch.kernels.paged_attn import kernel as pak  # noqa: E402
+from repro_torch.kernels.paged_attn import ops as paops  # noqa: E402
+from repro_torch.kernels.paged_attn import ref as paref  # noqa: E402
 from repro_torch.kernels.plan import kernel as pk  # noqa: E402
 from repro_torch.kernels.plan import ref as pref  # noqa: E402
 from repro_torch.kernels.segment import kernel as segk  # noqa: E402
@@ -472,3 +479,178 @@ def test_nequip_on_the_card_equals_plain_segment_sum(cuda_device, shape,
     for a, w in zip(got, want):
         assert a.is_cuda and bool(torch.isfinite(a).all())
         assert _bytes_equal(a, w)
+
+
+# -- B8: paged decode attention -----------------------------------------------
+
+def _attn_tol(dtype):
+    return dict(rtol=2e-2, atol=2e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=2e-5, atol=2e-5)
+
+
+def _attn_case(b, h, kvh, dh, ps, pmax, dtype, seed, lens=None):
+    """Inputs on the CPU: each sequence's pages drawn without replacement
+    (shuffled ids) from a pool of b * pmax + 3."""
+    gen = torch.Generator().manual_seed(seed)
+    n_pages = b * pmax + 3
+    q = torch.randn((b, h, dh), generator=gen).to(dtype)
+    kp = torch.randn((n_pages, kvh, ps, dh), generator=gen).to(dtype)
+    vp = torch.randn((n_pages, kvh, ps, dh), generator=gen).to(dtype)
+    if lens is None:
+        lens = torch.randint(1, ps * pmax + 1, (b,), generator=gen)
+    lens = torch.as_tensor(lens, dtype=torch.int32)
+    table = torch.full((b, pmax), -1, dtype=torch.int32)
+    free = torch.randperm(n_pages, generator=gen).int().tolist()
+    for i in range(b):
+        for j in range(-(-int(lens[i]) // ps)):
+            table[i, j] = free.pop()
+    return q, kp, vp, table, lens
+
+
+def _on(dev, *tensors):
+    return [t.to(dev) for t in tensors]
+
+
+ATTN_SHAPES = [(2, 4, 4, 8, 4, 3), (3, 8, 2, 16, 4, 6), (1, 8, 1, 32, 8, 4),
+               (3, 14, 2, 8, 4, 5),                  # the CPU tests' shapes
+               (4, 16, 4, 128, 16, 24),              # G = 4 (Granite)
+               (3, 56, 8, 128, 16, 20),              # G = 7 (Yi)
+               (5, 32, 2, 128, 16, 40)]              # G = 16 (GLM-4)
+
+
+@pytest.mark.parametrize("n_split", (None, 1, 3))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("shape", ATTN_SHAPES,
+                         ids=lambda s: "b{}h{}kvh{}dh{}ps{}pmax{}".format(*s))
+def test_paged_decode_attention(cuda_device, shape, dtype, n_split):
+    case = _attn_case(*shape, dtype, seed=sum(shape))
+    want = paref.paged_decode_attention(*case)
+    before = LAUNCHES["paged_decode_attention"]
+    got = pak.paged_decode_attention(*_on(cuda_device, *case),
+                                     n_split=n_split)
+    assert LAUNCHES["paged_decode_attention"] == before + 1
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               **_attn_tol(dtype))
+
+
+@pytest.mark.parametrize("n_split", (1, 4))
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16))
+def test_paged_decode_attention_poisoned_shared_and_empty(cuda_device,
+                                                          dtype, n_split):
+    """NaN in every page outside the plan and in the dead slots of live
+    pages; two sequences sharing pages, one page repeated; one sequence
+    of length 0 (zeros)."""
+    b, h, kvh, dh, ps, pmax = 4, 32, 2, 128, 16, 12
+    q, kp, vp, table, lens = _attn_case(b, h, kvh, dh, ps, pmax, dtype,
+                                        seed=11, lens=[37, 0, 190, 64])
+    table[3, :4] = torch.tensor([table[0, 2], table[0, 0], table[0, 2],
+                                 table[2, 5]])
+    want = paref.paged_decode_attention(q, kp, vp, table, lens)
+    # Slots of each page live for some sequence: a prefix of the page.
+    live = {}
+    for i in range(b):
+        n = int(lens[i])
+        for j in range(-(-n // ps)):
+            pg = int(table[i, j])
+            live[pg] = max(live.get(pg, 0), min(ps, n - j * ps))
+    for pg in range(kp.shape[0]):
+        kp[pg, :, live.get(pg, 0):] = float("nan")
+        vp[pg, :, live.get(pg, 0):] = float("nan")
+    got = pak.paged_decode_attention(*_on(cuda_device, q, kp, vp, table,
+                                          lens), n_split=n_split).cpu()
+    assert bool(torch.isfinite(got).all())
+    assert not bool(got[1].any())
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+    # A NaN in a live slot is not hidden.
+    kp[table[0, 0], 0, 0] = float("nan")
+    got = pak.paged_decode_attention(*_on(cuda_device, q, kp, vp, table,
+                                          lens), n_split=n_split).cpu()
+    assert bool(got[0, :h // kvh].isnan().all())
+    assert bool(torch.isfinite(got[2]).all()) and not bool(got[1].any())
+
+
+def test_paged_decode_attention_refuses_what_it_does_not_take(cuda_device):
+    q, kp, vp, table, lens = _on(cuda_device, *_attn_case(
+        2, 8, 2, 16, 4, 6, torch.float32, seed=1))
+    with pytest.raises(TypeError):                       # float64
+        pak.paged_decode_attention(q.double(), kp.double(), vp.double(),
+                                   table, lens)
+    with pytest.raises(TypeError):                       # mixed dtypes
+        pak.paged_decode_attention(q, kp.bfloat16(), vp.bfloat16(), table,
+                                   lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        pak.paged_decode_attention(q.transpose(0, 1).contiguous()
+                                   .transpose(0, 1), kp, vp, table, lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        pak.paged_decode_attention(q, kp.transpose(2, 3).contiguous()
+                                   .transpose(2, 3), vp, table, lens)
+    with pytest.raises(TypeError):                       # int64 table
+        pak.paged_decode_attention(q, kp, vp, table.long(), lens)
+    with pytest.raises(ValueError):                      # CPU lengths
+        pak.paged_decode_attention(q, kp, vp, table, lens.cpu())
+    with pytest.raises(ValueError, match="group"):       # 8 heads, 3 KV
+        pak.paged_decode_attention(q, kp[:, :1].expand(-1, 3, -1, -1)
+                                   .contiguous(), vp[:, :1].expand(
+                                       -1, 3, -1, -1).contiguous(),
+                                   table, lens)
+    with pytest.raises(IndexError, match="block_table"):  # page past NP
+        paops.paged_decode_attention(q, kp, vp, table + kp.shape[0], lens)
+    with pytest.raises(IndexError, match="seq_lens"):     # past PMAX·PS
+        paops.paged_decode_attention(q, kp, vp, table, lens + 25)
+    with pytest.raises(RuntimeError, match="CUDA error"):  # G·Dh too big
+        big = torch.zeros((1, 256, 256), device=cuda_device)
+        pak.paged_decode_attention(big, kp[:, :1, :, :1].expand(
+            -1, -1, -1, 256).contiguous(), vp[:, :1, :, :1].expand(
+            -1, -1, -1, 256).contiguous(), table[:1], lens[:1])
+
+
+@pytest.mark.parametrize("arch", ("glm4-9b", "yi-34b"))
+def test_engine_on_the_card_equals_plain_attention(cuda_device, arch,
+                                                   monkeypatch):
+    from repro_torch import configs
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = configs.get_config(arch, smoke=True)
+    params = tf.init_params(cfg, device=cuda_device, seed=2)
+    gen = np.random.default_rng(5)
+    prompts = [gen.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (3, 17, 9, 30, 6)]
+
+    def serve():
+        eng = ServeEngine(params, cfg, EngineConfig(
+            max_batch=3, max_seq=64, page_size=8, n_pages=40),
+            device=cuda_device)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(prompt=p, rid=rid, max_new_tokens=10))
+        done = eng.run()
+        return [(r.rid, r.out_tokens) for r in done], eng
+
+    before = LAUNCHES["paged_decode_attention"]
+    got, eng = serve()
+    launched = LAUNCHES["paged_decode_attention"] - before
+    assert launched > 0 and launched % cfg.n_layers == 0
+    assert eng.k_pool.is_cuda and eng.pager.utilization == 0.0
+    monkeypatch.setattr(pak, "paged_decode_attention",
+                        lambda *a, **kw: paref.paged_decode_attention(*a))
+    want, _ = serve()
+    assert LAUNCHES["paged_decode_attention"] - before == launched
+    assert got == want
+
+
+def test_paged_decode_attention_refuses_minus_one_among_live_pages(
+        cuda_device):
+    """A -1 among a sequence's first ceil(seq_lens / PS) entries raises
+    before a launch; -1 past them is padding and launches B8."""
+    q, kp, vp, table, lens = _on(cuda_device, *_attn_case(
+        3, 8, 2, 16, 4, 6, torch.float32, seed=4, lens=[9, 24, 1]))
+    before = LAUNCHES["paged_decode_attention"]
+    paops.paged_decode_attention(q, kp, vp, table, lens)
+    assert LAUNCHES["paged_decode_attention"] == before + 1
+    for i, last in enumerate((2, 5, 0)):
+        bad = table.clone()
+        bad[i, last] = -1
+        with pytest.raises(IndexError, match="live pages"):
+            paops.paged_decode_attention(q, kp, vp, bad, lens)
+    assert LAUNCHES["paged_decode_attention"] == before + 1

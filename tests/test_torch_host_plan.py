@@ -179,6 +179,41 @@ class TestImportGuard:
                              capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
 
+    def test_lm_modules_run_with_jax_blocked(self):
+        code = (
+            "import sys\n"
+            "sys.modules['jax'] = None\n"
+            "import numpy as np, torch\n"
+            "from repro_torch import carry, configs\n"
+            "from repro_torch.configs import common, glm4_9b, yi_34b\n"
+            "from repro_torch.kernels.paged_attn import kernel, ops, ref\n"
+            "from repro_torch.models import attention, transformer as tf\n"
+            "from repro_torch.serve.engine import (EngineConfig, Request, "
+            "ServeEngine)\n"
+            "from repro_torch.serve.kv_cache import PagedKVCache\n"
+            "from repro_torch.launch import serve\n"
+            "cfg = configs.get_config('yi-34b', smoke=True)\n"
+            "e = ServeEngine(tf.init_params(cfg, device='cpu'), cfg, "
+            "EngineConfig(max_batch=2, max_seq=32, page_size=4, "
+            "n_pages=16), device='cpu')\n"
+            "for n in (3, 9, 5):\n"
+            "    e.submit(Request(prompt=np.arange(n, dtype=np.int32), "
+            "max_new_tokens=4))\n"
+            "done = e.run()\n"
+            "assert [len(r.out_tokens) for r in done] == [4, 4, 4]\n"
+            "assert 'decode_32k' in common.LM_SHAPES\n"
+            "bad = [m for m in sys.modules if m == 'repro' "
+            "or m.startswith('repro.')]\n"
+            "assert not bad, bad\n"
+            "from repro_torch.kernels import _build, LAUNCHES\n"
+            "assert _build._libs == {}, 'kernels built on the CPU path'\n"
+            "assert LAUNCHES['paged_decode_attention'] == 0\n")
+        out = subprocess.run([sys.executable, "-c", code],
+                             env={**os.environ,
+                                  "PYTHONPATH": str(REPO / "src")},
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+
     def test_source_names_neither_jax_nor_reference_package(self):
         bad_import = re.compile(r"^\s*(import|from)\s+jax\b", re.M)
         bad_name = re.compile(r"\brepro\b(?!_torch)")

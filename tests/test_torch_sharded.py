@@ -675,12 +675,14 @@ class TestLauncher:
         assert launcher.parse_args([]).bench_out == "BENCH_torch_serve.json"
         assert launcher.parse_args([]).device == "cuda"
         assert launcher.parse_args([]).mode == "extract"
-        with pytest.raises(SystemExit, match="lm mode is not ported yet"):
-            launcher.main(["--mode", "lm"])
         with pytest.raises(SystemExit, match="zipf"):
             launcher.run_extract(launcher.parse_args(
                 _argv(tmp_path, "--zipf-s", "1.0")))
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        # lm mode is served now; like extract mode it needs the card
+        # unless given --device cpu
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            launcher.main(["--mode", "lm"])
         args = launcher.parse_args(_argv(tmp_path)[:-2] + [
             "--device", "cuda", "--bench-out", str(tmp_path / "b.json")])
         with pytest.raises(RuntimeError, match="no CUDA device"):
