@@ -73,7 +73,10 @@ and then, printing one JSON line per phase:
                one untimed and 8 timed forwards, with TF32 off; every
                message sum and the energy readout is one segment_sum
                (B7) launch, 15 per node-class forward and 16 per energy
-               forward.  Every B7 call of the path must equal B7's plain
+               forward, all reading one segment plan of the destination
+               ids built per forward (one more, of the graph ids, for the
+               energy readout: 1 or 2 ``segment_plan`` builds a forward,
+               counted).  Every B7 call of the path must equal B7's plain
                version byte for byte, and so must the outputs with the
                plain version in B7's place; B7 is also held on the
                minibatch's l = 2 sum with the padding edges clamped onto
@@ -87,7 +90,8 @@ and then, printing one JSON line per phase:
                tokens, 2.68 GB of K/V pool), serving 24 requests with
                prompts of 512-2048 tokens and 16-48 new tokens each, so
                admission runs mid-stream; every decode round is one
-               paged_decode_attention (B8) launch per layer.  Every B8
+               paged_decode_attention (B8) launch per layer, every one of
+               them on B8's tensor-core kernel.  Every B8
                call is held against B8's plain version inside the call
                (the pool changes after it) within the bf16 tolerance of
                the JAX kernel tests; the first round's logits with the
@@ -95,19 +99,23 @@ and then, printing one JSON line per phase:
                requests against a teacher-forced ``forward`` over their
                prompt and generated tokens, must agree within the stated
                bf16 bounds; then the launcher's lm mode (smoke config)
-               in-process; then B8's timings at the last and the first
-               round's shapes, each with one split too, and at
+               in-process (float32: B8's CUDA-core kernel); then B8's
+               timings at the last and the first round's shapes and at
                ``decode_32k``'s per-layer shape (128 × 32,768 tokens, a
-               4.29 GB pool, shuffled page ids);
+               4.29 GB pool, shuffled page ids): the tensor-core kernel
+               at its automatic split and at 1-32 splits, the CUDA-core
+               kernel on the same bf16 inputs at its automatic split and
+               at one, the plain version, SDPA and the bound;
 11. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B6's at
                the DLRM ``serve_bulk`` shape, timed in phase 8 while the
                tables are on the card, with DeepFM's D = 10 and D = 1
                bulk calls and the padded L = 8 bags as variants; B7's at
-               the minibatch's l = 2 sum, timed in phase 9, with its
-               l = 0 and l = 1 sums, the energy readout and the hub as
-               variants; B8's timed in phase 10);
+               the minibatch's l = 2 sum, timed in phase 9 (the walk over
+               a built plan, the plan's build, and a call on the ids),
+               with its l = 0 and l = 1 sums, the energy readout and the
+               hub as variants; B8's timed in phase 10);
 12. the kernels line, with the launch counts of the paths.
 
 The launch counters are reset just before each path (phases 2-3, 5, 6,
@@ -164,6 +172,9 @@ B8_BF16 = dict(rtol=2e-2, atol=2e-2)
 # much at decode_32k, whose N(0, 1) data over 32,768 tokens give |out|
 # of ~0.01.
 B8_REL = 2.0 ** -7
+# KV splits at which B8's tensor-core kernel is timed besides its own
+# rule's (kernel.split_for_tc), at each timed shape.
+B8_SPLITS = (1, 2, 4, 8, 16, 32)
 # Logits of two computations of the same bf16 model (the decode with B8
 # against the decode with its plain version; the engine's decode against
 # a teacher-forced forward): each of the 40 layers rounds its bf16
@@ -235,6 +246,40 @@ class Timer:
             pairs.append((s, e))
         torch.cuda.synchronize()
         return sum(s.elapsed_time(e) for s, e in pairs) / iters
+
+
+def ptxas_usage(source: str) -> dict:
+    """Registers and spill bytes of each kernel of ``csrc/<source>.cu``,
+    from ``-Xptxas -v`` on a second compile with the build's own flags
+    (into a temporary directory; the built library is not touched),
+    keyed by the kernel's name and template arguments."""
+    import re
+
+    from repro_torch.kernels import _build
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             str(Path(tmp) / "lib.so"), str(_build.CSRC / f"{source}.cu")],
+            capture_output=True, text=True, check=True)
+    usage, name = {}, None
+    for line in (out.stdout + out.stderr).splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]               # _Z<len><name>...
+            digits = re.match(r"_Z(\d+)", mangled)
+            start = digits.end()
+            name = mangled[start:start + int(digits.group(1))]
+            args = re.findall(r"Li(\d+)E", mangled)
+            if args:
+                name += f"<{', '.join(args)}>"
+            usage[name] = {}
+        elif name and (m := re.search(r"(\d+) bytes spill stores, "
+                                      r"(\d+) bytes spill loads", line)):
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        elif name and (m := re.search(r"Used (\d+) registers", line)):
+            usage[name]["registers"] = int(m.group(1))
+    return usage
 
 
 def zipf_draw(rng, n_items: int, n_draws: int, s: float = 1.1):
@@ -606,23 +651,23 @@ def gnn(dev, seed: int, card: str, check, path_launches: dict) -> dict:
         row, calls = serve_gnn_shape(dev, seed, shape, check, path_launches)
         emit({"phase": "gnn", **row, "matmul": matmul, "card": card})
         if shape == "molecule":
-            a, _, _ = calls[-1]                  # the energy readout
-            timed["readout"] = segment_timing(dev, *a, "molecule energy "
-                                              "readout")
+            (m, plan, n_seg), _, _ = calls[-1]   # the energy readout
+            timed["readout"] = segment_timing(dev, m, plan.ids, n_seg,
+                                              "molecule energy readout")
         elif shape == "minibatch_lg":
             # The last layer's three sums (l = 0, 1, 2), then the same
             # l = 2 messages with the JAX package's ids (padding edges
             # clamped onto node 0: an 80,417-edge hub, same sums).
-            (m0, i0, s0), _, _ = calls[-3]
-            (m1, i1, s1), _, _ = calls[-2]
-            (m2, i2, s2), _, out2 = calls[-1]
-            timed["l2"] = segment_timing(dev, m2, i2, s2, "minibatch_lg "
+            (m0, p0, s0), _, _ = calls[-3]
+            (m1, p1, s1), _, _ = calls[-2]
+            (m2, p2, s2), _, out2 = calls[-1]
+            timed["l2"] = segment_timing(dev, m2, p2.ids, s2, "minibatch_lg "
                                          "l = 2")
-            timed["l0"] = segment_timing(dev, m0, i0, s0, "minibatch_lg "
+            timed["l0"] = segment_timing(dev, m0, p0.ids, s0, "minibatch_lg "
                                          "l = 0")
-            timed["l1"] = segment_timing(dev, m1, i1, s1, "minibatch_lg "
+            timed["l1"] = segment_timing(dev, m1, p1.ids, s1, "minibatch_lg "
                                          "l = 1")
-            timed["hub"] = hub_check_and_timing(dev, m2, i2, s2, out2,
+            timed["hub"] = hub_check_and_timing(dev, m2, p2.ids, s2, out2,
                                                 check)
         del calls
         torch.cuda.empty_cache()
@@ -689,6 +734,11 @@ def serve_gnn_shape(dev, seed: int, shape: str, check, path_launches: dict):
     assert launches["segment_sum"] == (1 + GNN_FORWARDS) * per_forward, \
         f"{shape}: B7 launched {launches['segment_sum']} times"
     assert len(calls) == launches["segment_sum"]
+    # One segment plan a forward (the destination ids), one more for the
+    # energy readout (the graph ids), where the CSR was built per call.
+    plans_per_forward = launches["segment_plan"] / (1 + GNN_FORWARDS)
+    assert plans_per_forward == 1 + energy, \
+        f"{shape}: {launches['segment_plan']} segment plans built"
     # Every B7 call of the path against the plain version.
     with torch.no_grad():
         for a, kw, out in calls:
@@ -745,6 +795,7 @@ def serve_gnn_shape(dev, seed: int, shape: str, check, path_launches: dict):
            "real_edges_per_s": n_real / (p50 / 1e3),
            "host_f64_s": host_s, "host_f64_max_abs_err": errs,
            "host_f64_tol": GNN_F64, "b7_calls_checked": len(calls),
+           "segment_plans_per_forward": plans_per_forward,
            "forces_run_spread": spread if energy else None,
            "profiled_forward": profiled,
            "launches": launches}
@@ -790,12 +841,16 @@ def device_profile(fn, top: int = 8,
 
 
 def segment_timing(dev, messages, ids, num_segments: int, what: str) -> dict:
-    """B7 (CSR and kernel), the CSR alone, its plain version and
-    ``index_add_`` on the same sums; the bound counts each id, each row of
-    an edge with a segment and each output element once."""
+    """B7's walk over a segment plan built once (``ms``), the plan's build
+    (``plan_ms``: the ids' check with its host read, the sort and the
+    offsets), a call on the ids that does both as before the plan
+    (``ids_ms``), the plain version and ``index_add_`` on the same sums;
+    the bound counts each id, each row of an edge with a segment and
+    each output element once."""
     import torch
 
     from repro_torch.kernels.segment import kernel as segk
+    from repro_torch.kernels.segment import ops as segops
     from repro_torch.kernels.segment import ref as segref
 
     e, d = messages.shape
@@ -811,10 +866,13 @@ def segment_timing(dev, messages, ids, num_segments: int, what: str) -> dict:
     # The plain version takes one step per rank of the largest segment:
     # on a hub, one timed call is seconds.
     plain_iters = 20 if int(counts.max()) < 1000 else 1
+    plan = segops.segment_plan(ids, num_segments)
     return {
-        "ms": timer(lambda: segk.segment_sum(messages, ids, num_segments)),
-        "csr_ms": timer(lambda: segref.segment_csr(ids, num_segments)),
-        "plain_ms": timer(lambda: segref.segment_sum(messages, ids,
+        "ms": timer(lambda: segk.segment_sum(messages, plan, num_segments)),
+        "plan_ms": timer(lambda: segops.segment_plan(ids, num_segments)),
+        "ids_ms": timer(lambda: segops.segment_sum(messages, ids,
+                                                   num_segments)),
+        "plain_ms": timer(lambda: segref.segment_sum(messages, plan,
                                                      num_segments),
                           iters=plain_iters,
                           warmup=3 if plain_iters > 1 else 0),
@@ -861,16 +919,21 @@ def b8_gap(got, want) -> dict:
 
 
 def b8_faults(table, lens, ps: int, n_split: int, n_pages: int) -> dict:
-    """Planted faults of B8, each as the plan that makes the correct
-    kernel compute what a faulty one would: the newest token left out
-    (seq_lens - 1, the off-by-one of C5), the last non-empty split left
-    out of the merge, and every live page read from the next page of the
-    pool (an error in the page address)."""
+    """Planted faults of B8 (its tensor-core kernel), each as the plan
+    that makes the correct kernel compute what a faulty one would: the
+    newest token left out (seq_lens - 1, the off-by-one of C5), the last
+    non-empty split left out of the merge (splits of at least
+    ``TC_MIN_SPLIT_PAGES`` pages, as the kernel cuts them), and every
+    live page read from the next page of the pool (an error in the page
+    address)."""
     import torch
+
+    from repro_torch.kernels.paged_attn import kernel as pak
 
     lens64 = lens.long()
     pages = (lens64 + ps - 1) // ps
-    per = ((pages + n_split - 1) // n_split).clamp(min=1)
+    per = ((pages + n_split - 1) // n_split).clamp(
+        min=pak.TC_MIN_SPLIT_PAGES)
     used = (pages + per - 1) // per
     cut = torch.minimum((used - 1).clamp(min=0) * per * ps, lens64)
     return {"newest token dropped": (table, (lens64 - 1).clamp(min=0).int()),
@@ -949,8 +1012,8 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
 
     def faulty_b8(name: str):
         def b8_fault(q, kp, vp, table, lens_, **kw):
-            n_split = pak.split_for(q.shape[0], kp.shape[1], table.shape[1],
-                                    q.device)
+            n_split = pak.split_for_tc(q.shape[0], kp.shape[1],
+                                       table.shape[1], q.device)
             t_, l_ = b8_faults(table, lens_, kp.shape[2], n_split,
                                kp.shape[0])[name]
             return kernel_fn(q, kp, vp, t_, l_, **kw)
@@ -1047,6 +1110,9 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
         f"B8 launched {launches['paged_decode_attention']} times in " \
         f"{n_rounds} decode rounds"
     assert b8["calls"] == launches["paged_decode_attention"]
+    # Every B8 call of the path went to the tensor-core kernel.
+    assert launches["paged_decode_attention_simt"] == 0, \
+        "lm_serve: B8 took the CUDA-core kernel"
     others = {k: n for k, n in launches.items()
               if n and k != "paged_decode_attention"}
     assert not others, f"lm_serve launched other kernels: {others}"
@@ -1123,7 +1189,7 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
         profiled = device_profile(
             lambda: tf.decode_paged(params, cfg, engine.k_pool,
                                     engine.v_pool, *plan),
-            named=("b8_kernel_ms", "paged_attn_kernel"))
+            named=("b8_kernel_ms", "paged_attn_tc_kernel"))
     del plan
     replay_p50 = float(np.median(replay_ms))
     replayed = {"batch": nb, "rounds_ms": replay_ms,
@@ -1141,8 +1207,11 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
     torch.cuda.synchronize()
     path_launches["lm_launcher"] = dict(LAUNCHES)
     assert run.engine.k_pool.is_cuda and len(run.done) == 8
-    assert LAUNCHES["paged_decode_attention"] > 0
-    assert LAUNCHES["paged_decode_attention"] % run.engine.cfg.n_layers == 0
+    # The smoke configuration is float32: B8's CUDA-core kernel.
+    assert LAUNCHES["paged_decode_attention"] == 0
+    assert LAUNCHES["paged_decode_attention_simt"] > 0
+    assert LAUNCHES["paged_decode_attention_simt"] % \
+        run.engine.cfg.n_layers == 0
 
     ms = [r["ms"] for r in rounds]
     decoded = sum(r["batch"] for r in rounds)
@@ -1175,16 +1244,11 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
     emit({"phase": "lm_serve", **row})
     assert not failed, f"lm_serve: logits out of bounds: {failed}"
 
-    # B8's timings: the last round's shape, the first (full) round's, and
-    # each with one split (the kernel without the merge pass).
+    # B8's timings: the last round's shape and the first (full) round's.
     last, first = b8["last"], b8["first"]
     timed = b8_timing(dev, *last, "last decode round, layer 40")
     variants = [b8_timing(dev, *first, "first decode round, layer 1",
-                          drill=True),
-                b8_timing(dev, *last, "last decode round, one split",
-                          n_split=1),
-                b8_timing(dev, *first, "first decode round, one split",
-                          n_split=1)]
+                          drill=True)]
     path_err = b8["max_abs_err"]
     # Free the model and the pools before decode_32k's 4.29 GB pool.
     del engine._decode_round, engine, params, run, last, first
@@ -1200,18 +1264,24 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
 
 
 def b8_timing(dev, q, kp, vp, table, lens, what: str,
-              n_split: int | None = None, drill: bool = False) -> dict:
-    """B8, its plain version and ``F.scaled_dot_product_attention`` on
-    the same attention; with ``drill``, also whether the bounds catch
-    each planted fault of ``b8_faults`` (the last two must be caught).  The bound counts the live K and V rows, q, the
-    output, the live table entries and the lengths once, and 4 flops per
-    (head, live token, dim) at the bf16 tensor-core (or float32) peak.
-    The library call gets K/V already gathered into the dense
-    (B, KVH, PMAX·PS, Dh) rectangle, dead slots masked: it reads that
-    rectangle, and the port never calls it."""
+              drill: bool = False) -> dict:
+    """B8 on the tensor-core kernel at its automatic split (``ms``) and
+    at each of ``B8_SPLITS`` (``split_ms``, the data of the split rule),
+    the CUDA-core kernel on the same bf16 inputs at its automatic
+    split and at one split (``simt_ms``, ``simt_one_split_ms``), the
+    plain version and ``F.scaled_dot_product_attention``; both kernels
+    held to the bf16 bounds.  With ``drill``, also whether the bounds
+    catch each planted fault of ``b8_faults`` (the last two must be
+    caught).  The bound counts the live K and V rows, q, the output, the
+    live table entries and the lengths once, and 4 flops per (head, live
+    token, dim) at the bf16 tensor-core (or float32) peak.  The library
+    call gets K/V already gathered into the dense (B, KVH, PMAX·PS, Dh)
+    rectangle, dead slots masked: it reads that rectangle, and the port
+    never calls it."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.paged_attn import kernel as pak
     from repro_torch.kernels.paged_attn import ref as paref
 
@@ -1227,19 +1297,24 @@ def b8_timing(dev, q, kp, vp, table, lens, what: str,
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / peak * 1e3
-    n_split = n_split or pak.split_for(b, kvh, pmax, dev)
-    got = pak.paged_decode_attention(q, kp, vp, table, lens,
-                                     n_split=n_split)
+    n_split = pak.split_for_tc(b, kvh, pmax, dev)
+    before = LAUNCHES["paged_decode_attention"]
+    got = pak.paged_decode_attention(q, kp, vp, table, lens)
+    assert LAUNCHES["paged_decode_attention"] == before + 1, \
+        f"B8 ({what}) did not take the tensor-core kernel"
     want = paref.paged_decode_attention(q, kp, vp, table, lens)
     gap = b8_gap(got, want)
-    err = gap["max_abs_err"]
     assert gap["ok"], f"B8 ({what}) != its plain version ({gap})"
+    simt_gap = b8_gap(pak.paged_decode_attention_simt(q, kp, vp, table,
+                                                      lens), want)
+    assert simt_gap["ok"], \
+        f"B8's CUDA-core kernel ({what}) != its plain version ({simt_gap})"
     faults = {}
     if drill:
         for name, (t_, l_) in b8_faults(table, lens, ps, n_split,
                                         kp.shape[0]).items():
-            bad = b8_gap(pak.paged_decode_attention(q, kp, vp, t_, l_,
-                                                    n_split=n_split), want)
+            bad = b8_gap(pak.paged_decode_attention(q, kp, vp, t_, l_),
+                         want)
             faults[name] = {**bad, "caught": not bad["ok"]}
         missed = [name for name in ("last split dropped",
                                     "next page of the pool")
@@ -1263,15 +1338,27 @@ def b8_timing(dev, q, kp, vp, table, lens, what: str,
                           **B8_BF16), f"SDPA ({what}) != B8's function"
     # B8's wrapper does more host work than a flush of 256 MB lasts.
     timer = Timer(dev, flush_bytes=B8_FLUSH_BYTES)
+    split_ms = {}
+    for n in sorted({*B8_SPLITS, n_split}):
+        if n <= pmax:
+            split_ms[n] = timer(lambda: pak.paged_decode_attention(
+                q, kp, vp, table, lens, n_split=n))
     out = {
-        "ms": timer(lambda: pak.paged_decode_attention(
-            q, kp, vp, table, lens, n_split=n_split)),
+        "ms": timer(lambda: pak.paged_decode_attention(q, kp, vp, table,
+                                                       lens)),
+        "split_ms": split_ms,
+        "simt_ms": timer(lambda: pak.paged_decode_attention_simt(
+            q, kp, vp, table, lens)),
+        "simt_one_split_ms": timer(lambda: pak.paged_decode_attention_simt(
+            q, kp, vp, table, lens, n_split=1)),
         "plain_ms": timer(lambda: paref.paged_decode_attention(
             q, kp, vp, table, lens), iters=5),
         "bound_ms": max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
         "library_ms": timer(library),
-        "max_abs_err": err, "rel_err": gap["rel_err"],
+        "max_abs_err": gap["max_abs_err"], "rel_err": gap["rel_err"],
+        "simt_max_abs_err": simt_gap["max_abs_err"],
+        "simt_rel_err": simt_gap["rel_err"],
         **({"faults": faults} if drill else {}),
         "shape": {"what": what, "B": b, "H": h, "KVH": kvh, "Dh": dh,
                   "PS": ps, "PMAX": pmax, "live_tokens": live,
@@ -1290,7 +1377,7 @@ def b8_decode_32k(dev, seed: int) -> list:
     128 sequences of 32,768 tokens, 32 heads over 2 KV heads, Dh 128,
     bf16, one layer's pool of 262,144 pages of 16 (4.29 GB of K and V),
     every page live, page ids shuffled; checked against the plain version
-    once, then timed with the automatic split and with one split."""
+    once, then timed (``b8_timing``)."""
     import torch
 
     from repro_torch.configs.common import LM_SHAPES
@@ -1311,9 +1398,7 @@ def b8_decode_32k(dev, seed: int) -> list:
         b, pages)
     lens = torch.full((b,), s, dtype=torch.int32, device=dev)
     out = [b8_timing(dev, q, kp, vp, table, lens, "decode_32k, one layer",
-                     drill=True),
-           b8_timing(dev, q, kp, vp, table, lens,
-                     "decode_32k, one layer, one split", n_split=1)]
+                     drill=True)]
     del kp, vp
     return out
 
@@ -1371,7 +1456,8 @@ def main(argv=None) -> int:
     _build.library("gather")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.last_build_s, "card": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "b8_tensor_core_ptxas": ptxas_usage("paged_attn_tc")})
 
     # -- the cube, the payload and the requests -------------------------
     iwc = IrregularWeatherCube(n_dates=2, times_per_day=4, n_levels=37,
@@ -1851,22 +1937,27 @@ def main(argv=None) -> int:
 
     # B7: minibatch_lg's l = 2 message sum (timed in phase 9), with the
     # l = 0 and l = 1 sums, the energy readout and the hub under
-    # "variants".
+    # "variants"; "segment_plans" counts the plans its launches read.
     entries.append({
         "name": "segment_sum", "route": "cuda",
         "source": "src/repro_torch/csrc/segment_sum.cu",
         "replaces": "src/repro/kernels/segment/kernel.py:70",
         "launches": launches["segment_sum"],
+        "segment_plans": launches["segment_plan"],
         "max_abs_err": errs["segment_sum"], **b7_timing})
 
-    # B8: the last decode round of lm_serve (timed in phase 10), with the
-    # first round's, both with one split, and the decode_32k per-layer
-    # shape under "variants"; max_abs_err over every call of the path.
+    # B8: the last decode round of lm_serve (timed in phase 10) on the
+    # tensor-core kernel, with the first round's and the decode_32k
+    # per-layer shape under "variants"; max_abs_err over every call of
+    # the path.  Its CUDA-core kernel (float32 and other shapes; the
+    # launcher's float32 smoke model) is timed beside it at each shape.
     entries.append({
         "name": "paged_decode_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/paged_attn.cu",
+        "source": "src/repro_torch/csrc/paged_attn_tc.cu",
         "replaces": "src/repro/kernels/paged_attn/kernel.py:123",
         "launches": launches["paged_decode_attention"],
+        "simt": {"source": "src/repro_torch/csrc/paged_attn.cu",
+                 "launches": launches["paged_decode_attention_simt"]},
         **b8_timing_entry})
     emit({"phase": "timing", "card": card})
 

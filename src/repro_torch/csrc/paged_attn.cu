@@ -1,5 +1,7 @@
 // Paged decode attention of the LM serving engine: kernel B8
-// (paged_decode_attention).
+// (paged_decode_attention) on the CUDA cores, for float32 and for the bf16
+// shapes the tensor-core kernel (paged_attn_tc.cu: bf16, Dh in {16, 32,
+// 64, 128}, G <= 16) does not take.  The merge pass is in paged_attn.cuh.
 //
 // Replaces the Pallas kernel of the JAX package's
 // kernels/paged_attn/kernel.py: paged_decode_attention
@@ -55,6 +57,7 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "paged_attn.cuh"
 #include "rows.cuh"
 
 constexpr int THREADS = 128;
@@ -63,15 +66,6 @@ constexpr int STEP_TOKENS = 32;
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
     return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) {
-    return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -226,36 +220,6 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     }
     for (int e = threadIdx.x; e < g * dh; e += THREADS)
         pt[2 * g + e] = acc_s[e];
-}
-
-template <typename T>
-__global__ void paged_attn_merge(const float* __restrict__ part,
-                                 int64_t total, int h, int kvh, int dh,
-                                 int n_split, T* __restrict__ out) {
-    const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (idx >= total) return;
-    const int g = h / kvh;
-    const int d = (int)(idx % dh);
-    const int64_t bh = idx / dh;
-    const int hh = (int)(bh % h);
-    const int64_t bk = (bh / h) * kvh + hh / g;
-    const int r = hh % g;
-    const int64_t stride = (int64_t)g * (dh + 2);
-    const float* p0 = part + bk * n_split * stride;
-    float big = -INFINITY;
-    for (int s = 0; s < n_split; ++s) big = fmaxf(big, p0[s * stride + 2 * r]);
-    if (big == -INFINITY) {                       // seq_lens == 0
-        out[idx] = from_f<T>(0.0f);
-        return;
-    }
-    float l = 0.0f, o = 0.0f;
-    for (int s = 0; s < n_split; ++s) {
-        const float* ps_ = p0 + s * stride;
-        const float w = expf(ps_[2 * r] - big);   // 0 for an empty split
-        l = __fmaf_rn(ps_[2 * r + 1], w, l);
-        o = __fmaf_rn(ps_[2 * g + r * dh + d], w, o);
-    }
-    out[idx] = from_f<T>(o / l);
 }
 
 template <typename T, int VEC>

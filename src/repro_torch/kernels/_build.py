@@ -32,8 +32,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("gather", "paged_attn", "plan_runs_2d", "segment_sum",
-           "slice_batch", "slice_extents")
+SOURCES = ("gather", "paged_attn", "paged_attn_tc", "plan_runs_2d",
+           "segment_sum", "slice_batch", "slice_extents")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types: every pointer and the stream
@@ -48,6 +48,11 @@ SIGNATURES = {
         "polytope_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I,
                                             _I, _I, _I, _I, _I, _I, _P, _P,
                                             _P],
+    },
+    "paged_attn_tc": {
+        "polytope_paged_decode_attention_tc": [_I, _P, _P, _P, _P, _P, _I,
+                                               _I, _I, _I, _I, _I, _I, _I,
+                                               _P, _P, _P],
     },
     "plan_runs_2d": {
         "polytope_plan_runs_2d": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
@@ -67,11 +72,17 @@ SIGNATURES = {
 }
 
 # Launches of each kernel since the last reset_launches(): a wrapper adds
-# one where it launches its kernel, and nowhere else.
+# one where it launches its kernel, and nowhere else.  B8 has two
+# kernels: "paged_decode_attention" counts the tensor-core one,
+# "paged_decode_attention_simt" the CUDA-core one.  "segment_plan" counts
+# B7's segment plans built on the card (kernels/segment/ops.py), each the
+# CSR that the B7 launches of one forward then share.
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_runs": 0,
                             "gather_rows_bag": 0, "plan_runs_2d": 0,
                             "slice_minor_extents": 0, "slice_batch": 0,
-                            "segment_sum": 0, "paged_decode_attention": 0}
+                            "segment_plan": 0, "segment_sum": 0,
+                            "paged_decode_attention": 0,
+                            "paged_decode_attention_simt": 0}
 
 
 def reset_launches() -> None:

@@ -4,9 +4,10 @@
   segment ids in [-1, S) → (S, D) sums, each segment's edges added in
   ascending edge index from +0.0.
 
-The wrapper groups the edges by segment (``ref.segment_csr``: a stable
-sort of the ids and a binary search for the offsets), then launches the
-kernel, which sums each segment with one group of lanes.  It checks its
+The kernel walks a segment grouping (``ref.SegmentPlan``: a stable sort
+of the ids and a binary search for the offsets, ``ref.segment_csr``),
+summing each segment with one group of lanes.  Given a plan, the wrapper
+launches the walk alone; given the ids, it builds the grouping first.  It checks its
 tensors, allocates the output with ``torch.empty``, launches on
 PyTorch's current stream, raises if the launch is refused, and counts
 the launch in ``LAUNCHES``.  The ids arrive already validated and cast
@@ -19,21 +20,26 @@ import torch
 
 from .. import _build
 from .._build import LAUNCHES
-from .ref import segment_csr
+from .ref import SegmentPlan, segment_csr
 
 
-def segment_sum(messages: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+def segment_sum(messages: torch.Tensor, segment_ids, num_segments: int
+                ) -> torch.Tensor:
     """``out[s] = sum of messages[e] over ids[e] == s`` on the card.
 
     messages    — (E, D) float32 or float64 CUDA tensor
-    segment_ids — (E,) int32 CUDA tensor, each in [-1, num_segments)
+    segment_ids — (E,) int32 CUDA tensor, each in [-1, num_segments), or
+                  a ``SegmentPlan`` of them built on the same device
     """
     dev = _build.cuda_device(messages, "segment_sum messages")
     _build.expect(messages, "segment_sum messages", device=dev,
                   dtype=(torch.float32, torch.float64), shape=(None, None))
-    _build.expect(segment_ids, "segment_sum segment_ids", device=dev,
-                  dtype=torch.int32, shape=(messages.shape[0],))
+    plan = segment_ids if isinstance(segment_ids, SegmentPlan) else None
+    if plan is not None:
+        plan.check(messages, num_segments)
+    else:
+        _build.expect(segment_ids, "segment_sum segment_ids", device=dev,
+                      dtype=torch.int32, shape=(messages.shape[0],))
     if num_segments < 0:
         raise ValueError(f"segment_sum: num_segments {num_segments} < 0")
     d = messages.shape[1]
@@ -41,7 +47,10 @@ def segment_sum(messages: torch.Tensor, segment_ids: torch.Tensor,
     if num_segments == 0 or d == 0:
         return out
     # Segment s's edges are perm[offsets[s]:offsets[s + 1]], in order.
-    perm, offsets = segment_csr(segment_ids, num_segments)
+    if plan is None:
+        perm, offsets = segment_csr(segment_ids, num_segments)
+    else:
+        perm, offsets = plan.perm, plan.offsets
     lib = _build.library("segment_sum")
     status = lib.polytope_segment_sum(
         dev.index or 0, messages.data_ptr(), d, perm.data_ptr(),

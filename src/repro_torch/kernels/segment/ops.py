@@ -12,6 +12,13 @@ core's VMEM) has no counterpart: B7 runs at every S·D.
 backward gathers ``grad_out[ids]`` (0 for a ``-1`` id) in plain
 PyTorch, as the JAX package takes that gradient with XLA's own gather
 and not with a Pallas kernel.
+
+Plan once, then read: ``segment_plan(ids, n)`` validates the ids (one
+host read of their min and max) and groups them by segment (a sort and
+a binary search) once; ``segment_sum`` given that plan does neither, and
+on the card is one launch of B7's walk.  A model that sums many message
+tensors over the same ids (NequIP: every (layer, l) of a forward) builds
+one plan per forward.
 """
 
 from __future__ import annotations
@@ -19,9 +26,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._build import LAUNCHES  # noqa: F401  (ops.LAUNCHES[name])
+from .._build import LAUNCHES
 from .._casting import checked_cast_i32
 from . import kernel, ref
+from .ref import SegmentPlan
 
 
 def _route(t: torch.Tensor):
@@ -33,11 +41,33 @@ def _route(t: torch.Tensor):
     raise ValueError(f"no segment path for a tensor on {t.device}")
 
 
+def _checked_ids(segment_ids, num_segments: int, device) -> torch.Tensor:
+    ids = checked_cast_i32(segment_ids, what="segment_sum segment_ids",
+                           n_elements=num_segments, allow_negative_one=True)
+    if isinstance(ids, np.ndarray):
+        ids = torch.from_numpy(ids)
+    return ids.to(device)
+
+
+def segment_plan(segment_ids, num_segments: int) -> SegmentPlan:
+    """Validate (E,) ids in [-1, num_segments) once and group them by
+    segment once, on the ids' device (numpy ids: the CPU).  A plan built
+    on the card counts one ``LAUNCHES["segment_plan"]``."""
+    device = segment_ids.device if isinstance(segment_ids, torch.Tensor) \
+        else torch.device("cpu")
+    plan = ref.build_plan(_checked_ids(segment_ids, num_segments, device),
+                          num_segments)
+    if device.type == "cuda":
+        LAUNCHES["segment_plan"] += 1
+    return plan
+
+
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, messages, segment_ids, num_segments):
-        ctx.save_for_backward(segment_ids)
-        return _route(messages).segment_sum(messages, segment_ids,
+    def forward(ctx, messages, ids_or_plan, num_segments):
+        ctx.save_for_backward(ids_or_plan.ids if isinstance(
+            ids_or_plan, SegmentPlan) else ids_or_plan)
+        return _route(messages).segment_sum(messages, ids_or_plan,
                                             num_segments)
 
     @staticmethod
@@ -52,13 +82,18 @@ def segment_sum(messages: torch.Tensor, segment_ids, num_segments: int,
     """``out[s] = sum of messages[e] over the edges with ids[e] == s`` for
     (E, D) messages and (E,) ids in [-1, num_segments) (a -1 id is
     dropped); kernel B7 on the card.  Each segment adds its edges in
-    ascending edge index from +0.0."""
-    ids = checked_cast_i32(segment_ids, what="segment_sum segment_ids",
-                           n_elements=num_segments, allow_negative_one=True)
-    if isinstance(ids, np.ndarray):
-        ids = torch.from_numpy(ids)
-    return _SegmentSum.apply(messages, ids.to(messages.device),
-                             num_segments)
+    ascending edge index from +0.0.
+
+    ``segment_ids`` is the ids (tensor or numpy), validated and grouped
+    in this call, or a ``SegmentPlan`` from ``segment_plan``: then no
+    host read and no sort, and a ``num_segments``, E or device that
+    differs from the plan's raises."""
+    if isinstance(segment_ids, SegmentPlan):
+        segment_ids.check(messages, num_segments)
+        return _SegmentSum.apply(messages, segment_ids, num_segments)
+    return _SegmentSum.apply(
+        messages, _checked_ids(segment_ids, num_segments, messages.device),
+        num_segments)
 
 
 def segment_max(messages: torch.Tensor, segment_ids, num_segments: int,

@@ -6,9 +6,43 @@ CUDA kernel against on the card.  Same contracts as ``kernel``.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from .._casting import checked_cast_i32
+
+
+@dataclass(frozen=True, eq=False)
+class SegmentPlan:
+    """A segment grouping built once and read by every sum over the same
+    ids (``ops.segment_plan`` builds it): the validated int32 ``ids``
+    (E,), ``num_segments``, and their CSR ``perm`` (E,) and ``offsets``
+    (S + 1,), int64, as ``segment_csr`` gives them, all on one device."""
+
+    ids: torch.Tensor
+    num_segments: int
+    perm: torch.Tensor
+    offsets: torch.Tensor
+
+    def check(self, messages: torch.Tensor, num_segments: int) -> None:
+        """Raise unless this plan is for ``num_segments`` segments over
+        the E rows of ``messages``, on their device."""
+        if num_segments != self.num_segments:
+            raise ValueError(f"segment_sum: num_segments {num_segments}, "
+                             f"the plan has {self.num_segments}")
+        if messages.dim() != 2 or messages.shape[0] != self.ids.shape[0]:
+            raise ValueError(f"segment_sum: messages "
+                             f"{tuple(messages.shape)} against a plan of "
+                             f"{self.ids.shape[0]} ids: expected (E, D)")
+        if messages.device != self.ids.device:
+            raise ValueError(f"segment_sum: messages on {messages.device}, "
+                             f"the plan on {self.ids.device}")
+
+
+def build_plan(ids: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The plan of int32 ``ids`` already validated by the caller."""
+    return SegmentPlan(ids, num_segments, *segment_csr(ids, num_segments))
 
 
 def segment_csr(segment_ids: torch.Tensor, num_segments: int
@@ -23,10 +57,12 @@ def segment_csr(segment_ids: torch.Tensor, num_segments: int
     return perm, torch.searchsorted(sorted_ids, bounds)
 
 
-def segment_sum(messages: torch.Tensor, segment_ids: torch.Tensor,
-                num_segments: int) -> torch.Tensor:
+def segment_sum(messages: torch.Tensor, segment_ids, num_segments: int
+                ) -> torch.Tensor:
     """``out[s] = sum of messages[e] over the edges with ids[e] == s``;
-    ``-1`` ids are dropped and an empty segment is +0.0.
+    ``-1`` ids are dropped and an empty segment is +0.0.  ``segment_ids``
+    is the (E,) ids or a ``SegmentPlan`` of them, whose CSR is then used
+    as it is.
 
     Each segment adds its edges in ascending edge index, starting from
     +0.0, in the messages' dtype: the order of a sequential loop, of
@@ -35,17 +71,25 @@ def segment_sum(messages: torch.Tensor, segment_ids: torch.Tensor,
     in order of falling edge count, so those with a k-th edge are a
     prefix, and step k adds the k-th edge of each of them.
     """
-    ids = checked_cast_i32(segment_ids, what="segment_sum segment_ids",
-                           n_elements=num_segments, allow_negative_one=True)
-    if messages.dim() != 2 or messages.shape[0] != ids.shape[0]:
-        raise ValueError(f"segment_sum: messages {tuple(messages.shape)} "
-                         f"and ids {tuple(ids.shape)}: expected (E, D) "
-                         f"and (E,)")
+    if isinstance(segment_ids, SegmentPlan):
+        plan = segment_ids
+        plan.check(messages, num_segments)
+    else:
+        ids = checked_cast_i32(segment_ids, what="segment_sum segment_ids",
+                               n_elements=num_segments,
+                               allow_negative_one=True)
+        if messages.dim() != 2 or messages.shape[0] != ids.shape[0]:
+            raise ValueError(f"segment_sum: messages "
+                             f"{tuple(messages.shape)} and ids "
+                             f"{tuple(ids.shape)}: expected (E, D) and (E,)")
+        plan = None
     d = messages.shape[1]
     out = messages.new_zeros((num_segments, d))
     if num_segments == 0 or messages.shape[0] == 0:
         return out
-    perm, offsets = segment_csr(ids, num_segments)
+    if plan is None:
+        plan = build_plan(ids, num_segments)
+    perm, offsets = plan.perm, plan.offsets
     counts = offsets[1:] - offsets[:-1]
     by_count = torch.sort(counts, descending=True, stable=True).indices
     max_count = int(counts.max())

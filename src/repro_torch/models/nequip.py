@@ -13,7 +13,11 @@ Message passing is a segment sum over the edge list: every layer's
 aggregation (one per ``l``) and the per-graph energy readout go through
 ``kernels.segment.ops.segment_sum``, which is kernel B7 on the card and
 its plain version on CPU tensors.  A node-class forward launches B7
-``n_layers × (l_max + 1)`` times, an energy forward once more.
+``n_layers × (l_max + 1)`` times, an energy forward once more.  The
+layers' sums share one ``segment_plan`` of the destination ids, built
+once per forward (the ids validated and grouped by node once), and the
+readout has one of the graph ids: 1 plan a node-class forward, 2 an
+energy forward.
 
 The forward follows the JAX package's ``nequip_forward`` step for step,
 with these differences, none of which changes what it computes:
@@ -200,7 +204,7 @@ class NequIPLayer(nn.Module):
 
     def forward(self, feats: dict, filters: list, rbf: torch.Tensor,
                 emask: torch.Tensor, src: torch.Tensor,
-                seg: torch.Tensor) -> dict:
+                seg: segment_ops.SegmentPlan) -> dict:
         cfg, c = self.cfg, self.cfg.channels
         n, e = feats[0].shape[0], src.shape[0]
         radial_w = self.radial(rbf)                      # (E, paths*C)
@@ -279,8 +283,9 @@ class NequIP(nn.Module):
         ys = {l: sph_harm(l, rhat).to(cfg.dtype) for l in cfg.ls}
         rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
         emask = (edge_mask & (r <= cfg.cutoff)).to(cfg.dtype)
-        # The sums' ids: padding edges dropped (their messages are zero).
-        seg = torch.where(edge_mask, dst, -1)
+        # The sums' ids: padding edges dropped (their messages are zero),
+        # validated and grouped by node once for every sum of the forward.
+        seg = segment_ops.segment_plan(torch.where(edge_mask, dst, -1), n)
         # Y_lf(r̂) · G of each path: (E, 2li+1, 2lo+1).
         filters = [torch.einsum("eb,abm->eam", ys[lf],
                                 getattr(self, f"gaunt_{pi}"))
@@ -298,10 +303,12 @@ class NequIP(nn.Module):
             out = out * node_mask[:, None]
         if cfg.readout == "node_class":
             return out
-        gid = graph_ids if graph_ids is not None else torch.zeros(
-            (n,), dtype=torch.int32, device=out.device)
-        return segment_ops.segment_sum(out[:, :1].contiguous(), gid,
-                                       n_graphs)[:, 0]
+        gid = torch.as_tensor(graph_ids, device=out.device) \
+            if graph_ids is not None else torch.zeros(
+                (n,), dtype=torch.int32, device=out.device)
+        return segment_ops.segment_sum(
+            out[:, :1].contiguous(), segment_ops.segment_plan(gid, n_graphs),
+            n_graphs)[:, 0]
 
 
 def nequip_energy_forces(model: NequIP, node_feat: torch.Tensor,

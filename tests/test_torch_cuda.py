@@ -10,9 +10,13 @@ The comparisons of B1-B7 are byte for byte: those kernels copy or plan
 in integer and float64/float32 arithmetic that rounds like the plain
 versions, and the summing kernels (B6, B7) add in the plain versions'
 order.  B8 (paged decode attention) sums its float32 scores, softmax and
-V products in its own order (per 32-token step, then across KV splits):
-it is held against its plain version within rtol = atol = 2e-5 in
-float32 and 2e-2 in bfloat16, the JAX kernel tests' tolerances.
+V products in its own order (per step of tokens, then across warps and
+KV splits): it is held against its plain version within rtol = atol =
+2e-5 in float32 and 2e-2 in bfloat16, the JAX kernel tests' tolerances,
+and in bfloat16 also within 2^-7 of the largest |output| (one bf16 ulp
+at the top of the output, as ``chip_smoke.py`` holds it).  Each B8 case
+asserts which of its two kernels launched: the tensor-core one for bf16
+with Dh in {16, 32, 64, 128} and G <= 16, the CUDA-core one otherwise.
 """
 
 import dataclasses
@@ -405,6 +409,34 @@ def test_segment_sum(cuda_device, d, dtype):
     assert int((ids == 7).sum()) == 10_000
 
 
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("d", (1, 32, 160))
+def test_segment_sum_with_a_plan(cuda_device, d, dtype):
+    """One plan built on the card (one segment_plan count), read by B7
+    on three message tensors: each byte-equal to the ids path and to the
+    plain version on the CPU."""
+    msg, ids = _segment_case(30_000, 3000, d, dtype, seed=d + 1)
+    ids = ids.to(cuda_device)
+    before = dict(LAUNCHES)
+    plan = segops.segment_plan(ids, 3000)
+    assert LAUNCHES["segment_plan"] == before["segment_plan"] + 1
+    assert plan.perm.is_cuda and plan.offsets.is_cuda
+    for scale in (1.0, -0.5, 3.0):
+        m = (msg * scale).to(cuda_device)
+        want_cpu = segref.segment_sum(m.cpu(), ids.cpu(), 3000)
+        got = segops.segment_sum(m, plan, 3000)
+        assert _bytes_equal(got, segk.segment_sum(m, ids, 3000))
+        assert _bytes_equal(got.cpu(), want_cpu)
+    assert LAUNCHES["segment_sum"] == before["segment_sum"] + 6
+    assert LAUNCHES["segment_plan"] == before["segment_plan"] + 1
+    with pytest.raises(ValueError, match="num_segments"):
+        segk.segment_sum(msg.to(cuda_device), plan, 2999)
+    with pytest.raises(ValueError, match="plan of"):
+        segk.segment_sum(msg[1:].to(cuda_device), plan, 3000)
+    with pytest.raises(ValueError, match="plan on"):
+        segops.segment_sum(msg, plan, 3000)              # CPU messages
+
+
 def test_segment_sum_empty_inputs_and_a_misaligned_view(cuda_device):
     none = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
     out = segk.segment_sum(torch.zeros((0, 4), device=cuda_device), none, 5)
@@ -470,10 +502,13 @@ def test_nequip_on_the_card_equals_plain_segment_sum(cuda_device, shape,
         with torch.no_grad():
             return (model(*args),)
 
-    before = LAUNCHES["segment_sum"]
+    before = dict(LAUNCHES)
     got = run()
     per_forward = 3 * cfg.n_layers + (shape == "molecule")
-    assert LAUNCHES["segment_sum"] == before + per_forward
+    assert LAUNCHES["segment_sum"] == before["segment_sum"] + per_forward
+    # One plan of the destination ids, one more of the graph ids.
+    assert LAUNCHES["segment_plan"] == \
+        before["segment_plan"] + 1 + (shape == "molecule")
     monkeypatch.setattr(segk, "segment_sum", segref.segment_sum)
     want = run()
     for a, w in zip(got, want):
@@ -511,6 +546,31 @@ def _on(dev, *tensors):
     return [t.to(dev) for t in tensors]
 
 
+def _b8_kernel(dtype, h, kvh, dh) -> str:
+    """The LAUNCHES name of the B8 kernel these inputs take."""
+    tc = dtype == torch.bfloat16 and dh in (16, 32, 64, 128) \
+        and h // kvh <= 16
+    return "paged_decode_attention" if tc else "paged_decode_attention_simt"
+
+
+def _b8_launched(fn, name):
+    """``fn()``, asserting that it launched B8's kernel ``name`` once and
+    the other B8 kernel not at all."""
+    before = dict(LAUNCHES)
+    out = fn()
+    for kernel in ("paged_decode_attention", "paged_decode_attention_simt"):
+        assert LAUNCHES[kernel] - before[kernel] == (kernel == name), kernel
+    return out
+
+
+def _assert_b8_close(got, want, dtype):
+    torch.testing.assert_close(got.cpu().float(), want.float(),
+                               **_attn_tol(dtype))
+    if dtype == torch.bfloat16:
+        err = float((got.cpu().float() - want.float()).abs().max())
+        assert err <= 2.0 ** -7 * float(want.float().abs().max())
+
+
 ATTN_SHAPES = [(2, 4, 4, 8, 4, 3), (3, 8, 2, 16, 4, 6), (1, 8, 1, 32, 8, 4),
                (3, 14, 2, 8, 4, 5),                  # the CPU tests' shapes
                (4, 16, 4, 128, 16, 24),              # G = 4 (Granite)
@@ -525,13 +585,33 @@ ATTN_SHAPES = [(2, 4, 4, 8, 4, 3), (3, 8, 2, 16, 4, 6), (1, 8, 1, 32, 8, 4),
 def test_paged_decode_attention(cuda_device, shape, dtype, n_split):
     case = _attn_case(*shape, dtype, seed=sum(shape))
     want = paref.paged_decode_attention(*case)
-    before = LAUNCHES["paged_decode_attention"]
-    got = pak.paged_decode_attention(*_on(cuda_device, *case),
-                                     n_split=n_split)
-    assert LAUNCHES["paged_decode_attention"] == before + 1
+    got = _b8_launched(lambda: pak.paged_decode_attention(
+        *_on(cuda_device, *case), n_split=n_split),
+        _b8_kernel(dtype, *shape[1:4]))
     assert got.dtype == dtype and bool(torch.isfinite(got).all())
-    torch.testing.assert_close(got.cpu().float(), want.float(),
-                               **_attn_tol(dtype))
+    _assert_b8_close(got, want, dtype)
+
+
+@pytest.mark.parametrize("n_split", (None, 1, 3))
+@pytest.mark.parametrize("g", (1, 4, 7, 16))
+@pytest.mark.parametrize("dh", (64, 128))
+def test_paged_decode_attention_tensor_cores(cuda_device, dh, g, n_split):
+    """bf16 on the tensor-core kernel: every length ends mid-page (and
+    mid-step), one is shorter than a step, the longest spans 41 pages."""
+    kvh = 2
+    lens = [651, 5, 300, 77]
+    case = _attn_case(4, g * kvh, kvh, dh, 16, 41, torch.bfloat16,
+                      seed=dh + g, lens=lens)
+    want = paref.paged_decode_attention(*case)
+    got = _b8_launched(lambda: pak.paged_decode_attention(
+        *_on(cuda_device, *case), n_split=n_split), "paged_decode_attention")
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    _assert_b8_close(got, want, torch.bfloat16)
+    # The CUDA-core kernel computes the same function on the same inputs.
+    simt = _b8_launched(lambda: pak.paged_decode_attention_simt(
+        *_on(cuda_device, *case), n_split=n_split),
+        "paged_decode_attention_simt")
+    _assert_b8_close(simt, want, torch.bfloat16)
 
 
 @pytest.mark.parametrize("n_split", (1, 4))
@@ -557,15 +637,18 @@ def test_paged_decode_attention_poisoned_shared_and_empty(cuda_device,
     for pg in range(kp.shape[0]):
         kp[pg, :, live.get(pg, 0):] = float("nan")
         vp[pg, :, live.get(pg, 0):] = float("nan")
-    got = pak.paged_decode_attention(*_on(cuda_device, q, kp, vp, table,
-                                          lens), n_split=n_split).cpu()
+    name = _b8_kernel(dtype, h, kvh, dh)
+    got = _b8_launched(lambda: pak.paged_decode_attention(
+        *_on(cuda_device, q, kp, vp, table, lens), n_split=n_split),
+        name).cpu()
     assert bool(torch.isfinite(got).all())
     assert not bool(got[1].any())
-    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+    _assert_b8_close(got, want, dtype)
     # A NaN in a live slot is not hidden.
     kp[table[0, 0], 0, 0] = float("nan")
-    got = pak.paged_decode_attention(*_on(cuda_device, q, kp, vp, table,
-                                          lens), n_split=n_split).cpu()
+    got = _b8_launched(lambda: pak.paged_decode_attention(
+        *_on(cuda_device, q, kp, vp, table, lens), n_split=n_split),
+        name).cpu()
     assert bool(got[0, :h // kvh].isnan().all())
     assert bool(torch.isfinite(got[2]).all()) and not bool(got[1].any())
 
@@ -627,15 +710,20 @@ def test_engine_on_the_card_equals_plain_attention(cuda_device, arch,
         done = eng.run()
         return [(r.rid, r.out_tokens) for r in done], eng
 
-    before = LAUNCHES["paged_decode_attention"]
+    # The smoke configurations are float32: the CUDA-core kernel.
+    name = _b8_kernel(cfg.dtype, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    assert name == "paged_decode_attention_simt"
+    before = dict(LAUNCHES)
     got, eng = serve()
-    launched = LAUNCHES["paged_decode_attention"] - before
+    launched = LAUNCHES[name] - before[name]
     assert launched > 0 and launched % cfg.n_layers == 0
+    assert LAUNCHES["paged_decode_attention"] == \
+        before["paged_decode_attention"]
     assert eng.k_pool.is_cuda and eng.pager.utilization == 0.0
     monkeypatch.setattr(pak, "paged_decode_attention",
                         lambda *a, **kw: paref.paged_decode_attention(*a))
     want, _ = serve()
-    assert LAUNCHES["paged_decode_attention"] - before == launched
+    assert LAUNCHES[name] - before[name] == launched
     assert got == want
 
 
@@ -645,12 +733,13 @@ def test_paged_decode_attention_refuses_minus_one_among_live_pages(
     before a launch; -1 past them is padding and launches B8."""
     q, kp, vp, table, lens = _on(cuda_device, *_attn_case(
         3, 8, 2, 16, 4, 6, torch.float32, seed=4, lens=[9, 24, 1]))
-    before = LAUNCHES["paged_decode_attention"]
-    paops.paged_decode_attention(q, kp, vp, table, lens)
-    assert LAUNCHES["paged_decode_attention"] == before + 1
+    name = "paged_decode_attention_simt"                 # float32
+    before = LAUNCHES[name]
+    _b8_launched(lambda: paops.paged_decode_attention(q, kp, vp, table,
+                                                      lens), name)
     for i, last in enumerate((2, 5, 0)):
         bad = table.clone()
         bad[i, last] = -1
         with pytest.raises(IndexError, match="live pages"):
             paops.paged_decode_attention(q, kp, vp, bad, lens)
-    assert LAUNCHES["paged_decode_attention"] == before + 1
+    assert LAUNCHES[name] == before + 1

@@ -217,6 +217,136 @@ class TestPagedAttention:
             bad[i] = bt[i]
 
 
+# The card's bf16 shapes of B8's tensor-core kernel (csrc/paged_attn_tc.cu):
+# G = 4 (Granite), 7 (Yi), 16 (GLM-4) at Dh = 128, PS = 16, B <= 5.
+TC_SHAPES = [(4, 16, 4, 128, 16, 24), (3, 56, 8, 128, 16, 20),
+             (5, 32, 2, 128, 16, 40)]
+TC_IDS = ["g4", "g7", "g16"]
+# The bounds chip_smoke.py holds the kernel to on the card: the JAX
+# kernel tests' bf16 tolerance, and within 2^-7 of the largest |output|.
+B8_REL = 2.0 ** -7
+
+
+def _tc_emulation(q, kp, vp, bt, lens, n_split, p_halves=2, warps=4,
+                  step=16, min_pages=pops.kernel.TC_MIN_SPLIT_PAGES):
+    """The tensor-core kernel's arithmetic in plain float32 PyTorch, for
+    bf16 tensors: per (sequence, KV head, split of at least
+    ``min_pages`` pages), the split's live
+    tokens in steps of ``step``, warp ``w`` taking steps w, w + warps,
+    ...; per step S = Q K^T scaled by 1/sqrt(Dh), m and the float32 l
+    updated online, and P V with P rounded to bf16 (``p_halves`` 1) or
+    as bf16 hi + lo halves (2, the kernel); then the warps merged and
+    the splits merged with the merge pass's formula, the output
+    rounded to bf16.  Sums run in float32 in another order than the
+    tensor cores', so this models the roundings, not every bit."""
+    b, h, dh = q.shape
+    _, kvh, ps, _ = kp.shape
+    g = h // kvh
+    scale = torch.tensor(1.0) / torch.sqrt(torch.tensor(float(dh)))
+    out = torch.zeros((b, h, dh))
+
+    def merged(states):
+        big = torch.stack([m for m, _, _ in states]).max(0).values
+        l_sum, o_sum = torch.zeros(g), torch.zeros((g, dh))
+        for m, l, o in states:
+            w = torch.where(big == -torch.inf, 0.0, torch.exp(m - big))
+            l_sum, o_sum = l_sum + l * w, o_sum + o * w[:, None]
+        return big, l_sum, o_sum
+
+    for i in range(b):
+        n = int(lens[i])
+        pages = -(-n // ps)
+        per = max(-(-pages // n_split), min_pages)
+        for k in range(kvh):
+            qf = q[i, k * g:(k + 1) * g].float()
+            parts = []
+            for s in range(n_split):
+                t0 = s * per * ps
+                t1 = min(min(s * per + per, pages) * ps, n)
+                states = []
+                for w in range(warps):
+                    m = torch.full((g,), -torch.inf)
+                    l, o = torch.zeros(g), torch.zeros((g, dh))
+                    for st in range(t0 + w * step, t1, warps * step):
+                        tok = torch.arange(st, min(st + step, t1))
+                        rows = bt[i, tok // ps].long()
+                        kk = kp[rows, k, tok % ps].float()
+                        vv = vp[rows, k, tok % ps].float()
+                        sc = (qf @ kk.T) * scale
+                        mn = torch.maximum(m, sc.max(1).values)
+                        alpha = torch.exp(m - mn)
+                        pr = torch.exp(sc - mn[:, None])
+                        l = l * alpha + pr.sum(1)
+                        hi = pr.bfloat16().float()
+                        pv = hi @ vv
+                        if p_halves == 2:
+                            pv = pv + (pr - hi).bfloat16().float() @ vv
+                        o = o * alpha[:, None] + pv
+                        m = mn
+                    states.append((m, l, o))
+                parts.append(merged(states))
+            if n:
+                _, l_sum, o_sum = merged(parts)
+                out[i, k * g:(k + 1) * g] = o_sum / l_sum[:, None]
+    return out.bfloat16()
+
+
+def _within_b8_bounds(got, want):
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    return (torch.allclose(got, want, rtol=2e-2, atol=2e-2)
+            and err <= B8_REL * float(want.abs().max())), err
+
+
+class TestTensorCoreRounding:
+    """B8's tensor-core kernel rounds P to bf16 for the P V product,
+    where the JAX kernel and the plain version multiply in float32.  Its
+    emulation stays within the card's bounds of the plain version and of
+    the Pallas kernel (interpret mode) at the card's G = 4, 7, 16 shapes:
+    the kernel's bf16 hi + lo halves of P with room to spare, one bf16 P
+    too (at up to 0.0071 of the largest |output| against 2^-7 = 0.0078
+    on these cases: the reason the kernel takes the two halves)."""
+
+    @pytest.mark.parametrize("p_halves", (2, 1), ids=("hi_lo", "bf16"))
+    @pytest.mark.parametrize("n_split", (1, 3))
+    @pytest.mark.parametrize("shape", TC_SHAPES, ids=TC_IDS)
+    def test_emulation_within_bounds_of_plain(self, shape, n_split,
+                                              p_halves):
+        for scale in (0.2, 1.0, 3.0):          # flat to peaked softmax
+            q, kp, vp, bt, lens = _attn_case(*shape, seed=sum(shape))
+            t = [torch.from_numpy(a) for a in (q * scale, kp, vp, bt, lens)]
+            t[:3] = [a.bfloat16() for a in t[:3]]
+            ok, err = _within_b8_bounds(
+                _tc_emulation(*t, n_split=n_split, p_halves=p_halves),
+                pref.paged_decode_attention(*t))
+            assert ok, (scale, err)
+
+    @pytest.mark.parametrize("shape", TC_SHAPES, ids=TC_IDS)
+    def test_emulation_within_bounds_of_pallas_kernel(self, shape):
+        q, kp, vp, bt, lens = _attn_case(*shape, seed=sum(shape) + 1)
+        pallas = lambda *a: ref_pk.paged_decode_attention(  # noqa: E731
+            *a, interpret=True)
+        want = torch.from_numpy(_jax_attn(pallas, q, kp, vp, bt, lens,
+                                          dtype="bfloat16"))
+        t = [torch.from_numpy(a) for a in (q, kp, vp, bt, lens)]
+        t[:3] = [a.bfloat16() for a in t[:3]]
+        ok, err = _within_b8_bounds(_tc_emulation(*t, n_split=3), want)
+        assert ok, err
+
+    def test_emulation_models_the_hi_lo_gain(self):
+        """The two halves carry p to ~16 bits: their emulation is closer
+        to the plain version than one bf16 P on every case."""
+        for shape in TC_SHAPES:
+            q, kp, vp, bt, lens = _attn_case(*shape, seed=sum(shape))
+            t = [torch.from_numpy(a) for a in (q * 0.2, kp, vp, bt, lens)]
+            t[:3] = [a.bfloat16() for a in t[:3]]
+            want = pref.paged_decode_attention(*t)
+            _, two = _within_b8_bounds(_tc_emulation(*t, n_split=1), want)
+            _, one = _within_b8_bounds(
+                _tc_emulation(*t, n_split=1, p_halves=1), want)
+            assert two < one, (shape, two, one)
+
+
 # -- the layers and the decoder ---------------------------------------------
 
 def _smoke(arch):

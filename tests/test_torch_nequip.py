@@ -6,7 +6,10 @@ is held byte for byte against the JAX package's reference
 (``jax.ops.segment_sum``, which sums in the same order on the CPU), and
 within rtol = atol = 1e-4 against the Pallas one-hot kernel in
 interpret mode (``tests/test_kernels.py``'s tolerance: that kernel sums
-each 256-edge block as a matrix product, then adds the blocks).
+each 256-edge block as a matrix product, then adds the blocks).  Sums
+over a ``segment_plan`` (the ids checked and grouped once) are held
+byte for byte against the same reference, and a forward builds one
+plan (two with the energy readout).
 
 The model is held against ``nequip_forward`` with the parameters drawn
 by ``nequip_init`` and carried across with ``repro_torch.carry``,
@@ -156,6 +159,70 @@ class TestSegmentSum:
             lambda m: sops.segment_sum(m, ids, 8), (msg,))
 
 
+class TestSegmentPlan:
+    """``segment_plan`` + ``segment_sum``: the ids validated and grouped
+    once, then read by every sum over them; the same bytes as the ids
+    path and as ``jax.ops.segment_sum``."""
+
+    @pytest.mark.parametrize("dtype", (np.float32, np.float64))
+    @pytest.mark.parametrize("d", (1, 32, 96))
+    def test_plan_equals_jax_reference_byte_for_byte(self, d, dtype):
+        msg, ids = _seg_case(2000, 200, d, seed=20 + d, dtype=dtype)
+        plan = sops.segment_plan(torch.from_numpy(ids), 200)
+        got = sops.segment_sum(torch.from_numpy(msg), plan, 200).numpy()
+        with jax.enable_x64(dtype == np.float64):
+            want = np.asarray(ref_seg.segment_sum(jnp.asarray(msg),
+                                                  jnp.asarray(ids), 200))
+        assert got.dtype == want.dtype == dtype
+        assert np.array_equal(_bytes(got), _bytes(want))
+        # -1 ids, empty segments and a hub (segment 3) are in the case.
+        assert (ids == -1).any() and (ids == 3).sum() > 400
+        assert not got[5].any() and not got[-1].any()
+
+    def test_one_plan_read_by_three_sums(self):
+        _, ids = _seg_case(1500, 120, 1, seed=9)
+        plan = sops.segment_plan(ids, 120)            # numpy ids: the CPU
+        assert plan.ids.dtype == torch.int32 and plan.num_segments == 120
+        rng = np.random.default_rng(10)
+        for d in (1, 7, 48):
+            msg = torch.from_numpy(rng.normal(size=(1500, d)).astype(
+                np.float32))
+            assert np.array_equal(
+                _bytes(sops.segment_sum(msg, plan, 120).numpy()),
+                _bytes(_seg_torch(msg.numpy(), ids, 120)))
+
+    def test_a_plan_that_does_not_fit_raises(self):
+        _, ids = _seg_case(300, 20, 1, seed=4)
+        plan = sops.segment_plan(torch.from_numpy(ids), 20)
+        with pytest.raises(ValueError, match="num_segments"):
+            sops.segment_sum(torch.ones((300, 2)), plan, 21)
+        with pytest.raises(ValueError, match="plan of 300"):
+            sops.segment_sum(torch.ones((299, 2)), plan, 20)
+        with pytest.raises(ValueError, match="num_segments"):
+            sref.segment_sum(torch.ones((300, 2)), plan, 19)
+        with pytest.raises(IndexError):                # validated once
+            sops.segment_plan(torch.from_numpy(ids), 10)
+
+    def test_plan_builds_launch_nothing_on_the_cpu(self):
+        _, ids = _seg_case(100, 10, 1, seed=0)
+        before = dict(LAUNCHES)
+        sops.segment_sum(torch.ones((100, 3)),
+                         sops.segment_plan(torch.from_numpy(ids), 10), 10)
+        assert LAUNCHES == before
+
+    def test_backward_through_a_plan(self):
+        rng = np.random.default_rng(6)
+        ids = torch.from_numpy(rng.integers(-1, 8, 60).astype(np.int32))
+        msg = torch.from_numpy(rng.normal(size=(60, 3))).requires_grad_()
+        grad_out = torch.from_numpy(rng.normal(size=(8, 3)))
+        plan = sops.segment_plan(ids, 8)
+        (got,) = torch.autograd.grad(sops.segment_sum(msg, plan, 8), msg,
+                                     grad_out)
+        (want,) = torch.autograd.grad(sops.segment_sum(msg, ids, 8), msg,
+                                      grad_out)
+        assert torch.equal(got, want)
+
+
 # -- spherical harmonics, Gaunt tensors, radial basis -------------------------
 
 class TestIrrepAlgebra:
@@ -286,6 +353,42 @@ class TestNequIP:
         if name == "molecule":
             assert seen[-1] == ((n, 1), kw["n_graphs"])
 
+    @pytest.mark.parametrize("name,plans", (("full_graph", 1),
+                                            ("minibatch", 1),
+                                            ("molecule", 2)))
+    def test_one_segment_plan_per_forward(self, name, plans, monkeypatch):
+        """The layers' sums share one plan of the destination ids, and an
+        energy forward builds one more for the readout; outputs (and
+        forces) still agree with the JAX package within 2e-5."""
+        model, params, jcfg, args, kw = _run_both(name)
+        built = []
+        real = sops.segment_plan
+
+        def counting(ids, n):
+            built.append(n)
+            return real(ids, n)
+
+        monkeypatch.setattr(sops, "segment_plan", counting)
+        targs, tkw = _t(args, kw)
+        jargs = [jnp.asarray(a) for a in args]
+        jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        if name == "molecule":
+            e, f = port_nequip.nequip_energy_forces(model, *targs, **tkw)
+            e_want, f_want = _ref_energy_forces(params, jcfg, *jargs, **jkw)
+            np.testing.assert_allclose(e.numpy(), np.asarray(e_want), **F32)
+            np.testing.assert_allclose(f.numpy(), np.asarray(f_want), **F32)
+        else:
+            with torch.no_grad():
+                got = model(*targs, **tkw).numpy()
+            np.testing.assert_allclose(
+                got, np.asarray(_ref_forward(params, jcfg, *jargs, **jkw)),
+                **F32)
+        n = targs[0].shape[0]
+        assert len(built) == plans and built[0] == n
+        if name == "molecule":
+            assert built[1] == kw["n_graphs"]
+
     @pytest.mark.parametrize("name", ("minibatch", "molecule"))
     def test_padding_edges_dropped_equals_clamped_to_node_0(
             self, name, monkeypatch):
@@ -296,9 +399,9 @@ class TestNequIP:
         targs, tkw = _t(args, kw)
         with torch.no_grad():
             dropped = model(*targs, **tkw)
-            real = sops.segment_sum
-            monkeypatch.setattr(sops, "segment_sum", lambda m, ids, n:
-                                real(m, ids.clamp(min=0), n))
+            real = sops.segment_plan
+            monkeypatch.setattr(sops, "segment_plan", lambda ids, n:
+                                real(ids.clamp(min=0), n))
             clamped = model(*targs, **tkw)
         assert np.array_equal(_bytes(dropped.numpy()),
                               _bytes(clamped.numpy()))
