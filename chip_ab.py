@@ -1,0 +1,131 @@
+#!/usr/bin/env python3
+"""B3 and B6 of one source tree of the port, timed on one card, for a
+comparison of two trees within one call.
+
+    python3 chip_ab.py [--src DIR]
+
+DIR is the ``src`` directory of a checkout of the port (this checkout's
+by default; an unpacked parent's for the comparison).  The script
+imports ``repro_torch`` from DIR, so the kernels are built from DIR's
+``csrc`` into that checkout's ``build/``; the inputs and the measurement
+are ``chip_smoke.py``'s, for both trees:
+
+* B3 on the device planner's inputs for ``chip_smoke.weather_setup``'s
+  Germany and Germany over all datetimes and levels (3552 jobs), float64:
+  ``chip_smoke.b3_timing`` (the call's time with CUDA events after an L2
+  flush, the device time of each kernel and memset by
+  ``torch.profiler``), each call byte for byte against the plain
+  version, and the planner's ``plan()`` wall time (median of 5: the
+  kernel, the copy back and the host's expansion of the runs);
+* B6 at phase 8's bulk calls: each of ``chip_smoke.recsys_models`` drawn
+  on the card from ``chip_smoke.py``'s default seed, its bulk batch
+  (``chip_smoke.recsys_batches``) run once and its B6 calls recorded:
+  DLRM-RM2's (D = 64, and its ids padded to L = 8) and DeepFM's (D = 10
+  and D = 1), each byte for byte against the plain version, and timed by
+  ``chip_smoke.b6_bulk_timings`` (the kernel, its plain version, the
+  bound, the sector floor and ``F.embedding_bag``).
+
+Prints the card (``nvidia-smi``) and then one JSON line.  Compare trees
+only within one call, in turns: parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from pathlib import Path
+
+import chip_smoke
+
+HERE = Path(__file__).resolve().parent
+SEED = 0        # chip_smoke.py's default --seed: the same tables and bags
+
+
+def b3(dev) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels.plan import kernel as pk
+    from repro_torch.kernels.plan import ref as pref
+
+    iwc, requests = chip_smoke.weather_setup()
+    planner = chip_smoke.recording_planner(iwc.cube, device=dev,
+                                           dtype=np.float64)
+    timer = chip_smoke.Timer(dev)
+    out = {}
+    for name in ("germany", "germany_all_levels"):
+        plan_s = []
+        for _ in range(6):                 # the first call is a warm-up
+            t0 = time.perf_counter()
+            assert planner.plan(requests[name]) is not None, name
+            plan_s.append(time.perf_counter() - t0)
+        verts, valid, bases, scalars, g, max_rows = planner.calls[-1]
+        tens = planner.pipeline_inputs(verts, valid, bases, scalars, g)
+        kw = dict(n0=g["n0"], n1=g["n1"], max_rows=max_rows,
+                  cyclic=g["cyclic"])
+        for got, want in zip(pk.plan_runs_2d(*tens, **kw),
+                             pref.plan_runs_2d(*tens, **kw)):
+            assert chip_smoke.bytes_equal(got, want), name
+        out[name] = {**chip_smoke.b3_timing(timer, planner,
+                                            planner.calls[-1]),
+                     "plan_s_median": statistics.median(plan_s[1:])}
+    return out
+
+
+def b6(dev) -> list:
+    import torch
+
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    def check(kname, got, want, what):
+        assert chip_smoke.bytes_equal(got, want), f"{kname}: {what}"
+
+    out = []
+    for kind, cfg, cls in chip_smoke.recsys_models():
+        with torch.no_grad():
+            model = cls(cfg, device=dev, seed=SEED)
+            bulk = chip_smoke.recsys_batches(cfg)[-1]
+            with chip_smoke.recording(gk, "gather_rows_bag") as calls:
+                model(*chip_smoke.recsys_inputs(model, bulk, dev))
+        bulk_calls = [a for a, _ in calls]
+        for a in bulk_calls:
+            check("gather_rows_bag", gk.gather_rows_bag(*a),
+                  gref.gather_rows_bag(*a), f"{kind} bulk")
+        out += chip_smoke.b6_bulk_timings(dev, SEED, cfg.name, bulk_calls,
+                                          check, padded=kind == "dlrm")
+        del model, calls, bulk_calls
+        torch.cuda.empty_cache()        # the model is gone: free its tables
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", type=Path, default=HERE / "src")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    # This tree's port first on the path, whatever chip_smoke put there.
+    sys.path.insert(0, str(args.src.resolve()))
+    from repro_torch.kernels import _build
+
+    assert Path(_build.__file__).resolve().is_relative_to(
+        args.src.resolve()), _build.__file__
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _build.library("gather")
+    build_s = time.perf_counter() - t0
+    card = chip_smoke.card_line()
+    print(card, flush=True)
+    chip_smoke.emit({"src": str(args.src), "card": card,
+                     "build_s": build_s, "b3": b3(dev), "b6": b6(dev)})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,7 +8,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100:
 It builds the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``
 and then, printing one JSON line per phase:
 
-1. build     — compiles the kernels; prints the build time and the card;
+1. build     — compiles the kernels; prints the build time, the card, and
+               the registers and spills (``-Xptxas -v``) of B8's
+               tensor-core kernel, B3 and B6's kernels;
 2. extract   — the main path at ECMWF's regular Gaussian F320 grid
                (640 × 1280) × ERA5's 37 pressure levels × 8 datetimes,
                float64 (1.94 GB on the card):
@@ -56,8 +58,11 @@ and then, printing one JSON line per phase:
                one untimed ``serve_p99`` batch of 512, 8 timed ones and
                one ``serve_bulk`` batch of 262,144 from a
                ``ClickStream``, with TF32 off; every EmbeddingBag is
-               one gather_rows_bag (B6) launch.  Every B6 call of the
-               path must equal B6's plain version byte for byte, and so
+               one gather_rows_bag (B6) launch: DLRM's 64-wide rows on
+               B6's wide kernel, DeepFM's on its tiled kernel for narrow
+               rows, each path asserted to take its own.  Every B6
+               call of the path must equal B6's plain version byte for
+               byte, and so
                must the logits of the same batches with the plain
                version in B6's place; B6 is also held on the DLRM bulk
                ids padded to L = 8; the first p99 batch's logits must
@@ -108,10 +113,15 @@ and then, printing one JSON line per phase:
                at one, the plain version, SDPA and the bound;
 11. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
-               computes the same function, and the card's bound (B6's at
+               computes the same function, and the card's bound (B3's
+               with the device time of each kernel and memset of a call,
+               by ``torch.profiler``, at the all-levels request and at
+               Germany's; B6's at
                the DLRM ``serve_bulk`` shape, timed in phase 8 while the
                tables are on the card, with DeepFM's D = 10 and D = 1
-               bulk calls and the padded L = 8 bags as variants; B7's at
+               bulk calls and the padded L = 8 bags as variants, each
+               with the sector floor beside its bound and the kernel it
+               took; B7's at
                the minibatch's l = 2 sum, timed in phase 9 (the walk over
                a built plan, the plan's build, and a call on the ids),
                with its l = 0 and l = 1 sums, the energy readout and the
@@ -138,6 +148,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -149,6 +160,10 @@ FP32_FLOPS = 67e12             # H100 SXM data sheet, FP32 outside tensor cores
 L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: gathered bytes start cold
 B8_FLUSH_BYTES = 1 << 30       # ~0.32 ms of memset: outlasts B8's launch
 SERVE_REQUESTS = 512           # the sharded_serve phase's Zipf draws
+# Sources whose registers and spills the build row prints (-Xptxas -v):
+# B8's tensor-core kernel, B3 and B6's two kernels.
+PTXAS_SOURCES = ("paged_attn_tc", "plan_runs_2d", "gather")
+SECTOR_BYTES = 32              # the unit in which the card reads memory
 # NequIP's graph shapes (GNN_SHAPES of the configuration), in the order
 # the gnn phase serves them, each with one untimed and 8 timed forwards.
 GNN_RUNS = ("molecule", "full_graph_sm", "minibatch_lg")
@@ -268,8 +283,14 @@ def ptxas_usage(source: str) -> dict:
             mangled = line.split("'")[1]               # _Z<len><name>...
             digits = re.match(r"_Z(\d+)", mangled)
             start = digits.end()
-            name = mangled[start:start + int(digits.group(1))]
-            args = re.findall(r"Li(\d+)E", mangled)
+            end = start + int(digits.group(1))
+            name = mangled[start:end]
+            # A leading type argument (float, double or a word of 1-8
+            # bytes), then the integer ones.
+            args = [TYPE_CODES[mangled[end + 1]]] \
+                if mangled[end:end + 1] == "I" \
+                and mangled[end + 1:end + 2] in TYPE_CODES else []
+            args += re.findall(r"Li(\d+)E", mangled)
             if args:
                 name += f"<{', '.join(args)}>"
             usage[name] = {}
@@ -280,6 +301,11 @@ def ptxas_usage(source: str) -> dict:
         elif name and (m := re.search(r"Used (\d+) registers", line)):
             usage[name]["registers"] = int(m.group(1))
     return usage
+
+
+# Itanium mangling's codes of the types the kernels are templated on.
+TYPE_CODES = {"f": "float", "d": "double", "h": "uint8_t", "t": "uint16_t",
+              "j": "uint32_t", "m": "uint64_t"}
 
 
 def zipf_draw(rng, n_items: int, n_draws: int, s: float = 1.1):
@@ -407,13 +433,9 @@ def recsys_serve(dev, seed: int, card: str, check,
     counts), with the other timed shapes under ``variants``."""
     import torch
 
-    from repro_torch.configs import deepfm, dlrm_rm2
-    from repro_torch.models.recsys import DLRM, DeepFM
-
     matmul = tf32_off("recsys_serve")
     timings = []
-    for kind, cfg, cls in (("dlrm", dlrm_rm2._cfg(), DLRM),
-                           ("deepfm", deepfm._cfg(), DeepFM)):
+    for kind, cfg, cls in recsys_models():
         row, timed = serve_recsys_model(dev, seed, kind, cfg, cls, check,
                                         path_launches, extras=kind == "dlrm")
         timings += timed
@@ -421,6 +443,16 @@ def recsys_serve(dev, seed: int, card: str, check,
               "card": card})
         torch.cuda.empty_cache()        # the model is gone: free its tables
     return {**timings[0], "variants": timings[1:]}
+
+
+def recsys_models() -> list:
+    """(kind, config, model class) of phase 8's models at their published
+    widths: DLRM-RM2, then DeepFM."""
+    from repro_torch.configs import deepfm, dlrm_rm2
+    from repro_torch.models.recsys import DLRM, DeepFM
+
+    return [("dlrm", dlrm_rm2._cfg(), DLRM),
+            ("deepfm", deepfm._cfg(), DeepFM)]
 
 
 def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
@@ -435,23 +467,16 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
     import torch
 
     from repro_torch.configs.common import RECSYS_SHAPES
-    from repro_torch.dataplane.recsys import ClickStream
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.gather import kernel as gk
     from repro_torch.kernels.gather import ref as gref
-    from repro_torch.models.recsys import DLRM, EmbeddingBag
+    from repro_torch.models.recsys import EmbeddingBag
 
     p99_batch = RECSYS_SHAPES["serve_p99"]["batch"]
     bulk_batch = RECSYS_SHAPES["serve_bulk"]["batch"]
 
     def bag_modules(model):
         return [m for m in model.modules() if isinstance(m, EmbeddingBag)]
-
-    def inputs(model, batch, device, dtype=torch.float32):
-        bags = torch.from_numpy(batch["bags"]).to(device)
-        if not isinstance(model, DLRM):
-            return (bags,)
-        return torch.from_numpy(batch["dense"]).to(dtype).to(device), bags
 
     def host_forward(model, batch):
         """The port's float64 CPU forward of ``batch``: each table cut to
@@ -475,7 +500,7 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
         for name, param in host.named_parameters():
             if not name.endswith("tables"):
                 param.copy_(own[name].double().cpu())
-        *dense, _ = inputs(host, batch, "cpu", torch.float64)
+        *dense, _ = recsys_inputs(host, batch, "cpu", torch.float64)
         return host(*dense, torch.from_numpy(local)).numpy()
 
     start = time.perf_counter()
@@ -486,23 +511,26 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
         init_s = time.perf_counter() - t0
         table_bytes = sum(m.tables.numel() * m.tables.element_size()
                           for m in bag_modules(model))
-        stream = ClickStream(n_sparse=cfg.n_sparse, rows=cfg.rows, seed=0)
-        # Step 9 first, untimed: the model's first call sets up cuBLAS
-        # and the allocator, which is not serving.
-        batches = [stream.batch(step, p99_batch) for step in (9, *range(8))]
-        batches.append(stream.batch(8, bulk_batch))
+        batches = recsys_batches(cfg)
         reset_launches()
         logits, secs = [], []
         with recording(gk, "gather_rows_bag", results=True) as b6_calls:
             for batch in batches:
                 t0 = time.perf_counter()
-                logits.append(model(*inputs(model, batch, dev)))
+                logits.append(model(*recsys_inputs(model, batch, dev)))
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t0)
         path_launches[f"recsys_{kind}"] = dict(LAUNCHES)
-        assert LAUNCHES["gather_rows_bag"] > 0, \
-            f"{kind}: the embedding bag never launched B6"
-        assert len(b6_calls) == LAUNCHES["gather_rows_bag"]
+        # Each call launched the B6 kernel its row's width names: the
+        # tiled one below the wrapper's NARROW_ROW_BYTES (DeepFM's D = 10
+        # and 1), the wide one above (DLRM's D = 64).
+        n_narrow = sum(a[0].shape[1] * a[0].element_size()
+                       < gk.NARROW_ROW_BYTES for a, _, _ in b6_calls)
+        assert b6_calls and \
+            LAUNCHES["gather_rows_bag_tiled"] == n_narrow and \
+            LAUNCHES["gather_rows_bag"] == len(b6_calls) - n_narrow, \
+            f"{kind}: the embedding bags did not launch the B6 kernels " \
+            f"their widths name"
         # Every B6 call of the path against the plain version.
         for a, kw, out in b6_calls:
             check("gather_rows_bag", out, gref.gather_rows_bag(*a, **kw),
@@ -511,7 +539,7 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
         # place: the logits must not move by a bit.
         with swapped(gk, "gather_rows_bag", gref.gather_rows_bag):
             for batch, got in zip(batches, logits):
-                want = model(*inputs(model, batch, dev))
+                want = model(*recsys_inputs(model, batch, dev))
                 assert bytes_equal(got, want), \
                     f"{kind}: logits with B6 != with its plain version"
         for got in logits:
@@ -536,54 +564,110 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
                "host_f64_max_abs_err": host_err,
                "b6_calls_checked": len(b6_calls),
                "launches": path_launches[f"recsys_{kind}"]}
-        # B6 at each call of the bulk batch: DLRM's one (D = 64), DeepFM's
-        # two (D = 10, then its D = 1 first-order bag).
         n_bulk = len(b6_calls) // len(batches)
-        timings = [bag_timing(dev, *a, f"{cfg.name} serve_bulk")
-                   for a, _, _ in b6_calls[-n_bulk:]]
+        timings = b6_bulk_timings(dev, seed, cfg.name,
+                                  [a for a, _, _ in b6_calls[-n_bulk:]],
+                                  check, padded=extras)
         if extras:
-            # B6 on padded bags: the bulk ids (offset into the stacked
-            # tables) reshaped to L = 8, a seeded quarter of slots -1.
-            (table_v, bulk_ids), _, _ = b6_calls[-1]
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            padded = bulk_ids.reshape(-1, 8).clone()
-            padded[torch.rand(padded.shape, generator=gen,
-                              device=dev) < 0.25] = -1
-            check("gather_rows_bag", gk.gather_rows_bag(table_v, padded),
-                  gref.gather_rows_bag(table_v, padded), "padded L = 8")
-            row["padded_bags"] = int(padded.shape[0])
-            timings.append(bag_timing(dev, table_v, padded,
-                                      f"{cfg.name} serve_bulk padded"))
+            row["padded_bags"] = timings[-1]["shape"]["bags"]
     row["seconds"] = time.perf_counter() - start
     return row, timings
+
+
+def recsys_batches(cfg) -> list:
+    """Phase 8's batches for a model of ``cfg``: step 9 first (untimed: the
+    model's first call sets up cuBLAS and the allocator, which is not
+    serving), steps 0-7 at ``serve_p99`` and step 8 at ``serve_bulk``."""
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.dataplane.recsys import ClickStream
+
+    stream = ClickStream(n_sparse=cfg.n_sparse, rows=cfg.rows, seed=0)
+    batches = [stream.batch(step, RECSYS_SHAPES["serve_p99"]["batch"])
+               for step in (9, *range(8))]
+    batches.append(stream.batch(8, RECSYS_SHAPES["serve_bulk"]["batch"]))
+    return batches
+
+
+def recsys_inputs(model, batch, device, dtype=None) -> tuple:
+    """The model's call arguments for ``batch`` on ``device``: the bags,
+    after the dense features (in ``dtype``, float32 by default) for DLRM."""
+    import torch
+
+    from repro_torch.models.recsys import DLRM
+
+    bags = torch.from_numpy(batch["bags"]).to(device)
+    if not isinstance(model, DLRM):
+        return (bags,)
+    dense = torch.from_numpy(batch["dense"]).to(dtype or torch.float32)
+    return dense.to(device), bags
+
+
+def b6_bulk_timings(dev, seed: int, name: str, bulk_calls: list, check,
+                    padded: bool) -> list:
+    """B6's timing at each (table, ids) call of a bulk batch: DLRM's one
+    (D = 64), DeepFM's two (D = 10, then its D = 1 first-order bag).  With
+    ``padded`` also on the last call's ids (offset into the stacked
+    tables) reshaped to L = 8 with a seeded quarter of slots -1, checked
+    against the plain version first."""
+    import torch
+
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    timings = [bag_timing(dev, *a, f"{name} serve_bulk") for a in bulk_calls]
+    if padded:
+        table_v, bulk_ids = bulk_calls[-1]
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        ids = bulk_ids.reshape(-1, 8).clone()
+        ids[torch.rand(ids.shape, generator=gen, device=dev) < 0.25] = -1
+        check("gather_rows_bag", gk.gather_rows_bag(table_v, ids),
+              gref.gather_rows_bag(table_v, ids), "padded L = 8")
+        timings.append(bag_timing(dev, table_v, ids,
+                                  f"{name} serve_bulk padded"))
+    return timings
 
 
 def bag_timing(dev, table, bags, what: str) -> dict:
     """B6, its plain version and ``F.embedding_bag`` on the same bags;
     the bound counts each id, each distinct row read and each output
-    element once (Zipf traffic re-reads hot rows from L2)."""
+    element once (Zipf traffic re-reads hot rows from L2), the sector
+    floor the whole sectors those rows touch."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import LAUNCHES
     from repro_torch.kernels.gather import kernel as gk
     from repro_torch.kernels.gather import ref as gref
 
     valid = bags >= 0
     clamped, weights = bags.clamp(min=0), valid.to(table.dtype)
-    distinct = int(torch.unique(bags[valid]).numel())
+    rows = torch.unique(bags[valid])
+    distinct = int(rows.numel())
     n, d = bags.shape[0], table.shape[1]
     size = table.element_size()
     n_bytes = bags.numel() * 4 + distinct * d * size + n * d * size
+    # The sector floor reads each distinct row as the whole 32-byte
+    # sectors it touches (from its address), the ids and the output as
+    # before.
+    start = table.data_ptr() + rows.long() * (d * size)
+    sectors = int(((start + d * size - 1) // SECTOR_BYTES
+                   - start // SECTOR_BYTES + 1).sum())
+    sector_bytes = bags.numel() * 4 + sectors * SECTOR_BYTES + n * d * size
+    before = dict(LAUNCHES)                     # which B6 kernel runs here
+    gk.gather_rows_bag(table, bags)
+    kernel = [k for k, n_ in LAUNCHES.items() if n_ != before[k]]
     timer = Timer(dev)
     return {
         "ms": timer(lambda: gk.gather_rows_bag(table, bags)),
         "plain_ms": timer(lambda: gref.gather_rows_bag(table, bags)),
         "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "sector_floor_ms": sector_bytes / HBM_BYTES_PER_S * 1e3,
         "library_ms": timer(lambda: F.embedding_bag(
             clamped, table, mode="sum", per_sample_weights=weights)),
+        "kernel": kernel,
         "shape": {"what": what, "bags": n, "L": int(bags.shape[1]), "D": d,
                   "N": int(table.shape[0]), "distinct_rows": distinct,
-                  "bytes": n_bytes}}
+                  "bytes": n_bytes, "sector_bytes": sector_bytes}}
 
 
 def gnn_batch(shape: str) -> dict:
@@ -838,6 +922,37 @@ def device_profile(fn, top: int = 8,
             "kernels": sum(n for _, n in by_name.values()),
             "top": [{"name": name[:80], "ms": ms, "count": n}
                     for name, (ms, n) in ranked]}
+
+
+def kernel_breakdown(fn, iters: int = 20) -> dict:
+    """The device time of each kernel and memset that one call of ``fn``
+    runs, by name: ``iters`` calls under ``torch.profiler`` after one
+    warm-up call, the L2 left warm (the inputs are small).  Each name's
+    ``ms`` is the mean over the launches the profiler kept (it may drop
+    the window's last), ``per_call`` those launches over ``iters``, and
+    ``device_ms`` the sum of ``ms`` times the launches a call makes."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict[str, list] = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            slot = by_name.setdefault(ev.name, [0.0, 0])
+            slot[0] += ev.time_range.elapsed_us() / 1e3
+            slot[1] += 1
+    kernels = [{"name": name[:80], "ms": ms / n, "per_call": n / iters}
+               for name, (ms, n) in sorted(by_name.items(),
+                                           key=lambda kv: -kv[1][0])]
+    return {"device_ms": sum(k["ms"] * round(k["per_call"])
+                             for k in kernels), "kernels": kernels}
 
 
 def segment_timing(dev, messages, ids, num_segments: int, what: str) -> dict:
@@ -1403,6 +1518,59 @@ def b8_decode_32k(dev, seed: int) -> list:
     return out
 
 
+def weather_setup():
+    """The extraction phases' cube and requests: the F320-like irregular
+    weather cube (2 dates of 4 times, 37 levels, 640 latitude rows),
+    every country, a box across the seam, and Germany over all datetimes
+    and levels (3552 B3 jobs).  Returns (the cube's generator, the
+    requests by name)."""
+    from repro_torch.core import Request, Span
+    from repro_torch.dataplane.weather import COUNTRIES, IrregularWeatherCube
+
+    iwc = IrregularWeatherCube(n_dates=2, times_per_day=4, n_levels=37,
+                               n_lat=640, n_lon=1280)
+    requests = {c: iwc.country_request(c) for c in COUNTRIES}
+    requests["seam_box"] = iwc.seam_box_request(35.0, 62.0, -20.0, 20.0)
+    requests["germany_all_levels"] = Request([
+        Span("datetime", 0.0, float(iwc.datetime_values[-1])),
+        Span("level", 0.0, float(iwc.n_levels - 1)),
+        iwc.country_request("germany").shapes[2]])
+    return iwc, requests
+
+
+def recording_planner(cube, **kw):
+    """A ``DevicePlanner`` that records the pipeline inputs of every
+    plan() call in ``.calls``, so the kernel checks and timings see the
+    tensors the main path hands the planning kernel."""
+    from repro_torch.core import DevicePlanner
+
+    class RecordingPlanner(DevicePlanner):
+        def __init__(self, *a, **kw_):
+            super().__init__(*a, **kw_)
+            self.calls = []
+
+        def _invoke(self, verts, valid, bases, scalars, g, max_rows):
+            self.calls.append((verts, valid, bases, scalars, g, max_rows))
+            return super()._invoke(verts, valid, bases, scalars, g,
+                                   max_rows)
+
+    return RecordingPlanner(cube, **kw)
+
+
+def b3_timing(timer, planner, call) -> dict:
+    """B3 at one recorded plan() call of ``planner``: its jobs and rows,
+    the call's time by ``timer`` and the device time of each kernel and
+    memset it runs."""
+    from repro_torch.kernels.plan import kernel as pk
+
+    verts, valid, bases, scalars, g, max_rows = call
+    tens = planner.pipeline_inputs(verts, valid, bases, scalars, g)
+    kw = dict(n0=g["n0"], n1=g["n1"], max_rows=max_rows, cyclic=g["cyclic"])
+    return {"J": int(verts.shape[0]), "max_rows": int(max_rows),
+            "ms": timer(lambda: pk.plan_runs_2d(*tens, **kw)),
+            **kernel_breakdown(lambda: pk.plan_runs_2d(*tens, **kw))}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1418,10 +1586,8 @@ def main(argv=None) -> int:
 
     from repro_torch.analysis.plan_check import verify_plan
     from repro_torch.carry import payload_to_tensor
-    from repro_torch.core import (DevicePlanner, PolytopeExtractor, Request,
-                                  Slicer, Span)
-    from repro_torch.dataplane.weather import (COUNTRIES,
-                                               IrregularWeatherCube)
+    from repro_torch.core import PolytopeExtractor, Slicer
+    from repro_torch.dataplane.weather import COUNTRIES
     from repro_torch.kernels import LAUNCHES, _build, reset_launches
     from repro_torch.kernels.gather import kernel as gk, ops as gops
     from repro_torch.kernels.gather import ref as gref
@@ -1430,20 +1596,6 @@ def main(argv=None) -> int:
     from repro_torch.kernels.slice import kernel as sk, ops as sops
     from repro_torch.kernels.slice import ref as sref
     from repro_torch.serve import ExtractionService
-
-    class RecordingPlanner(DevicePlanner):
-        """Records the pipeline inputs of every plan() call, so the
-        kernel checks and timings see the tensors the main path hands
-        the planning kernel."""
-
-        def __init__(self, *a, **kw):
-            super().__init__(*a, **kw)
-            self.calls = []
-
-        def _invoke(self, verts, valid, bases, scalars, g, max_rows):
-            self.calls.append((verts, valid, bases, scalars, g, max_rows))
-            return super()._invoke(verts, valid, bases, scalars, g,
-                                   max_rows)
 
     dev = torch.device("cuda")
     card = card_line()
@@ -1454,26 +1606,23 @@ def main(argv=None) -> int:
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.library("gather")
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    build_s = time.perf_counter() - t0
+    with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
+        ptxas = dict(zip(PTXAS_SOURCES, pool.map(ptxas_usage,
+                                                 PTXAS_SOURCES)))
+    emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.last_build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
-          "b8_tensor_core_ptxas": ptxas_usage("paged_attn_tc")})
+          "b8_tensor_core_ptxas": ptxas["paged_attn_tc"],
+          "b3_ptxas": ptxas["plan_runs_2d"], "b6_ptxas": ptxas["gather"]})
 
     # -- the cube, the payload and the requests -------------------------
-    iwc = IrregularWeatherCube(n_dates=2, times_per_day=4, n_levels=37,
-                               n_lat=640, n_lon=1280)
+    iwc, requests = weather_setup()
     cube = iwc.cube
     t0 = time.perf_counter()
     flat_np = iwc.field_data(seed=args.seed)
     flat = payload_to_tensor(flat_np, dev)
     torch.cuda.synchronize()
-    dt_max = float(iwc.datetime_values[-1])
-    requests = {c: iwc.country_request(c) for c in COUNTRIES}
-    requests["seam_box"] = iwc.seam_box_request(35.0, 62.0, -20.0, 20.0)
-    requests["germany_all_levels"] = Request([
-        Span("datetime", 0.0, dt_max),
-        Span("level", 0.0, float(iwc.n_levels - 1)),
-        iwc.country_request("germany").shapes[2]])
     emit({"phase": "payload", "elements": cube.n_elements,
           "bytes": int(flat.numel() * flat.element_size()),
           "seconds": time.perf_counter() - t0})
@@ -1589,7 +1738,7 @@ def main(argv=None) -> int:
 
     recs = {}
     for dtype in (np.float64, np.float32):
-        rec = recs[dtype] = RecordingPlanner(cube, dtype=dtype)
+        rec = recs[dtype] = recording_planner(cube, dtype=dtype)
         for name in ("germany", "uk", "seam_box", "germany_all_levels"):
             assert rec.plan(requests[name]) is not None, name
         for verts, valid, bases, scalars, g, max_rows in rec.calls:
@@ -1857,8 +2006,13 @@ def main(argv=None) -> int:
         "library_ms": timer(lambda: torch.index_select(flat, 0, window)),
         "shape": {"C": c, "block": blk}})
 
-    # B3: the all-levels request's jobs, float64.
+    # B3: the all-levels request's jobs, float64; the device time of each
+    # kernel and memset of a call there and at Germany's call (the first
+    # recorded), and Germany's time.
     rec = recs[np.float64]
+    b3_breakdown = {
+        "germany_all_levels": b3_timing(timer, rec, rec.calls[-1]),
+        "germany": b3_timing(timer, rec, rec.calls[0])}
     verts, valid, bases, scalars, g, max_rows = rec.calls[-1]
     tens = rec.pipeline_inputs(verts, valid, bases, scalars, g)
     kw = dict(n0=g["n0"], n1=g["n1"], max_rows=max_rows, cyclic=g["cyclic"])
@@ -1879,7 +2033,7 @@ def main(argv=None) -> int:
         "plain_ms": timer(lambda: pref.plan_runs_2d(*tens, **kw)),
         "bound_ms": max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        "library_ms": None,
+        "library_ms": None, "breakdown": b3_breakdown,
         "shape": {"J": int(verts.shape[0]), "V": int(verts.shape[1]),
                   "max_rows": int(max_rows), "n0": g["n0"], "n1": g["n1"],
                   "flops": b3_flops, "bytes": b3_bytes}})
@@ -1927,12 +2081,17 @@ def main(argv=None) -> int:
                   "bytes": b5_bytes}})
 
     # B6: the DLRM serve_bulk batch (timed in phase 8), with DeepFM's
-    # bulk calls and the padded bags under "variants".
+    # bulk calls and the padded bags under "variants"; its launches are
+    # those of both its kernels (wide rows, and narrow rows tiled).
     entries.append({
         "name": "gather_rows_bag", "route": "cuda",
         "source": "src/repro_torch/csrc/gather.cu",
         "replaces": "src/repro/kernels/gather/kernel.py:123",
-        "launches": launches["gather_rows_bag"],
+        "launches": launches["gather_rows_bag"]
+        + launches["gather_rows_bag_tiled"],
+        "launches_by_kernel": {
+            k: launches[k] for k in ("gather_rows_bag",
+                                     "gather_rows_bag_tiled")},
         "max_abs_err": errs["gather_rows_bag"], **b6_timing})
 
     # B7: minibatch_lg's l = 2 message sum (timed in phase 9), with the

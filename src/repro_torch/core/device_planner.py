@@ -290,8 +290,8 @@ class DevicePlanner:
         pipe_dt = time.perf_counter() - t_pipe
 
         n_runs, n_rows, n_pts = (int(meta[0]), int(meta[1]), int(meta[2]))
-        run_starts = starts[:n_runs].astype(np.int64)
-        run_lens = lens[:n_runs].astype(np.int64)
+        run_starts = starts.astype(np.int64)          # the n_runs live runs
+        run_lens = lens.astype(np.int64)
         # Expand runs → offsets, dedupe across jobs (union members /
         # cyclic seam overlap), re-coalesce into sorted burst runs — the
         # same canonical form `flatten` emits.
@@ -305,13 +305,19 @@ class DevicePlanner:
                             t_start, itemsize)
 
     def _invoke(self, verts, valid, bases, scalars, g, max_rows):
+        """Run the pipeline; returns the live run starts and lengths and
+        meta, as numpy arrays."""
         from ..kernels.plan import ops as plan_ops
 
         starts, lens, meta = plan_ops.plan_runs_2d(
             *self.pipeline_inputs(verts, valid, bases, scalars, g),
             n0=g["n0"], n1=g["n1"], max_rows=max_rows, cyclic=g["cyclic"])
-        return (starts.cpu().numpy(), lens.cpu().numpy(),
-                meta.cpu().numpy())
+        # meta first, then only the live prefix of both buffers, in one
+        # transfer: the slots past n_runs are zero and never read.
+        meta = meta.cpu().numpy()
+        n_runs = int(meta[0])
+        live = torch.stack((starts[:n_runs], lens[:n_runs])).cpu().numpy()
+        return live[0], live[1], meta
 
     def pipeline_inputs(self, verts, valid, bases, scalars, g
                         ) -> tuple[torch.Tensor, ...]:

@@ -43,6 +43,8 @@ SIGNATURES = {
         "polytope_gather_rows": [_I, _P, _L, _P, _L, _I, _P, _P],
         "polytope_gather_runs": [_I, _P, _L, _P, _L, _I, _I, _P, _P],
         "polytope_gather_rows_bag": [_I, _P, _L, _P, _L, _L, _I, _P, _P],
+        "polytope_gather_rows_bag_tiled": [_I, _P, _L, _P, _L, _L, _I, _P,
+                                           _P],
     },
     "paged_attn": {
         "polytope_paged_decode_attention": [_I, _P, _P, _P, _P, _P, _I, _I,
@@ -56,7 +58,7 @@ SIGNATURES = {
     },
     "plan_runs_2d": {
         "polytope_plan_runs_2d": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                                  _I, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+                                  _I, _I, _I, _I, _I, _P, _P],
     },
     "segment_sum": {
         "polytope_segment_sum": [_I, _P, _L, _P, _P, _L, _I, _P, _P],
@@ -74,11 +76,14 @@ SIGNATURES = {
 # Launches of each kernel since the last reset_launches(): a wrapper adds
 # one where it launches its kernel, and nowhere else.  B8 has two
 # kernels: "paged_decode_attention" counts the tensor-core one,
-# "paged_decode_attention_simt" the CUDA-core one.  "segment_plan" counts
+# "paged_decode_attention_simt" the CUDA-core one.  So has B6:
+# "gather_rows_bag" counts its kernel for wide rows, "gather_rows_bag_tiled"
+# its kernel for narrow rows.  "segment_plan" counts
 # B7's segment plans built on the card (kernels/segment/ops.py), each the
 # CSR that the B7 launches of one forward then share.
 LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_runs": 0,
-                            "gather_rows_bag": 0, "plan_runs_2d": 0,
+                            "gather_rows_bag": 0,
+                            "gather_rows_bag_tiled": 0, "plan_runs_2d": 0,
                             "slice_minor_extents": 0, "slice_batch": 0,
                             "segment_plan": 0, "segment_sum": 0,
                             "paged_decode_attention": 0,

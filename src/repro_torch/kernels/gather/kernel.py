@@ -10,7 +10,8 @@ whole enclosing block.
   start → (C, block), with loads past the end of the payload masked to
   zero (the payload is never padded).
 * ``gather_rows_bag`` (B6) — EmbeddingBag(sum): (N, D) float32/float64
-  table × (B, L) int32 bags padded with -1 → (B, D).
+  table × (B, L) int32 bags padded with -1 → (B, D); two kernels, one
+  for narrow rows and one for wide, chosen by the row's width.
 
 Each wrapper checks its tensors, allocates the output with
 ``torch.empty``, launches on PyTorch's current stream, raises if the
@@ -80,12 +81,25 @@ def gather_runs(flat: torch.Tensor, chunk_starts: torch.Tensor,
     return out
 
 
+# Rows narrower than this many bytes take the tiled kernel (csrc/gather.cu
+# holds the same as kNarrowRowBytes, and each entry refuses the other's
+# rows).
+NARROW_ROW_BYTES = 128
+
+
 def gather_rows_bag(table: torch.Tensor, bags: torch.Tensor) -> torch.Tensor:
     """``out[b] = sum_l table[bags[b, l]]`` on the card, a -1 slot adding
     +0.0, summed in ``l`` order in the table's dtype.
 
     table — (N, D) float32 or float64 CUDA tensor
     bags  — (B, L) int32 CUDA tensor, each in [-1, N)
+
+    The kernel is chosen by the row's width, not as a fallback: a row of
+    fewer than ``NARROW_ROW_BYTES`` bytes (DeepFM's D = 10 and D = 1) takes
+    the tiled kernel, a warp per 32 bags (counted under
+    ``LAUNCHES["gather_rows_bag_tiled"]``); a wider row (DLRM's D = 64)
+    takes a group of lanes per bag (``LAUNCHES["gather_rows_bag"]``).
+    Both give the same bytes.
     """
     dev = _build.cuda_device(table, "gather_rows_bag table")
     _build.expect(table, "gather_rows_bag table", device=dev,
@@ -98,9 +112,11 @@ def gather_rows_bag(table: torch.Tensor, bags: torch.Tensor) -> torch.Tensor:
     if b == 0 or d == 0:
         return out
     lib = _build.library("gather")
-    status = lib.polytope_gather_rows_bag(
+    tiled = d * table.element_size() < NARROW_ROW_BYTES
+    name = "gather_rows_bag_tiled" if tiled else "gather_rows_bag"
+    status = getattr(lib, f"polytope_{name}")(
         dev.index or 0, table.data_ptr(), d, bags.data_ptr(), b, n_slots,
         table.element_size(), out.data_ptr(), _build.stream_of(dev))
-    _build.check(lib, status, "gather_rows_bag")
-    LAUNCHES["gather_rows_bag"] += 1
+    _build.check(lib, status, name)
+    LAUNCHES[name] += 1
     return out

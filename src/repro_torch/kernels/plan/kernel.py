@@ -5,8 +5,9 @@ One call runs the whole Algorithm-1 trailing stage for every job — row
 discovery, slicing, column ranges, run emission, compaction — and
 returns the compacted ``(run_start, run_length)`` buffer the burst
 gather reads.  The TPU kernel appended at a cursor carried across its
-sequential grid; here three launches (slots, scan, scatter) replace the
-cursor, and the buffer is byte-identical to ``ref.plan_runs_2d``.
+sequential grid; here one launch (a warp per job, a single-pass scan
+over jobs with decoupled look-back) replaces the cursor, after one
+memset, and the buffer is byte-identical to ``ref.plan_runs_2d``.
 """
 
 from __future__ import annotations
@@ -53,17 +54,16 @@ def plan_runs_2d(verts, valid, base, sv0, rowoff0, sv1, scalars, *,
     if m >= 2 ** 31:
         raise OverflowError(f"plan_runs_2d: {m} slots exceed the int32 "
                             f"positions of the compaction scan")
-    run_starts = torch.empty(m, dtype=torch.int32, device=dev)
-    run_lengths = torch.empty(m, dtype=torch.int32, device=dev)
-    meta = torch.empty(3, dtype=torch.int32, device=dev)
-    scratch = torch.empty(4 * m, dtype=torch.int32, device=dev)
+    # One buffer, zeroed by the kernel's entry point in one memset: the
+    # two run buffers, meta, the tile ticket and one 64-bit look-back
+    # descriptor per tile (at most one per job).  The outputs are views.
+    buf = torch.empty(2 * m + 4 + 2 * j, dtype=torch.int32, device=dev)
     lib = _build.library("plan_runs_2d")
     status = lib.polytope_plan_runs_2d(
         dev.index or 0, int(fdt == torch.float64), verts.data_ptr(),
         valid.data_ptr(), base.data_ptr(), sv0.data_ptr(),
         rowoff0.data_ptr(), sv1.data_ptr(), scalars.data_ptr(), j, v, n0,
-        n1, max_rows, int(cyclic), scratch.data_ptr(), run_starts.data_ptr(),
-        run_lengths.data_ptr(), meta.data_ptr(), _build.stream_of(dev))
+        n1, max_rows, int(cyclic), buf.data_ptr(), _build.stream_of(dev))
     _build.check(lib, status, "plan_runs_2d")
     LAUNCHES["plan_runs_2d"] += 1
-    return run_starts, run_lengths, meta
+    return buf[:m], buf[m:2 * m], buf[2 * m:2 * m + 3]

@@ -17,6 +17,8 @@ and in bfloat16 also within 2^-7 of the largest |output| (one bf16 ulp
 at the top of the output, as ``chip_smoke.py`` holds it).  Each B8 case
 asserts which of its two kernels launched: the tensor-core one for bf16
 with Dh in {16, 32, 64, 128} and G <= 16, the CUDA-core one otherwise.
+So does each B6 case: the tiled kernel for rows of fewer than
+``NARROW_ROW_BYTES`` (128) bytes, the wide one otherwise.  B3 runs as one launch a call.
 """
 
 import dataclasses
@@ -44,6 +46,7 @@ from repro_torch.kernels.segment import ref as segref  # noqa: E402
 from repro_torch.kernels.slice import kernel as sk  # noqa: E402
 from repro_torch.kernels.slice import ref as sref  # noqa: E402
 from repro_torch.serve import ExtractionService  # noqa: E402
+from torch_plan_cases import PLAN_SCAN_CASES, plan_scan_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -141,6 +144,27 @@ def test_plan_runs_2d(cuda_device, iwc, name, dtype):
     want = pref.plan_runs_2d(*tensors, **kw)
     for a, b in zip(got, want):
         assert _bytes_equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", (np.float64, np.float32))
+@pytest.mark.parametrize("jobs,max_rows,kind",
+                         PLAN_SCAN_CASES + [(3552, 24, "seam")])
+def test_plan_runs_2d_scan(cuda_device, jobs, max_rows, kind, dtype):
+    """The one-launch kernel (a warp per job, a look-back scan over
+    tiles of jobs) at the shapes that stress its order, and at the
+    all-levels request's job count: full buffers and meta byte-equal to
+    the plain version on the card and on the CPU."""
+    args, kw = plan_scan_case(jobs, max_rows, kind, seed=jobs + max_rows,
+                              dtype=dtype)
+    cpu = [torch.from_numpy(a) for a in args]
+    tensors = [t.to(cuda_device) for t in cpu]
+    before = LAUNCHES["plan_runs_2d"]
+    got = pk.plan_runs_2d(*tensors, **kw)
+    assert LAUNCHES["plan_runs_2d"] == before + 1
+    want = pref.plan_runs_2d(*tensors, **kw)
+    for a, b, c in zip(got, want, pref.plan_runs_2d(*cpu, **kw)):
+        assert _bytes_equal(a, b) and _bytes_equal(a.cpu(), c)
+    assert (int(got[2][0]) == 0) == (kind == "none")
 
 
 # -- the main path ----------------------------------------------------------------
@@ -320,6 +344,25 @@ def test_launcher_on_the_card(cuda_device, tmp_path):
 
 # -- B6 and the recsys models ----------------------------------------------------
 
+def _b6_launched(fn):
+    """Run ``fn`` and return its result and the name of the one B6 kernel
+    it launched."""
+    names = ("gather_rows_bag", "gather_rows_bag_tiled")
+    before = {n: LAUNCHES[n] for n in names}
+    out = fn()
+    ran = [n for n in names if LAUNCHES[n] != before[n]]
+    assert len(ran) == 1 and LAUNCHES[ran[0]] == before[ran[0]] + 1, ran
+    return out, ran[0]
+
+
+def _b6_kernel(d: int, dtype) -> str:
+    """The B6 kernel a row of ``d`` elements takes: the tiled one below
+    the wrapper's ``NARROW_ROW_BYTES``."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    narrow = d * size < gk.NARROW_ROW_BYTES
+    return "gather_rows_bag_tiled" if narrow else "gather_rows_bag"
+
+
 @pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
 @pytest.mark.parametrize("l", (1, 8, 32))
 @pytest.mark.parametrize("d", (1, 10, 64, 65))
@@ -331,11 +374,61 @@ def test_gather_rows_bag(cuda_device, d, l, dtype):
     bags[0] = -1                                  # an all-padding bag
     bags[1, 0] = 999
     table, bags = table.to(cuda_device), bags.to(cuda_device)
-    before = LAUNCHES["gather_rows_bag"]
-    got = gk.gather_rows_bag(table, bags)
-    assert LAUNCHES["gather_rows_bag"] == before + 1
+    got, ran = _b6_launched(lambda: gk.gather_rows_bag(table, bags))
+    assert ran == _b6_kernel(d, dtype)
     assert _bytes_equal(got, gref.gather_rows_bag(table, bags))
     assert not bool(got[0].any())
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("shift", (0, 1, 2))
+@pytest.mark.parametrize("l", (1, 3, 8))
+@pytest.mark.parametrize("d", (1, 2, 3, 10, 64))
+def test_gather_rows_bag_tiled(cuda_device, d, l, shift, dtype):
+    """B6 at narrow and wide rows, on table views ``shift`` elements past
+    an aligned start (so packs of 4, 2 and 1 elements all run), with -1
+    slots, a -0.0 row and B not a multiple of any tile: byte-equal to the
+    plain version, through the kernel the row's width names."""
+    gen = torch.Generator().manual_seed(1000 * d + 10 * l + shift)
+    n, b = 500, 77 * 32 + 13
+    flat = torch.randn(n * d + shift, generator=gen).to(dtype)
+    flat[shift:shift + d] = -0.0                  # row 0 is -0.0
+    table = flat.to(cuda_device)[shift:].view(n, d)
+    bags = torch.randint(-1, n, (b, l), generator=gen, dtype=torch.int32)
+    bags[5] = 0                                   # -0.0 + ... in l order
+    bags[6] = -1
+    bags = bags.to(cuda_device)
+    got, ran = _b6_launched(lambda: gk.gather_rows_bag(table, bags))
+    assert ran == _b6_kernel(d, dtype)
+    assert _bytes_equal(got, gref.gather_rows_bag(table, bags))
+    assert _bytes_equal(got.cpu(), gref.gather_rows_bag(table.cpu(),
+                                                        bags.cpu()))
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_gather_rows_bag_entries_refuse_each_others_rows(cuda_device, dtype):
+    """Each B6 entry point takes the rows on its side of the wrapper's
+    ``NARROW_ROW_BYTES`` and refuses the other's: the C side's boundary
+    is the wrapper's."""
+    from repro_torch.kernels import _build
+
+    lib = _build.library("gather")
+    size = torch.tensor([], dtype=dtype).element_size()
+    last_narrow = gk.NARROW_ROW_BYTES // size - 1
+    bags = torch.zeros((4, 1), dtype=torch.int32, device=cuda_device)
+    for d in (last_narrow, last_narrow + 1):
+        table = torch.ones(2, d, dtype=dtype, device=cuda_device)
+        out = torch.empty(4, d, dtype=dtype, device=cuda_device)
+        status = {entry: getattr(lib, entry)(
+            cuda_device.index or 0, table.data_ptr(), d, bags.data_ptr(), 4,
+            1, size, out.data_ptr(), _build.stream_of(cuda_device))
+            for entry in ("polytope_gather_rows_bag_tiled",
+                          "polytope_gather_rows_bag")}
+        torch.cuda.synchronize()
+        narrow = d == last_narrow
+        assert (status["polytope_gather_rows_bag_tiled"] == 0) == narrow
+        assert (status["polytope_gather_rows_bag"] == 0) == (not narrow)
+        assert bool((out == 1).all()), d
 
 
 def test_gather_rows_bag_empty_batch_and_view(cuda_device):
@@ -370,10 +463,9 @@ def test_dlrm_on_the_card_equals_plain_bag(cuda_device, monkeypatch):
     batch = ClickStream(n_sparse=cfg.n_sparse, rows=cfg.rows).batch(0, 256)
     dense = torch.from_numpy(batch["dense"]).to(cuda_device)
     bags = torch.from_numpy(batch["bags"]).to(cuda_device)
-    before = LAUNCHES["gather_rows_bag"]
     with torch.no_grad():
-        got = model(dense, bags)
-        assert LAUNCHES["gather_rows_bag"] == before + 1
+        got, ran = _b6_launched(lambda: model(dense, bags))
+        assert ran == _b6_kernel(cfg.embed_dim, torch.float32)
         monkeypatch.setattr(gk, "gather_rows_bag", gref.gather_rows_bag)
         want = model(dense, bags)
     assert got.is_cuda and got.shape == (256,)
