@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""B3 and B6 of one source tree of the port, timed on one card, for a
-comparison of two trees within one call.
+"""B3, B6 and the extraction read of one source tree of the port, timed
+on one card, for a comparison of two trees within one call.
 
     python3 chip_ab.py [--src DIR]
 
@@ -23,7 +23,16 @@ are ``chip_smoke.py``'s, for both trees:
   DLRM-RM2's (D = 64, and its ids padded to L = 8) and DeepFM's (D = 10
   and D = 1), each byte for byte against the plain version, and timed by
   ``chip_smoke.b6_bulk_timings`` (the kernel, its plain version, the
-  bound, the sector floor and ``F.embedding_bag``).
+  bound, the sector floor and ``F.embedding_bag``);
+* the extraction read through entry points that both trees have, on
+  the F320 payload of ``chip_smoke.py``'s default seed:
+  ``ops.gather_plan_runs`` on the all-levels request's plan (the host's
+  work on the runs, the uploads and every launch) and
+  ``serve.shared_union_gather`` on ``chip_smoke.serve_windows``' last
+  window (its union, the slices, the uploads and every launch), each
+  checked against the payload read on the host: the median host-clock
+  time of 30 calls, each ending in a synchronize, and the device time
+  of one call by kernel and copy (``chip_smoke.kernel_breakdown``).
 
 Prints the card (``nvidia-smi``) and then one JSON line.  Compare trees
 only within one call, in turns: parent, change, change, parent.
@@ -100,6 +109,58 @@ def b6(dev) -> list:
     return out
 
 
+def read(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.carry import payload_to_tensor
+    from repro_torch.core import Slicer
+    from repro_torch.kernels.gather import ops as gops
+    from repro_torch.serve import ExtractionService, shared_union_gather
+
+    iwc, requests = chip_smoke.weather_setup()
+    flat_np = iwc.field_data(seed=SEED)
+    flat = payload_to_tensor(flat_np, dev)
+    plan = Slicer(iwc.cube).extract_plan(requests["germany_all_levels"])[0]
+    window = chip_smoke.serve_windows(iwc, requests, SEED)[-1]
+    svc = ExtractionService(iwc.cube, device=dev)
+    results = svc.submit_batch(window)            # plans only
+    batch_plans = {r.key: r.plan for r in results}
+
+    def burst():
+        return gops.gather_plan_runs(flat, plan.run_starts, plan.run_lengths)
+
+    def serve():
+        shared_union_gather(iwc.cube, results, batch_plans, flat)
+
+    assert chip_smoke.bytes_equal(burst().cpu(), torch.from_numpy(
+        flat_np[plan.offsets])), "burst read"
+    serve()
+    for r in results:
+        assert chip_smoke.bytes_equal(r.values.cpu(), torch.from_numpy(
+            flat_np[r.plan.offsets])), "window read"
+    out = {}
+    for name, fn in (("gather_plan_runs", burst), ("union_read", serve)):
+        wall = []
+        for _ in range(31):                # the first call is a warm-up
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+        out[name] = {"host_ms_median": statistics.median(wall[1:]) * 1e3,
+                     **chip_smoke.kernel_breakdown(fn)}
+    union = np.unique(np.concatenate([p.offsets for p in
+                                      batch_plans.values()]))
+    out["shape"] = {"N": int(plan.n_points), "R": int(len(plan.run_starts)),
+                    "window_plans": len(batch_plans),
+                    "window_points": int(sum(p.n_points for p in
+                                             batch_plans.values())),
+                    "union": int(union.size)}
+    del flat
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=HERE / "src")
@@ -123,7 +184,8 @@ def main(argv=None) -> int:
     card = chip_smoke.card_line()
     print(card, flush=True)
     chip_smoke.emit({"src": str(args.src), "card": card,
-                     "build_s": build_s, "b3": b3(dev), "b6": b6(dev)})
+                     "build_s": build_s, "read": read(dev), "b3": b3(dev),
+                     "b6": b6(dev)})
     return 0
 
 

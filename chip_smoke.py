@@ -18,17 +18,21 @@ and then, printing one JSON line per phase:
                burst_gather=True)`` on country, seam-box and
                all-levels requests; plans must equal the host
                ``Slicer``'s and values ``flat[plan.offsets]``, byte for
-               byte, and every request must launch the planning kernel;
+               byte, and every request must launch the planning kernel
+               once and gather_plan_runs (B2) once, gather_rows never;
 3. serve     — ``ExtractionService(cube).submit_batch`` over 64
-               Zipf-drawn requests with the payload on the card;
+               Zipf-drawn requests in 4 windows with the payload on the
+               card: one gather_union_slices launch per window with a
+               non-empty plan, gather_rows never;
 4. kernels   — holds each kernel byte for byte against its plain
                PyTorch version on the card, on the inputs the main path
-               gave it: gather_runs on every burst chunk lattice of phase
-               2 (and on windows past the end of the payload),
-               gather_rows on every compaction of phase 2 and every
-               union read and per-request slice of phase 3, plan_runs_2d
-               on the jobs of the country, seam and all-levels requests
-               in float64 and float32;
+               gave it: gather_plan_runs on every plan of phase 2 (and
+               on runs that end at the payload's last element, of
+               length 1, longer than 128, and whose source and output
+               are not congruent mod 16), gather_union_slices on every
+               window of phase 3, plan_runs_2d on the jobs of the
+               country, seam and all-levels requests in float64 and
+               float32;
 5. bfs_layer — one BFS layer of Algorithm 1 as a batch: every
                (triangle, latitude row) pair of phase 2's country and
                seam-box polygons on the F320 grid, packed with
@@ -41,16 +45,19 @@ and then, printing one JSON line per phase:
                country-triangle crops at seeded random shifts; lattice,
                runs and values byte-equal to the plain versions (the
                same calls with ``device="cpu"``), values equal to
-               ``field[offsets]``, and slice_minor_extents and
-               plan_runs_2d (float32) byte-equal on the inputs the path
-               gave them;
+               ``field[offsets]``, and slice_minor_extents, plan_runs_2d
+               (float32) and gather_rows byte-equal on the inputs the
+               path gave them;
 7. sharded_serve — the port's launcher (``repro_torch.launch.serve``,
                extract mode) in-process at O1280 (4 times × 4 levels,
                105,594,880 float64 elements, 0.84 GB on the card), 8
                client threads, 4 shards, 512 Zipf-drawn requests through
-               the ``AdmissionQueue``; every served value byte-equal to
-               a fresh single-threaded ``PolytopeExtractor`` on the same
-               payload;
+               the ``AdmissionQueue``; one gather_union_slices launch
+               per window with a non-empty plan (the windows counted
+               from the service's calls), gather_rows never, each launch
+               byte-equal to its plain version; every served value
+               byte-equal to a fresh single-threaded
+               ``PolytopeExtractor`` on the same payload;
 8. recsys_serve — DLRM-RM2 (26 tables × 10⁶ rows × 64, 6.66 GB of
                float32 tables) and then DeepFM (39 × 10⁶ × 10 and its
                width-1 first-order tables, 1.72 GB) at full published
@@ -113,7 +120,9 @@ and then, printing one JSON line per phase:
                at one, the plain version, SDPA and the bound;
 11. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
-               computes the same function, and the card's bound (B3's
+               computes the same function, and the card's bound (B1 at
+               the batched path's call, B2 at the all-levels request,
+               the union slices at phase 3's last window; B3's
                with the device time of each kernel and memset of a call,
                by ``torch.profiler``, at the all-levels request and at
                Germany's; B6's at
@@ -1538,6 +1547,23 @@ def weather_setup():
     return iwc, requests
 
 
+def serve_windows(iwc, requests, seed: int) -> list:
+    """Phase 3's 4 windows of 16 requests, Zipf-drawn (s = 1.1) from
+    ``seed`` over ``weather_setup``'s requests and each country drifted
+    to the next datetime and to the next level."""
+    import numpy as np
+
+    from repro_torch.dataplane.weather import COUNTRIES
+
+    population = list(requests.values())
+    for name in COUNTRIES:
+        population.append(iwc.country_request(name, datetime=21600.0))
+        population.append(iwc.country_request(name, level=1.0))
+    draws = zipf_draw(np.random.default_rng(seed), len(population), 64)
+    return [[population[i] for i in draws[16 * b:16 * (b + 1)]]
+            for b in range(4)]
+
+
 def recording_planner(cube, **kw):
     """A ``DevicePlanner`` that records the pipeline inputs of every
     plan() call in ``.calls``, so the kernel checks and timings see the
@@ -1600,9 +1626,6 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card = card_line()
 
-    def i32(a) -> torch.Tensor:
-        return torch.from_numpy(np.asarray(a).astype(np.int32)).to(dev)
-
     # -- 1. build -------------------------------------------------------
     t0 = time.perf_counter()
     _build.library("gather")
@@ -1632,16 +1655,22 @@ def main(argv=None) -> int:
     pe = PolytopeExtractor(cube, device_planner=True, burst_gather=True)
     host = Slicer(cube)
     rows = []
-    # What gather_plan_runs hands B2 and B1 for each request's plan.
-    burst_inputs = {}
+    # What each request's burst read hands B2: its runs on the card.
+    burst_inputs, plans = {}, {}
     for name, req in requests.items():
-        before = LAUNCHES["plan_runs_2d"]
+        before = dict(LAUNCHES)
         t0 = time.perf_counter()
-        res = pe.extract(req, flat)
+        with recording(gk, "gather_plan_runs") as b2_calls:
+            res = pe.extract(req, flat)
         torch.cuda.synchronize()
         dev_s = time.perf_counter() - t0
-        assert LAUNCHES["plan_runs_2d"] == before + 1, \
+        assert LAUNCHES["plan_runs_2d"] == before["plan_runs_2d"] + 1, \
             f"{name}: the device planner fell back to the host"
+        assert LAUNCHES["gather_plan_runs"] == \
+            before["gather_plan_runs"] + 1 and len(b2_calls) == 1, \
+            f"{name}: the read was not one gather_plan_runs launch"
+        assert LAUNCHES["gather_rows"] == before["gather_rows"], \
+            f"{name}: the read launched gather_rows"
         t0 = time.perf_counter()
         hplan, hstats = host.extract_plan(req)
         host_s = time.perf_counter() - t0
@@ -1654,42 +1683,37 @@ def main(argv=None) -> int:
         want = torch.from_numpy(flat_np[hplan.offsets])
         assert res.values.is_cuda and bytes_equal(res.values.cpu(), want), \
             f"{name}: values != flat[plan.offsets]"
-        burst_inputs[name] = gops.chunk_runs(plan.run_starts,
-                                             plan.run_lengths)
+        burst_inputs[name] = b2_calls[0][0]
+        plans[name] = plan
         rows.append({"request": name, "points": int(plan.n_points),
                      "runs": int(len(plan.run_starts)),
                      "extract_s": dev_s, "host_plan_s": host_s})
     emit({"phase": "extract", "requests": rows})
 
     # -- 3. serving: Zipf-drawn batches over the card-resident payload --
-    population = list(requests.values())
-    for name in COUNTRIES:       # drifted repeats: next datetime / level
-        population.append(iwc.country_request(name, datetime=21600.0))
-        population.append(iwc.country_request(name, level=1.0))
-    rng = np.random.default_rng(args.seed)
-    draws = zipf_draw(rng, len(population), 64)
     svc = ExtractionService(cube)
     host_plans = {}
-    # What shared_union_gather hands B1 for each batch: the union read's
-    # offsets and each distinct plan's positions in the union buffer.
-    union_reads = []
-    for b in range(4):
-        batch = [population[i] for i in draws[16 * b:16 * (b + 1)]]
-        results = svc.submit_batch(batch, flat)
-        torch.cuda.synchronize()
-        for res in results:
-            if res.key not in host_plans:
-                host_plans[res.key] = host.extract_plan(res.request)[0]
-            hplan = host_plans[res.key]
-            assert np.array_equal(res.plan.offsets, hplan.offsets)
-            want = torch.from_numpy(flat_np[hplan.offsets])
-            assert res.values.is_cuda and bytes_equal(res.values.cpu(),
-                                                      want)
-        plans = {r.key: r.plan for r in results if r.plan.n_points}
-        union = np.unique(np.concatenate(
-            [p.offsets for p in plans.values()]))
-        union_reads.append((union, [np.searchsorted(union, p.offsets)
-                                    for p in plans.values()]))
+    # What each window's read hands gather_union_slices (the union's
+    # offsets and every distinct plan's positions in it, on the card),
+    # and the windows with a non-empty plan.
+    window_offsets, nonempty_windows = [], 0
+    with recording(gk, "gather_union_slices") as union_reads:
+        for batch in serve_windows(iwc, requests, args.seed):
+            results = svc.submit_batch(batch, flat)
+            torch.cuda.synchronize()
+            plans3 = {r.key: r.plan for r in results if r.plan.n_points}
+            if plans3:
+                nonempty_windows += 1
+                window_offsets.append(np.concatenate(
+                    [p.offsets for p in plans3.values()]))
+            for res in results:
+                if res.key not in host_plans:
+                    host_plans[res.key] = host.extract_plan(res.request)[0]
+                hplan = host_plans[res.key]
+                assert np.array_equal(res.plan.offsets, hplan.offsets)
+                want = torch.from_numpy(flat_np[hplan.offsets])
+                assert res.values.is_cuda and bytes_equal(res.values.cpu(),
+                                                          want)
     st = svc.stats
     emit({"phase": "serve", "requests": 64, "batches": 4, "hits": st.hits,
           "misses": st.misses, "delta_hits": st.delta_hits,
@@ -1698,12 +1722,15 @@ def main(argv=None) -> int:
           "bytes_read": st.bytes_read})
     # Launch counts of each path, read just after it ran.
     path_launches = {"extract_serve": dict(LAUNCHES)}
-    for name in ("gather_rows", "gather_runs", "plan_runs_2d"):
-        assert LAUNCHES[name] > 0, \
-            f"{name} was never launched on the main path"
+    assert LAUNCHES["gather_plan_runs"] == len(requests), LAUNCHES
+    assert LAUNCHES["gather_union_slices"] == nonempty_windows \
+        == len(union_reads) > 0, (LAUNCHES, nonempty_windows)
+    assert LAUNCHES["plan_runs_2d"] > 0, "the planning kernel never ran"
+    assert LAUNCHES["gather_rows"] == 0, "the main path launched gather_rows"
 
     # -- 4. kernels against their plain versions, on main-path inputs ---
-    errs = {"gather_rows": 0.0, "gather_runs": 0.0, "plan_runs_2d": 0.0}
+    errs = {"gather_plan_runs": 0.0, "gather_union_slices": 0.0,
+            "plan_runs_2d": 0.0}
     n_checked = {k: 0 for k in errs}
 
     def check(kname, got, want, what):
@@ -1711,30 +1738,28 @@ def main(argv=None) -> int:
         errs[kname] = max(errs.get(kname, 0.0), max_abs_err(got, want))
         n_checked[kname] = n_checked.get(kname, 0) + 1
 
-    blk = gops.BURST_BLOCK
-    for name, (cs_np, gidx_np) in burst_inputs.items():
-        cs = i32(cs_np)
-        lattice = gk.gather_runs(flat, cs, blk)
-        check("gather_runs", lattice, gref.gather_runs(flat, cs, blk), name)
-        lat, gi = lattice.reshape(-1, 1), i32(gidx_np)
-        check("gather_rows", gk.gather_rows(lat, gi),
-              gref.gather_rows(lat, gi), f"{name} compaction")
+    for name, b2_args in burst_inputs.items():
+        check("gather_plan_runs", gk.gather_plan_runs(*b2_args),
+              gref.gather_plan_runs(*b2_args), name)
+    # Runs ending at the payload's last element, of length 1, longer than
+    # 128, at odd offsets (float64: source and output not congruent mod
+    # 16), on the payload and on its view one element in.
     n = flat.numel()
-    tail = i32([n - 1, n - 60, n - blk + 1, 0])   # windows past the end
-    got = gk.gather_runs(flat, tail, blk)
-    check("gather_runs", got, gref.gather_runs(flat, tail, blk), "tail")
-    assert not bool(got[0, 1:].any()), "gather_runs read past the end"
-
-    table = flat[:, None]
-    for b, (union, positions) in enumerate(union_reads):
-        u = i32(union)
-        buf = gk.gather_rows(table, u)
-        check("gather_rows", buf, gref.gather_rows(table, u),
-              f"batch {b} union read")
-        for pos in positions:
-            p = i32(pos)
-            check("gather_rows", gk.gather_rows(buf, p),
-                  gref.gather_rows(buf, p), f"batch {b} slice")
+    edge_starts = np.array([n - 1, 5, n - 300, 1001, 70_001, 3, n - 2])
+    edge_lengths = np.array([1, 1, 300, 517, 4099, 0, 1])
+    for shift in (0, 1):
+        view = flat[shift:]
+        edge = gops.plan_run_inputs(view, edge_starts - shift, edge_lengths)
+        got = gk.gather_plan_runs(view, *edge)
+        check("gather_plan_runs", got, gref.gather_plan_runs(view, *edge),
+              f"edge runs, shift {shift}")
+        want = torch.from_numpy(np.concatenate(
+            [flat_np[s0:s0 + ln] for s0, ln in zip(edge_starts,
+                                                   edge_lengths)]))
+        assert bytes_equal(got.cpu(), want), "edge runs != the payload's"
+    for b, (a, kw) in enumerate(union_reads):
+        check("gather_union_slices", gk.gather_union_slices(*a, **kw),
+              gref.gather_union_slices(*a, **kw), f"window {b}")
 
     recs = {}
     for dtype in (np.float64, np.float32):
@@ -1836,7 +1861,8 @@ def main(argv=None) -> int:
     verts6, valid6 = sops.pack_polytopes(crops, device=dev)
     reset_launches()
     with recording(sops, "slice_minor_extents") as b4_calls, \
-            recording(pops, "plan_runs_2d") as b3_calls:
+            recording(pops, "plan_runs_2d") as b3_calls, \
+            recording(gk, "gather_rows") as b1_calls:
         t0 = time.perf_counter()
         lattice6 = batched.batched_plan_2d(verts6, valid6, axis0, axis1, n0,
                                            n1, max_rows, max_cols,
@@ -1890,6 +1916,9 @@ def main(argv=None) -> int:
         for g, w in zip(pk.plan_runs_2d(*a, **kw), pref.plan_runs_2d(*a,
                                                                     **kw)):
             check("plan_runs_2d", g, w, "batched float32")
+    for a, kw in b1_calls:
+        check("gather_rows", gk.gather_rows(*a, **kw),
+              gref.gather_rows(*a, **kw), "batched values")
     emit({"phase": "batched", "P": n_crops, "V": int(verts6.shape[1]),
           "max_rows": max_rows, "max_cols": max_cols, "n0": n0, "n1": n1,
           "n_points": int(npts6.sum()), "n_runs": int(meta[0]),
@@ -1897,6 +1926,7 @@ def main(argv=None) -> int:
 
     # -- 7. sharded_serve: the launcher at O1280 -------------------------
     from repro_torch.launch import serve as launcher
+    from repro_torch.serve import sharded
 
     reset_launches()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1908,21 +1938,26 @@ def main(argv=None) -> int:
         said = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(said), \
-                recording(gk, "gather_rows") as b1_calls:
+                recording(sharded, "shared_union_gather") as windows, \
+                recording(gk, "gather_union_slices") as slice_calls:
             run = launcher.run_extract(launcher.parse_args(serve_argv))
         torch.cuda.synchronize()
         serve_s = time.perf_counter() - t0
         bench = json.loads(bench_out.read_text())
     path_launches["sharded_serve"] = dict(LAUNCHES)
-    assert LAUNCHES["gather_rows"] > 0, "the launcher read on the host"
     assert run.payload.is_cuda and len(run.served) == SERVE_REQUESTS
-    # B1 against its plain version on every read the launcher made: the
-    # union reads over the payload and each plan's slice of them.
-    assert len(b1_calls) >= LAUNCHES["gather_rows"] > 0
-    for a, kw in b1_calls:
-        check("gather_rows", gk.gather_rows(*a, **kw),
-              gref.gather_rows(*a, **kw), "sharded union read")
-    b1_calls.clear()
+    # One launch per window that read anything (a window's batch_plans is
+    # the third argument of its shared_union_gather call), none of B1.
+    sharded_windows = sum(any(p.n_points for p in a[2].values())
+                          for a, _ in windows)
+    assert LAUNCHES["gather_union_slices"] == sharded_windows \
+        == len(slice_calls) > 0, (LAUNCHES, sharded_windows)
+    assert LAUNCHES["gather_rows"] == 0, "the launcher launched gather_rows"
+    # Each window's read against its plain version.
+    for a, kw in slice_calls:
+        check("gather_union_slices", gk.gather_union_slices(*a, **kw),
+              gref.gather_union_slices(*a, **kw), "sharded window")
+    slice_calls.clear()
     # The values against the payload on the host, and against a fresh
     # single-threaded extractor.
     payload_np = run.payload.cpu().numpy()
@@ -1945,7 +1980,8 @@ def main(argv=None) -> int:
           "payload_bytes": int(run.payload.numel()
                                * run.payload.element_size()),
           "distinct_requests": len(reference), "seconds": serve_s,
-          "gather_rows_checked": n_checked["gather_rows"],
+          "windows": len(windows), "windows_read": sharded_windows,
+          "gather_union_slices_checked": n_checked["gather_union_slices"],
           **{k: bench["rows"][0][k] for k in (
               "requests", "req_per_s", "p50_ms", "p99_ms", "hit_rate",
               "coalescing_factor")},
@@ -1972,39 +2008,60 @@ def main(argv=None) -> int:
     timer = Timer(dev)
     entries = []
 
-    # B1: the last batch's union read (D = 1).
-    idx = i32(union_reads[-1][0])
-    m = idx.numel()
-    b1_bytes = m * (8 + 4 + 8)
+    # B1: the batched path's call (D = 1, float32), its main remaining
+    # use.
+    table1, idx1 = b1_calls[0][0]
+    m = idx1.numel()
+    b1_bytes = m * (4 + 2 * table1.element_size())
     entries.append({
         "name": "gather_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/gather.cu",
         "replaces": "src/repro/kernels/gather/kernel.py:71",
         "launches": launches["gather_rows"],
         "max_abs_err": errs["gather_rows"],
-        "ms": timer(lambda: gk.gather_rows(table, idx)),
-        "plain_ms": timer(lambda: gref.gather_rows(table, idx)),
+        "ms": timer(lambda: gk.gather_rows(table1, idx1)),
+        "plain_ms": timer(lambda: gref.gather_rows(table1, idx1)),
         "bound_ms": b1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": timer(lambda: torch.index_select(flat, 0, idx)),
-        "shape": {"M": m, "D": 1}})
+        "library_ms": timer(lambda: torch.index_select(table1, 0, idx1)),
+        "shape": {"M": m, "D": int(table1.shape[1]), "dtype": "float32"}})
 
-    # B2: the all-levels request's burst chunks.
-    cs = i32(burst_inputs["germany_all_levels"][0])
-    c = cs.numel()
-    window = (cs.long()[:, None] + torch.arange(blk, device=dev)).clamp(
-        max=flat.numel() - 1).reshape(-1)
-    b2_bytes = c * (blk * 8 + 4 + blk * 8)
+    # B2: the all-levels request's runs: each point read and written once
+    # plus each run's start, length and output offset.
+    b2_args = burst_inputs["germany_all_levels"]
+    n_runs, n_points = b2_args[1].numel(), b2_args[4]
+    b2_bytes = n_points * 2 * flat.element_size() + n_runs * 16
+    offsets2 = torch.from_numpy(plans["germany_all_levels"].offsets).to(dev)
     entries.append({
-        "name": "gather_runs", "route": "cuda",
+        "name": "gather_plan_runs", "route": "cuda",
         "source": "src/repro_torch/csrc/gather.cu",
         "replaces": "src/repro/kernels/gather/kernel.py:181",
-        "launches": launches["gather_runs"],
-        "max_abs_err": errs["gather_runs"],
-        "ms": timer(lambda: gk.gather_runs(flat, cs, blk)),
-        "plain_ms": timer(lambda: gref.gather_runs(flat, cs, blk)),
+        "launches": launches["gather_plan_runs"],
+        "max_abs_err": errs["gather_plan_runs"],
+        "ms": timer(lambda: gk.gather_plan_runs(*b2_args)),
+        "plain_ms": timer(lambda: gref.gather_plan_runs(*b2_args)),
         "bound_ms": b2_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": timer(lambda: torch.index_select(flat, 0, window)),
-        "shape": {"C": c, "block": blk}})
+        "library_ms": timer(lambda: torch.index_select(flat, 0, offsets2)),
+        "shape": {"N": n_points, "R": n_runs}})
+
+    # The union read and its slices: phase 3's last window, each union
+    # offset and position read once with its element, each output
+    # written once.
+    u_args = union_reads[-1][0]
+    n_union, n_pos = u_args[1].numel(), u_args[2].numel()
+    w = flat.element_size()
+    u_bytes = n_union * (4 + w) + n_pos * (4 + w)
+    offsets3 = torch.from_numpy(window_offsets[-1]).to(dev)
+    entries.append({
+        "name": "gather_union_slices", "route": "cuda",
+        "source": "src/repro_torch/csrc/gather.cu",
+        "replaces": "src/repro/kernels/gather/kernel.py:71",
+        "launches": launches["gather_union_slices"],
+        "max_abs_err": errs["gather_union_slices"],
+        "ms": timer(lambda: gk.gather_union_slices(*u_args)),
+        "plain_ms": timer(lambda: gref.gather_union_slices(*u_args)),
+        "bound_ms": u_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(lambda: torch.index_select(flat, 0, offsets3)),
+        "shape": {"U": n_union, "P": n_pos}})
 
     # B3: the all-levels request's jobs, float64; the device time of each
     # kernel and memset of a call there and at Germany's call (the first

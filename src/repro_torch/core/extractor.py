@@ -2,9 +2,9 @@
 
 * :class:`PolytopeExtractor` — the paper's technique: plan with the
   slicer, then read only the planned bytes.  On the card the read is
-  one of the CUDA kernels of ``repro_torch.kernels.gather``: the
-  per-offset ``gather_rows`` or the burst ``gather_runs`` over
-  coalesced runs.
+  one launch of a CUDA kernel of ``repro_torch.kernels.gather``: the
+  per-offset ``gather_rows``, or ``gather_plan_runs``, which copies the
+  plan's coalesced runs straight into its points.
 * :class:`BoundingBoxExtractor` — the "state of practice" baseline: the
   tensor-product box of the per-axis extents.
 * :class:`TraditionalExtractor` — whole-field reads (paper Table 1
@@ -58,9 +58,9 @@ class PolytopeExtractor:
         # the payload's device decides (a CUDA tensor always launches a
         # kernel).
         self.use_kernel = use_kernel
-        # burst_gather=True reads coalesced plan runs as wide contiguous
-        # copies (kernels.gather.gather_plan_runs) instead of
-        # per-element loads — the bandwidth-bound warm path.
+        # burst_gather=True reads coalesced plan runs straight into the
+        # points (kernels.gather.gather_plan_runs) instead of one load
+        # per offset — the bandwidth-bound warm path.
         self.burst_gather = burst_gather
 
     def check_payload(self, flat_data: Any) -> None:
@@ -91,9 +91,10 @@ def gather(flat_data: Any, plan: ExtractionPlan,
     """Read exactly the planned elements.
 
     A numpy payload is indexed on the host.  A tensor payload is read by
-    the gather kernels on its own device — ``burst=True`` issues one
-    wide copy per coalesced run chunk (``gather_runs``), otherwise one
-    load per element (``gather_rows``); results are identical, runs
+    one gather kernel on its own device — ``burst=True`` copies the
+    plan's coalesced runs (``gather_plan_runs``: the runs, their lengths
+    and output offsets in one upload, no per-point index), otherwise
+    one load per element (``gather_rows``); results are identical, runs
     tile the offsets exactly.  ``use_kernel`` is kept for parity with
     the JAX package: on the port the tensor's device decides.
     """

@@ -1,5 +1,7 @@
-// The extraction read: kernels B1 (gather_rows) and B2 (gather_runs), and
-// the EmbeddingBag sum of the recsys models: kernel B6 (gather_rows_bag).
+// The extraction read: kernel B1 (gather_rows), B2 (gather_plan_runs)
+// and the serving window's union read with its slices
+// (gather_union_slices); and the EmbeddingBag sum of the recsys models:
+// kernel B6 (gather_rows_bag).
 //
 // Replaces the Pallas kernels of the JAX package's
 // kernels/gather/kernel.py: gather_rows (_gather_kernel, the
@@ -7,26 +9,54 @@
 // gather_rows_bag (_bag_kernel, the pallas_call at line 123: a (B, L)
 // grid, one row DMA per bag slot, summed into the bag's output row over
 // the sequential L axis) and gather_runs (_runs_kernel, the pallas_call
-// at line 181: one block-wide DMA per coalesced-run chunk).
+// at line 181: one block-wide DMA per coalesced-run chunk, into a (C,
+// 128) lattice that kernels/gather/ops.py compacts with a second
+// gather).  gather_union_slices replaces the JAX service's union read
+// (gather_rows over the union) and its per-plan slices (one more
+// gather_rows each), which that package runs as 1 + K gathers.
 //
-// Bound on the H100: bytes.  All three are copies with no or one add per
+// Bound on the H100: bytes.  All are copies with no or one add per
 // element read: each output element costs one read of the payload (plus
-// its index or chunk start) and one write, so the floor is
+// its index or its run's descriptor) and one write, so the floor is
 // (bytes read + bytes written) / 3.35 TB/s.  For B6 the rows read are
 // the distinct ids of the batch: Zipf traffic re-reads hot rows from L2.
+// At the extraction read's sizes (10^3-10^5 points) every one of these
+// is one launch's latency, so the designs cut launches and dependent
+// loads first.
 //
-// Design: the TPU kernels move one row or one chunk per sequential grid
-// step.  Here every output element has its own thread.  gather_rows
-// maps thread -> element (i, c) of the (M, D) output; gather_runs runs
-// one block per chunk with its threads striding over the block-wide
-// window, so neighbouring threads touch neighbouring addresses in both
-// the window read and the output write.  All addresses are int64_t: an
-// output or payload past 2^31 elements must not wrap.  gather_runs masks
-// its loads with start + k < n and writes zero past the end, so the
-// payload is never padded (the JAX wrapper concatenates a padded copy
-// of the whole payload on every call).  Elements move as opaque 1-, 2-,
-// 4- or 8-byte words, so one instantiation serves every dtype of that
-// width.
+// Design.  gather_rows maps thread -> element (i, c) of the (M, D)
+// output.  gather_plan_runs copies a plan's runs straight into its N
+// points, with no lattice and no second gather: the TPU needed a fixed
+// 128-element DMA block, the H100 does not.  Its inputs are the runs'
+// starts and lengths and the exclusive prefix of the lengths (the
+// output offset of each run, int64, computed on the host over the
+// runs).  A warp takes one window of RUN_WINDOW output elements, finds
+// the run holding the window's first element by a warp-wide search over
+// the offsets, and walks the window 32 runs at a time: lane j holds run
+// r + j's overlap with the window, an inclusive scan over the lanes
+// numbers the elements of the short overlaps, and each lane finds the
+// run of each of its elements by a 5-step __shfl_sync search over the
+// lanes' prefixes, so that both the reads (within a run) and the writes
+// (the window is contiguous) stay coalesced whatever the runs' lengths.
+// An overlap of LONG_RUN elements or more is copied by the whole warp
+// as 16-byte words where source and destination are congruent mod 16
+// (8-byte words where they are congruent mod 8), with element words
+// for the head and the tail.  A window bounds every warp's work, so a
+// run of a whole field is spread over many warps (a window of 128
+// elements was within 3% of 256 at the all-levels plan's 175 K points;
+// capping the registers at 64 spilled and was slower).  gather_union_slices
+// reads out[j] = flat[union[positions[j]]]: each thread takes
+// SLICE_EPT positions and issues all their union loads, then all their
+// payload loads, before any store; the union is never materialised,
+// and plans that overlap re-read the union's bytes from L2.  Two
+// positions a thread, not eight: at a window's ~4 K positions on an
+// H100 eight a thread filled 2 blocks and took 3x as long as two a
+// thread over 8 blocks (the loads an SM keeps in flight bound it, not
+// the chains of a thread); one a thread, or 128-thread blocks, were no
+// faster.  All
+// addresses are int64_t: an output or payload past 2^31 elements must
+// not wrap.  Elements move as opaque 1-, 2-, 4- or 8-byte words, so one
+// instantiation serves every dtype of that width.
 //
 // gather_rows_bag has two kernels, chosen by the wrapper on the row's
 // width; both read rows as packs of VEC elements (16-byte loads where D
@@ -75,16 +105,203 @@ __global__ void gather_rows_kernel(const W* __restrict__ table, int64_t d,
     }
 }
 
+constexpr unsigned FULL = 0xffffffffu;
+// Output elements a warp of gather_plan_runs copies (its window), and
+// the elements a lane issues before its stores.  A run's overlap with a
+// window of LONG_RUN elements or more is copied by the whole warp in
+// 16- or 8-byte words; a shorter one gives each lane elements.
+constexpr int RUN_WINDOW = 256;
+constexpr int RUN_EPT = 8;
+constexpr int LONG_RUN = 64;
+// Positions a thread of gather_union_slices reads before its stores
+// (measured against 1, 4 and 8: see the note at the top).
+constexpr int SLICE_EPT = 2;
+// Words of 16 or 8 bytes a lane of a long-run copy loads before storing.
+constexpr int SPAN_UNROLL = 4;
+
+// The number of values of sorted v[0, n) at most x, by the whole warp:
+// each step cuts [lo, hi) into at most 32 chunks, lane i tests the last
+// value of chunk i, and the count of true tests (a prefix: the values
+// are sorted) names the chunk that holds the count.  B3's warp_count
+// (plan_runs_2d.cu) over int64 values.
+__device__ __forceinline__ int64_t warp_count_le(const int64_t* __restrict__ v,
+                                                 int64_t n, int64_t x,
+                                                 int lane) {
+    int64_t lo = 0, hi = n;
+    while (hi - lo > 32) {
+        const int64_t c = (hi - lo + 31) / 32;
+        const int64_t e = lo + (lane + 1) * c - 1;
+        const bool t = e < hi && v[e] <= x;
+        lo += c * __popc(__ballot_sync(FULL, t));
+        hi = lo + c < hi ? lo + c : hi;
+    }
+    const int64_t i = lo + lane;
+    return lo + __popc(__ballot_sync(FULL, i < hi && v[i] <= x));
+}
+
+// dst[0, n) = src[0, n) by the 32 lanes of a warp, the aligned interior
+// as words of V: src and dst must be congruent mod sizeof(V).  The head
+// (elements until dst is V-aligned) and the tail move as elements.
+template <typename W, typename V>
+__device__ __forceinline__ void copy_words(const W* __restrict__ src,
+                                           W* __restrict__ dst, int64_t n,
+                                           int lane) {
+    constexpr int PER = sizeof(V) / sizeof(W);
+    const uintptr_t mis = reinterpret_cast<uintptr_t>(dst) % sizeof(V);
+    int64_t head = (int64_t)((sizeof(V) - mis) % sizeof(V) / sizeof(W));
+    head = head < n ? head : n;
+    for (int64_t j = lane; j < head; j += 32) dst[j] = src[j];
+    const int64_t nv = (n - head) / PER;
+    const V* vs = reinterpret_cast<const V*>(src + head);
+    V* vd = reinterpret_cast<V*>(dst + head);
+    for (int64_t j0 = 0; j0 < nv; j0 += 32 * SPAN_UNROLL) {
+        V w[SPAN_UNROLL];
+#pragma unroll
+        for (int u = 0; u < SPAN_UNROLL; ++u) {
+            const int64_t j = j0 + u * 32 + lane;
+            if (j < nv) w[u] = vs[j];
+        }
+#pragma unroll
+        for (int u = 0; u < SPAN_UNROLL; ++u) {
+            const int64_t j = j0 + u * 32 + lane;
+            if (j < nv) vd[j] = w[u];
+        }
+    }
+    for (int64_t j = head + nv * PER + lane; j < n; j += 32) dst[j] = src[j];
+}
+
+// One long overlap, copied by the whole warp in the widest words that
+// its source and destination addresses allow.
 template <typename W>
-__global__ void gather_runs_kernel(const W* __restrict__ flat, int64_t n,
-                                   const int32_t* __restrict__ starts,
-                                   int block, W* __restrict__ out) {
-    const int64_t c = blockIdx.x;
-    const int64_t start = starts[c];
-    W* row = out + c * block;
-    for (int k = threadIdx.x; k < block; k += blockDim.x) {
-        const int64_t src = start + k;
-        row[k] = src < n ? flat[src] : W(0);
+__device__ __forceinline__ void copy_span(const W* __restrict__ src,
+                                          W* __restrict__ dst, int64_t n,
+                                          int lane) {
+    const uintptr_t diff = reinterpret_cast<uintptr_t>(src) ^
+                           reinterpret_cast<uintptr_t>(dst);
+    if ((diff & 15) == 0) {
+        copy_words<W, uint4>(src, dst, n, lane);
+    } else if (sizeof(W) < 8 && (diff & 7) == 0) {
+        copy_words<W, uint2>(src, dst, n, lane);
+    } else {
+        copy_words<W, W>(src, dst, n, lane);
+    }
+}
+
+// out[offsets[r] + k] = flat[starts[r] + k] for k < lengths[r]; offsets
+// is the exclusive prefix of lengths, offsets[R] = n_points.  One warp a
+// window of RUN_WINDOW output elements.
+template <typename W>
+__global__ void __launch_bounds__(256)
+gather_plan_runs_kernel(const W* __restrict__ flat,
+                        const int32_t* __restrict__ starts,
+                        const int32_t* __restrict__ lengths,
+                        const int64_t* __restrict__ offsets, int64_t n_runs,
+                        int64_t n_points, W* __restrict__ out) {
+    const int lane = threadIdx.x & 31;
+    const int64_t w0 =
+        (((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5) * RUN_WINDOW;
+    if (w0 >= n_points) return;                       // the whole warp
+    const int64_t w1 = w0 + RUN_WINDOW < n_points ? w0 + RUN_WINDOW
+                                                  : n_points;
+    // The run holding w0: the last r with offsets[r] <= w0 (an empty run
+    // shares its offset with the next, which the count then names).
+    int64_t r = warp_count_le(offsets, n_runs + 1, w0, lane) - 1;
+    int64_t pos = w0;
+    while (pos < w1) {                                // the whole warp
+        // Lane j: run r + j's overlap [lo, hi) with [pos, w1).
+        const int64_t rr = r + lane;
+        const bool live = rr < n_runs;
+        const int64_t o = live ? offsets[rr] : n_points;
+        const int64_t len = live ? (int64_t)lengths[rr] : 0;
+        const int64_t src0 = live ? (int64_t)starts[rr] : 0;
+        const int64_t lo = o > pos ? o : pos;
+        const int64_t hi = o + len < w1 ? o + len : w1;
+        const int ov = hi > lo ? (int)(hi - lo) : 0;
+        const bool is_long = ov >= LONG_RUN;
+        // The short overlaps' elements, numbered by an inclusive scan.
+        const int mine = is_long ? 0 : ov;
+        int inc = mine;
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1) {
+            const int up = __shfl_up_sync(FULL, inc, d);
+            if (lane >= d) inc += up;
+        }
+        const int excl = inc - mine;
+        const int total = __shfl_sync(FULL, inc, 31);
+        // Element e of lane k's overlap reads src_at + e, writes dst_at + e.
+        const int64_t src_at = src0 + (lo - o) - excl;
+        const int64_t dst_at = lo - excl;
+        for (int base = 0; base < total; base += 32 * RUN_EPT) {
+            W v[RUN_EPT];
+            int64_t at[RUN_EPT];
+#pragma unroll
+            for (int i = 0; i < RUN_EPT; ++i) {
+                const int e = base + i * 32 + lane;
+                // The last lane k with excl_k <= e: the overlap holding e.
+                int k = 0;
+#pragma unroll
+                for (int step = 16; step; step >>= 1) {
+                    if (__shfl_sync(FULL, excl, k + step) <= e) k += step;
+                }
+                const int64_t s = __shfl_sync(FULL, src_at, k);
+                const int64_t d = __shfl_sync(FULL, dst_at, k);
+                at[i] = e < total ? d + e : -1;
+                if (e < total) v[i] = flat[s + e];
+            }
+#pragma unroll
+            for (int i = 0; i < RUN_EPT; ++i)
+                if (at[i] >= 0) out[at[i]] = v[i];
+        }
+        // The long overlaps, one at a time, by the whole warp.
+        unsigned longs = __ballot_sync(FULL, is_long);
+        while (longs) {
+            const int k = __ffs(longs) - 1;
+            longs &= longs - 1;
+            const int64_t s = __shfl_sync(FULL, src0 + (lo - o), k);
+            const int64_t d = __shfl_sync(FULL, lo, k);
+            const int n = __shfl_sync(FULL, ov, k);
+            copy_span(flat + s, out + d, n, lane);
+        }
+        // These 32 runs cover [pos, hi of lane 31): runs are contiguous
+        // in the output; a lane past the last run has reached w1.
+        pos = __shfl_sync(FULL, live ? hi : w1, 31);
+        r += 32;
+    }
+}
+
+// out[j] = flat[uni[pos[j]]]: each thread reads SLICE_EPT positions, then
+// their union entries, then their payload elements, then stores.
+template <typename W>
+__global__ void __launch_bounds__(256)
+gather_union_slices_kernel(const W* __restrict__ flat,
+                           const int32_t* __restrict__ uni,
+                           const int32_t* __restrict__ pos, int64_t p,
+                           W* __restrict__ out) {
+    const int64_t tile = (int64_t)blockDim.x * SLICE_EPT;
+    for (int64_t b = (int64_t)blockIdx.x * tile; b < p;
+         b += (int64_t)gridDim.x * tile) {
+        int32_t q[SLICE_EPT];
+        W v[SLICE_EPT];
+#pragma unroll
+        for (int i = 0; i < SLICE_EPT; ++i) {
+            const int64_t j = b + (int64_t)i * blockDim.x + threadIdx.x;
+            q[i] = j < p ? pos[j] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < SLICE_EPT; ++i) {
+            const int64_t j = b + (int64_t)i * blockDim.x + threadIdx.x;
+            q[i] = j < p ? uni[q[i]] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < SLICE_EPT; ++i) {
+            const int64_t j = b + (int64_t)i * blockDim.x + threadIdx.x;
+            if (j < p) v[i] = flat[(int64_t)q[i]];
+        }
+#pragma unroll
+        for (int i = 0; i < SLICE_EPT; ++i) {
+            const int64_t j = b + (int64_t)i * blockDim.x + threadIdx.x;
+            if (j < p) out[j] = v[i];
+        }
     }
 }
 
@@ -228,12 +445,32 @@ static void launch_rows(const void* table, int64_t d, const void* idx,
 }
 
 template <typename W>
-static void launch_runs(const void* flat, int64_t n, const void* starts,
-                        int64_t c, int block, void* out, cudaStream_t s) {
-    const int threads = block < 128 ? block : 128;
-    gather_runs_kernel<W><<<(unsigned)c, threads, 0, s>>>(
-        static_cast<const W*>(flat), n, static_cast<const int32_t*>(starts),
-        block, static_cast<W*>(out));
+static void launch_plan_runs(const void* flat, const void* starts,
+                             const void* lengths, const void* offsets,
+                             int64_t n_runs, int64_t n_points, void* out,
+                             cudaStream_t s) {
+    const int threads = 256;
+    const int64_t warps = (n_points + RUN_WINDOW - 1) / RUN_WINDOW;
+    const unsigned blocks = (unsigned)((warps + threads / 32 - 1) /
+                                       (threads / 32));
+    gather_plan_runs_kernel<W><<<blocks, threads, 0, s>>>(
+        static_cast<const W*>(flat), static_cast<const int32_t*>(starts),
+        static_cast<const int32_t*>(lengths),
+        static_cast<const int64_t*>(offsets), n_runs, n_points,
+        static_cast<W*>(out));
+}
+
+template <typename W>
+static void launch_slices(const void* flat, const void* uni,
+                          const void* pos, int64_t p, void* out,
+                          cudaStream_t s) {
+    const int threads = 256;
+    const int64_t want = (p + threads * SLICE_EPT - 1) / (threads * SLICE_EPT);
+    const int64_t cap = 132 * 16;  // grid-stride past 16 blocks per SM
+    const unsigned blocks = (unsigned)(want < cap ? want : cap);
+    gather_union_slices_kernel<W><<<blocks, threads, 0, s>>>(
+        static_cast<const W*>(flat), static_cast<const int32_t*>(uni),
+        static_cast<const int32_t*>(pos), p, static_cast<W*>(out));
 }
 
 template <typename T, int VEC>
@@ -301,18 +538,49 @@ extern "C" int polytope_gather_rows(int device, const void* table, int64_t d,
     return polytope_launch_status();
 }
 
-// out (c, block): out[i, k] = flat[starts[i] + k], zero where that is >= n.
-extern "C" int polytope_gather_runs(int device, const void* flat, int64_t n,
-                                    const void* starts, int64_t c, int block,
-                                    int elem_bytes, void* out, void* stream) {
+// out (n_points,): run r's lengths[r] elements from flat[starts[r]] at
+// out[offsets[r]]; offsets (n_runs + 1,) int64 is the exclusive prefix of
+// the lengths.
+extern "C" int polytope_gather_plan_runs(int device, const void* flat,
+                                         const void* starts,
+                                         const void* lengths,
+                                         const void* offsets, int64_t n_runs,
+                                         int64_t n_points, int elem_bytes,
+                                         void* out, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (elem_bytes) {
-        case 1: launch_runs<uint8_t>(flat, n, starts, c, block, out, s); break;
-        case 2: launch_runs<uint16_t>(flat, n, starts, c, block, out, s); break;
-        case 4: launch_runs<uint32_t>(flat, n, starts, c, block, out, s); break;
-        case 8: launch_runs<uint64_t>(flat, n, starts, c, block, out, s); break;
+        case 1: launch_plan_runs<uint8_t>(flat, starts, lengths, offsets,
+                                          n_runs, n_points, out, s);
+                break;
+        case 2: launch_plan_runs<uint16_t>(flat, starts, lengths, offsets,
+                                           n_runs, n_points, out, s);
+                break;
+        case 4: launch_plan_runs<uint32_t>(flat, starts, lengths, offsets,
+                                           n_runs, n_points, out, s);
+                break;
+        case 8: launch_plan_runs<uint64_t>(flat, starts, lengths, offsets,
+                                           n_runs, n_points, out, s);
+                break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return polytope_launch_status();
+}
+
+// out (p,): out[j] = flat[uni[pos[j]]].
+extern "C" int polytope_gather_union_slices(int device, const void* flat,
+                                            const void* uni, const void* pos,
+                                            int64_t p, int elem_bytes,
+                                            void* out, void* stream) {
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return (int)err;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    switch (elem_bytes) {
+        case 1: launch_slices<uint8_t>(flat, uni, pos, p, out, s); break;
+        case 2: launch_slices<uint16_t>(flat, uni, pos, p, out, s); break;
+        case 4: launch_slices<uint32_t>(flat, uni, pos, p, out, s); break;
+        case 8: launch_slices<uint64_t>(flat, uni, pos, p, out, s); break;
         default: return (int)cudaErrorInvalidValue;
     }
     return polytope_launch_status();

@@ -6,8 +6,10 @@
 # version the tests and chip_smoke.py hold the kernel against.  Sources
 # live in ../csrc and are built by _build at first use.
 #
-# gather — exact-byte extraction gathers: per-offset gather_rows (B1)
-#          and the run-length burst gather_runs (B2); the EmbeddingBag
+# gather — exact-byte extraction gathers: per-offset gather_rows (B1),
+#          gather_plan_runs (B2: a plan's runs copied straight into its
+#          points) and gather_union_slices (a serving window's union
+#          read with every plan's slice, one launch); the EmbeddingBag
 #          sum gather_rows_bag (B6) of the recsys models
 # plan   — device-resident planning: the Algorithm-1 trailing stage
 #          (slice → column ranges → run emission → compaction) (B3)

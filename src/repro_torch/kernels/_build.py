@@ -41,7 +41,9 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "gather": {
         "polytope_gather_rows": [_I, _P, _L, _P, _L, _I, _P, _P],
-        "polytope_gather_runs": [_I, _P, _L, _P, _L, _I, _I, _P, _P],
+        "polytope_gather_plan_runs": [_I, _P, _P, _P, _P, _L, _L, _I, _P,
+                                      _P],
+        "polytope_gather_union_slices": [_I, _P, _P, _P, _L, _I, _P, _P],
         "polytope_gather_rows_bag": [_I, _P, _L, _P, _L, _L, _I, _P, _P],
         "polytope_gather_rows_bag_tiled": [_I, _P, _L, _P, _L, _L, _I, _P,
                                            _P],
@@ -74,15 +76,17 @@ SIGNATURES = {
 }
 
 # Launches of each kernel since the last reset_launches(): a wrapper adds
-# one where it launches its kernel, and nowhere else.  B8 has two
-# kernels: "paged_decode_attention" counts the tensor-core one,
-# "paged_decode_attention_simt" the CUDA-core one.  So has B6:
-# "gather_rows_bag" counts its kernel for wide rows, "gather_rows_bag_tiled"
-# its kernel for narrow rows.  "segment_plan" counts
-# B7's segment plans built on the card (kernels/segment/ops.py), each the
-# CSR that the B7 launches of one forward then share.
-LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_runs": 0,
-                            "gather_rows_bag": 0,
+# one where it launches its kernel, and nowhere else.  The extraction
+# read counts B1 ("gather_rows"), B2 ("gather_plan_runs") and the
+# serving window's union read with its slices ("gather_union_slices")
+# apart.  B8 has two kernels: "paged_decode_attention" counts the
+# tensor-core one, "paged_decode_attention_simt" the CUDA-core one.  So
+# has B6: "gather_rows_bag" counts its kernel for wide rows,
+# "gather_rows_bag_tiled" its kernel for narrow rows.  "segment_plan"
+# counts B7's segment plans built on the card (kernels/segment/ops.py),
+# each the CSR that the B7 launches of one forward then share.
+LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_plan_runs": 0,
+                            "gather_union_slices": 0, "gather_rows_bag": 0,
                             "gather_rows_bag_tiled": 0, "plan_runs_2d": 0,
                             "slice_minor_extents": 0, "slice_batch": 0,
                             "segment_plan": 0, "segment_sum": 0,

@@ -6,9 +6,10 @@ the rest of the datacube — the bounding-box baseline would stream the
 whole enclosing block.
 
 * ``gather_rows`` (B1) — (N, D) table × (M,) int32 indices → (M, D).
-* ``gather_runs`` (B2) — one ``block``-wide contiguous copy per chunk
-  start → (C, block), with loads past the end of the payload masked to
-  zero (the payload is never padded).
+* ``gather_plan_runs`` (B2) — a plan's coalesced runs copied straight
+  into its N points, in one launch: no chunk lattice, no second gather.
+* ``gather_union_slices`` — a serving window's union read and every
+  plan's slice of it in one launch: ``out[j] = flat[union[positions[j]]]``.
 * ``gather_rows_bag`` (B6) — EmbeddingBag(sum): (N, D) float32/float64
   table × (B, L) int32 bags padded with -1 → (B, D); two kernels, one
   for narrow rows and one for wide, chosen by the row's width.
@@ -16,7 +17,8 @@ whole enclosing block.
 Each wrapper checks its tensors, allocates the output with
 ``torch.empty``, launches on PyTorch's current stream, raises if the
 launch is refused, and counts the launch in ``LAUNCHES``.  The indices
-arrive already validated and cast by ``ops`` (``checked_cast_i32``).
+arrive already validated and cast by ``ops`` (``checked_cast_i32``), and
+for B2 and the union slices already on the card from one packed upload.
 """
 
 from __future__ import annotations
@@ -51,33 +53,71 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def gather_runs(flat: torch.Tensor, chunk_starts: torch.Tensor,
-                block: int) -> torch.Tensor:
-    """Burst-gather ``block`` contiguous elements per chunk start.
+def gather_plan_runs(flat: torch.Tensor, run_starts: torch.Tensor,
+                     run_lengths: torch.Tensor, out_offsets: torch.Tensor,
+                     n_points: int) -> torch.Tensor:
+    """Copy each run ``flat[run_starts[r] : run_starts[r] + run_lengths[r]]``
+    to ``out[out_offsets[r]:]``, in one launch.
 
-    flat         — (n,) CUDA payload, unpadded: elements at or past n
-                   read as zero
-    chunk_starts — (C,) int32 CUDA element offsets, each in [0, n)
-    Returns (C, block); callers compact the valid prefix of each chunk.
+    flat        — (n,) CUDA payload of any dtype of width 1, 2, 4 or 8
+    run_starts  — (R,) int32 CUDA, each run inside [0, n)
+    run_lengths — (R,) int32 CUDA, each >= 0
+    out_offsets — (R + 1,) int64 CUDA, the exclusive prefix of the
+                  lengths; ``n_points`` is its last entry (given, so the
+                  output is allocated without a read from the card)
+    Returns (n_points,).
     """
-    dev = _build.cuda_device(flat, "gather_runs payload")
-    _build.expect(flat, "gather_runs payload", device=dev,
+    dev = _build.cuda_device(flat, "gather_plan_runs payload")
+    _build.expect(flat, "gather_plan_runs payload", device=dev,
                   dtype=flat.dtype, shape=(None,))
-    _build.expect(chunk_starts, "gather_runs chunk starts", device=dev,
+    _build.expect(run_starts, "gather_plan_runs run starts", device=dev,
                   dtype=torch.int32, shape=(None,))
-    if block < 1:
-        raise ValueError(f"gather_runs: block must be >= 1, got {block}")
-    c = chunk_starts.shape[0]
-    out = torch.empty((c, block), dtype=flat.dtype, device=dev)
-    if c == 0:
+    n_runs = run_starts.shape[0]
+    _build.expect(run_lengths, "gather_plan_runs run lengths", device=dev,
+                  dtype=torch.int32, shape=(n_runs,))
+    _build.expect(out_offsets, "gather_plan_runs output offsets",
+                  device=dev, dtype=torch.int64, shape=(n_runs + 1,))
+    out = torch.empty((n_points,), dtype=flat.dtype, device=dev)
+    if n_points == 0:
         return out
     lib = _build.library("gather")
-    status = lib.polytope_gather_runs(
-        dev.index or 0, flat.data_ptr(), flat.shape[0],
-        chunk_starts.data_ptr(), c, block, flat.element_size(),
-        out.data_ptr(), _build.stream_of(dev))
-    _build.check(lib, status, "gather_runs")
-    LAUNCHES["gather_runs"] += 1
+    status = lib.polytope_gather_plan_runs(
+        dev.index or 0, flat.data_ptr(), run_starts.data_ptr(),
+        run_lengths.data_ptr(), out_offsets.data_ptr(), n_runs, n_points,
+        flat.element_size(), out.data_ptr(), _build.stream_of(dev))
+    _build.check(lib, status, "gather_plan_runs")
+    LAUNCHES["gather_plan_runs"] += 1
+    return out
+
+
+def gather_union_slices(flat: torch.Tensor, union: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """``flat[union[positions]]`` in one launch, the union never
+    materialised.
+
+    flat      — (n,) CUDA payload of any dtype of width 1, 2, 4 or 8
+    union     — (U,) int32 CUDA offsets into flat, each in [0, n)
+    positions — (P,) int32 CUDA positions in union, each in [0, U)
+    Returns (P,).
+    """
+    dev = _build.cuda_device(flat, "gather_union_slices payload")
+    _build.expect(flat, "gather_union_slices payload", device=dev,
+                  dtype=flat.dtype, shape=(None,))
+    _build.expect(union, "gather_union_slices union", device=dev,
+                  dtype=torch.int32, shape=(None,))
+    _build.expect(positions, "gather_union_slices positions", device=dev,
+                  dtype=torch.int32, shape=(None,))
+    p = positions.shape[0]
+    out = torch.empty((p,), dtype=flat.dtype, device=dev)
+    if p == 0:
+        return out
+    lib = _build.library("gather")
+    status = lib.polytope_gather_union_slices(
+        dev.index or 0, flat.data_ptr(), union.data_ptr(),
+        positions.data_ptr(), p, flat.element_size(), out.data_ptr(),
+        _build.stream_of(dev))
+    _build.check(lib, status, "gather_union_slices")
+    LAUNCHES["gather_union_slices"] += 1
     return out
 
 

@@ -6,6 +6,10 @@ kernel (``kernel``), a CPU tensor takes the plain PyTorch version
 raises.  ``use_pallas``/``interpret`` of ``gather_rows`` and
 ``gather_plan_runs`` keep the JAX package's signatures for parity and
 are ignored — on the port the device decides.
+
+The host arrays a launch reads (a plan's runs; a window's union and
+positions) are validated and cast on the host, then reach the card
+through one pinned buffer and one non-blocking copy (``_upload``).
 """
 
 from __future__ import annotations
@@ -17,10 +21,13 @@ from .._build import LAUNCHES  # noqa: F401  (ops.LAUNCHES[name])
 from .._casting import checked_cast_i32
 from . import kernel, ref
 
-# Burst chunk width in elements: one copy per chunk; runs longer than
-# this split into several wide copies, shorter ones over-read (masked)
-# and compact afterwards.
+# The JAX package's burst chunk width in elements (its DMA block):
+# ``chunk_runs``'s default, and accepted and ignored by
+# ``gather_plan_runs``, which copies runs whole.
 BURST_BLOCK = 128
+
+_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64}
 
 
 def _route(t: torch.Tensor):
@@ -42,6 +49,25 @@ def _index_tensor(indices, device: torch.device, *, what: str,
     if isinstance(idx, np.ndarray):
         idx = torch.from_numpy(idx)
     return idx.to(device)
+
+
+def _upload(device: torch.device, *arrays: np.ndarray) -> list:
+    """The int32/int64 host ``arrays`` as tensors on ``device``, packed
+    into one buffer (each at an 8-byte aligned offset) that moves in one
+    copy: pinned and non-blocking to the card.  The caching host
+    allocator keeps a pinned block from reuse until the copy that read
+    it has run, so the buffer is never rewritten in flight."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    at = np.concatenate([[0], np.cumsum([-(-a.nbytes // 8) * 8
+                                         for a in arrays])])
+    host = torch.empty(int(at[-1]), dtype=torch.uint8,
+                       pin_memory=device.type == "cuda")
+    staging = host.numpy()
+    for a, lo in zip(arrays, at):
+        staging[lo:lo + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(device, non_blocking=True)
+    return [buf[lo:lo + a.nbytes].view(_TORCH_DTYPES[a.dtype])
+            for a, lo in zip(arrays, at)]
 
 
 def gather_rows(table: torch.Tensor, indices, use_pallas: bool = False,
@@ -90,23 +116,72 @@ def chunk_runs(run_starts: np.ndarray, run_lengths: np.ndarray,
     return chunk_starts, gather_idx
 
 
+def plan_run_inputs(flat: torch.Tensor, run_starts, run_lengths) -> tuple:
+    """What ``gather_plan_runs`` hands its kernel for a plan's runs: the
+    starts (int32, checked against the payload as the JAX package checks
+    its chunk starts; an empty run's start is not read and is passed as
+    0), the lengths (int32) and their exclusive prefix (int64, on the
+    host over the runs: O(runs), not O(points)), all on the payload's
+    device from one upload, and the number of points.  A run that ends
+    past the payload raises."""
+    n = flat.shape[0]
+    lengths = np.asarray(run_lengths, dtype=np.int64).reshape(-1)
+    starts = np.asarray(run_starts).reshape(-1)
+    if starts.shape != lengths.shape:
+        raise ValueError(f"{starts.size} run starts for {lengths.size} "
+                         f"run lengths")
+    if lengths.size and lengths.min() < 0:
+        raise ValueError(f"negative run length {lengths.min()}")
+    starts = checked_cast_i32(np.where(lengths > 0, starts, 0),
+                              what="burst gather run starts", n_elements=n)
+    ends = starts + lengths
+    if ends.size and ends.max() > n:
+        raise IndexError(f"burst gather: a run ends at {ends.max()}, past "
+                         f"the payload's {n} elements")
+    offsets = np.zeros(lengths.size + 1, np.int64)
+    np.cumsum(lengths, out=offsets[1:])
+    return (*_upload(flat.device, starts, lengths.astype(np.int32),
+                     offsets), int(offsets[-1]))
+
+
 def gather_plan_runs(flat: torch.Tensor, run_starts: np.ndarray,
                      run_lengths: np.ndarray, block: int = BURST_BLOCK,
                      use_pallas: bool = False,
                      interpret: bool = True) -> torch.Tensor:
-    """Run-length-aware burst gather of an extraction plan.
+    """Run-length-aware gather of an extraction plan: each coalesced run
+    of the flat (n,) payload copied straight into the plan's points, one
+    launch of kernel B2 on the card.  Byte-equal to
+    ``flat[plan.offsets]``.
 
-    Reads every planned element of the flat (n,) payload as wide
-    contiguous copies — one ≤``block``-element chunk of each coalesced
-    run per copy (kernel B2 on the card) — then compacts the chunk
-    lattice back to the plan's point order with a ``gather_rows`` (B1 on
-    the card).  Byte-equal to ``flat[plan.offsets]``.
+    ``block`` is the JAX package's DMA chunk width, accepted and ignored:
+    no chunk lattice is built, so unlike the JAX function this one does
+    not raise when that lattice would pass 2³¹ elements, only where a run
+    start or the payload does.
     """
-    chunk_starts, gather_idx = chunk_runs(run_starts, run_lengths, block)
-    if chunk_starts.size == 0:
-        return flat.new_zeros((0,))
-    cs = _index_tensor(chunk_starts, flat.device,
-                       what="burst gather chunk starts",
-                       n_elements=flat.shape[0])
-    out = _route(flat).gather_runs(flat, cs, block)
-    return gather_rows(out.reshape(-1, 1), gather_idx)[:, 0]
+    route = _route(flat)
+    return route.gather_plan_runs(flat, *plan_run_inputs(flat, run_starts,
+                                                         run_lengths))
+
+
+def union_slice_inputs(flat: torch.Tensor, union, positions) -> tuple:
+    """What ``gather_union_slices`` hands its kernel: the union's offsets
+    (int32, checked against the payload) and the positions (int32,
+    checked against the union), on the payload's device from one
+    upload."""
+    union = checked_cast_i32(np.asarray(union), what="union read offsets",
+                             n_elements=flat.shape[0])
+    positions = checked_cast_i32(np.asarray(positions),
+                                 what="union slice positions",
+                                 n_elements=union.size)
+    return tuple(_upload(flat.device, union, positions))
+
+
+def gather_union_slices(flat: torch.Tensor, union,
+                        positions) -> torch.Tensor:
+    """``flat[union][positions]`` for a serving window: the sorted union of
+    its plans' offsets and, concatenated, each plan's positions in it
+    (host arrays).  One launch on the card, the union never
+    materialised."""
+    route = _route(flat)
+    return route.gather_union_slices(flat, *union_slice_inputs(
+        flat, union, positions))

@@ -53,3 +53,24 @@ def gather_runs(flat: torch.Tensor, chunk_starts: torch.Tensor,
     vals = flat[window.clamp(max=n - 1)]
     return torch.where(inside, vals, torch.zeros((), dtype=flat.dtype,
                                                  device=flat.device))
+
+
+def gather_plan_runs(flat: torch.Tensor, run_starts: torch.Tensor,
+                     run_lengths: torch.Tensor, out_offsets: torch.Tensor,
+                     n_points: int) -> torch.Tensor:
+    """Each run's elements at its output offset: the runs expanded to
+    their points (``repeat_interleave`` of the starts plus a ramp that
+    restarts at each run's output offset), then one index."""
+    lengths = run_lengths.long()
+    first = torch.repeat_interleave(run_starts.long(), lengths,
+                                    output_size=n_points)
+    at = torch.repeat_interleave(out_offsets[:-1], lengths,
+                                 output_size=n_points)
+    ramp = torch.arange(n_points, device=flat.device) - at
+    return flat[first + ramp]
+
+
+def gather_union_slices(flat: torch.Tensor, union: torch.Tensor,
+                        positions: torch.Tensor) -> torch.Tensor:
+    """The union read, then the slices of it: ``flat[union][positions]``."""
+    return flat[union.long()][positions.long()]

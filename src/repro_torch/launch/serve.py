@@ -97,7 +97,8 @@ def run_extract(args) -> ExtractRun:
 
     The octahedral cube is one ``DevicePlanner`` does not take, so plans
     come from the host planner (the reference semantics); every window's
-    union read is the ``gather_rows`` kernel on the card."""
+    union read, with each plan's slice of it, is one
+    ``gather_union_slices`` launch on the card."""
     from repro_torch.carry import payload_to_tensor
     from repro_torch.dataplane.weather import WeatherCube, request_population
     from repro_torch.serve.sharded import (AdmissionQueue,

@@ -295,8 +295,9 @@ class ExtractionService:
     thread.
 
     ``device=None`` means the card (raises when there is none): a tensor
-    payload must lie there, and the union read runs the ``gather_rows``
-    kernel.  ``device="cpu"`` serves CPU tensors with the plain version.
+    payload must lie there, and a batch's union read with every request's
+    slice of it is one ``gather_union_slices`` launch.  ``device="cpu"``
+    serves CPU tensors with the plain version.
     """
 
     def __init__(self, datacube: Datacube, capacity: int = 1024,
@@ -480,7 +481,10 @@ def shared_union_gather(datacube: Datacube,
     ``(bytes_requested, bytes_read, gather_time_s)`` so the caller can
     fold the accounting into its own stats under its own lock.  Shared
     between :class:`ExtractionService` and the sharded service — both
-    funnel a window's distinct plans through exactly one gather.
+    funnel a window's distinct plans through exactly one gather: on a
+    tensor payload one ``gather_union_slices`` (the union's offsets and
+    every plan's positions in it, one upload and one launch on the
+    card), on a numpy payload the union read and then each slice.
     """
     def empty():
         if isinstance(flat_data, torch.Tensor):
@@ -503,11 +507,21 @@ def shared_union_gather(datacube: Datacube,
         from repro_torch.analysis.plan_check import verify_plan
 
         verify_plan(union_plan, datacube=datacube)
-    buf = gather(flat_data, union_plan, use_kernel=use_kernel)
-    per_key: dict[str, Any] = {}
-    for key, plan in nonempty.items():
-        idx = np.searchsorted(union, plan.offsets)
-        per_key[key] = gather_offsets(buf, idx)
+    positions = [np.searchsorted(union, p.offsets) for p in nonempty.values()]
+    if isinstance(flat_data, torch.Tensor):
+        # The union read and every plan's slice of it in one launch
+        # (gather_union_slices on the card); each plan's values are a
+        # view of the one output.
+        from repro_torch.kernels.gather import ops as gops
+
+        out = gops.gather_union_slices(flat_data, union,
+                                       np.concatenate(positions))
+        per_key = dict(zip(nonempty, torch.split(
+            out, [p.n_points for p in nonempty.values()])))
+    else:
+        buf = gather(flat_data, union_plan, use_kernel=use_kernel)
+        per_key = {key: gather_offsets(buf, idx)
+                   for key, idx in zip(nonempty, positions)}
     requested = 0
     for res in results:
         if res.plan.n_points:

@@ -27,10 +27,10 @@ Three layers build on that:
   *across callers*, not just within a single caller's batch.
 
 The logic is the JAX package's ``serve/sharded.py`` unchanged.  On the
-card the shared union read of every window is the ``gather_rows``
-kernel (B1) over a CUDA payload: ``device=None`` means the card (raises
-when there is none), and ``device="cpu"`` serves CPU tensors with the
-plain version.  The barrier-started thread swarms of
+card the shared union read of every window and each plan's slice of it
+are one ``gather_union_slices`` launch over a CUDA payload:
+``device=None`` means the card (raises when there is none), and
+``device="cpu"`` serves CPU tensors with the plain version.  The barrier-started thread swarms of
 ``tests/test_torch_sharded.py`` hold it to the JAX package's results.
 """
 

@@ -90,7 +90,7 @@ class CapturingPlanner(DevicePlanner):
         return super()._invoke(verts, valid, bases, scalars, g, max_rows)
 
 
-# -- B1 and B2 ----------------------------------------------------------------
+# -- B1, B2 and the union slices ----------------------------------------------
 
 @pytest.mark.parametrize("dtype", (torch.float64, torch.float32,
                                    torch.int16, torch.uint8))
@@ -105,16 +105,64 @@ def test_gather_rows(cuda_device, dtype, d):
                         gref.gather_rows(table, idx))
 
 
-@pytest.mark.parametrize("block", (4, 128))
-def test_gather_runs_past_the_end(cuda_device, block):
-    gen = torch.Generator().manual_seed(1)
-    flat = torch.randn(1000, generator=gen,
-                       dtype=torch.float64).to(cuda_device)
-    starts = torch.tensor([0, 500, 990, 998, 999], dtype=torch.int32,
-                          device=cuda_device)
-    got = gk.gather_runs(flat, starts, block)
-    assert _bytes_equal(got, gref.gather_runs(flat, starts, block))
-    assert not bool(got[-1, 1:].any())      # zero fill, no padded payload
+def _edge_runs(n, seed):
+    """Runs that are empty, of length 1, ending at the payload's last
+    element, longer than 128, adjacent, at odd offsets (so that source
+    and output are not congruent mod 16), and short ones anywhere."""
+    rng = np.random.default_rng(seed)
+    starts = [0, 10, n - 300, 100, 1201, 1718, 3, n - 1]
+    lengths = [0, 1, 300, 1000, 517, 40, 0, 1]
+    for _ in range(200):
+        ln = int(rng.integers(1, 60))
+        starts.append(int(rng.integers(0, n - ln)))
+        lengths.append(ln)
+    return np.asarray(starts), np.asarray(lengths)
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32,
+                                   torch.int16, torch.uint8))
+@pytest.mark.parametrize("shift", (0, 1, 3))
+def test_gather_plan_runs(cuda_device, dtype, shift):
+    """B2 on a payload view shifted by ``shift`` elements: one launch a
+    call, byte-equal to its plain version and to the runs read on the
+    host."""
+    gen = torch.Generator().manual_seed(5)
+    full = (torch.randn(5003, generator=gen) * 100).to(dtype)
+    flat_cpu = full[shift:shift + 5000]
+    flat = full.to(cuda_device)[shift:shift + 5000]
+    starts, lengths = _edge_runs(5000, seed=shift)
+    args = gops.plan_run_inputs(flat, starts, lengths)
+    before = LAUNCHES["gather_plan_runs"]
+    got = gk.gather_plan_runs(flat, *args)
+    assert LAUNCHES["gather_plan_runs"] == before + 1
+    assert _bytes_equal(got, gref.gather_plan_runs(flat, *args))
+    want = torch.cat([flat_cpu[s:s + ln] for s, ln in zip(starts, lengths)])
+    assert _bytes_equal(got.cpu(), want)
+    assert _bytes_equal(gops.gather_plan_runs(flat, starts, lengths).cpu(),
+                        want)
+    assert LAUNCHES["gather_plan_runs"] == before + 2
+
+
+def test_gather_union_slices(cuda_device, iwc):
+    """A window of overlapping plans (Germany twice, over all levels, and
+    the UK): one launch, byte-equal to its plain version and to each
+    plan's offsets read on the host."""
+    data = iwc.field_data(seed=6)
+    flat = torch.from_numpy(data).to(cuda_device)
+    slicer = Slicer(iwc.cube)
+    reqs = _requests(iwc)
+    plans = [slicer.extract_plan(reqs[k])[0]
+             for k in ("germany", "all_levels", "uk", "germany")]
+    union = np.unique(np.concatenate([p.offsets for p in plans]))
+    positions = np.concatenate([np.searchsorted(union, p.offsets)
+                                for p in plans])
+    args = gops.union_slice_inputs(flat, union, positions)
+    before = LAUNCHES["gather_union_slices"]
+    got = gk.gather_union_slices(flat, *args)
+    assert LAUNCHES["gather_union_slices"] == before + 1
+    assert _bytes_equal(got, gref.gather_union_slices(flat, *args))
+    want = np.concatenate([data[p.offsets] for p in plans])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -125,9 +173,33 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         gk.gather_rows(table.t(), torch.zeros(3, dtype=torch.int32,
                                               device=cuda_device))
+    flat = torch.zeros(8, device=cuda_device)
+    i32 = dict(dtype=torch.int32, device=cuda_device)
+    lengths = torch.ones(2, **i32)
+    offsets = torch.arange(3, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError):
+        gk.gather_plan_runs(flat, torch.zeros(2, dtype=torch.int64,
+                                              device=cuda_device),
+                            lengths, offsets, 2)
+    with pytest.raises(TypeError):
+        gk.gather_plan_runs(flat, torch.zeros(2, **i32), lengths,
+                            offsets.int(), 2)
     with pytest.raises(ValueError):
-        gk.gather_runs(torch.zeros(8, device=cuda_device),
-                       torch.zeros(2, dtype=torch.int32), 4)   # CPU starts
+        gk.gather_plan_runs(flat, torch.zeros(2, dtype=torch.int32),
+                            lengths, offsets, 2)          # CPU starts
+    with pytest.raises(ValueError):
+        gk.gather_plan_runs(flat.cpu(), torch.zeros(2, **i32), lengths,
+                            offsets, 2)                   # CPU payload
+    with pytest.raises(TypeError):
+        gk.gather_union_slices(flat, torch.zeros(2, dtype=torch.int64,
+                                                 device=cuda_device),
+                               torch.zeros(2, **i32))
+    with pytest.raises(ValueError):
+        gk.gather_union_slices(flat, torch.zeros(2, **i32),
+                               torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        gk.gather_union_slices(flat.cpu(), torch.zeros(2, **i32),
+                               torch.zeros(2, **i32))
 
 
 # -- B3 (with B4 inside) --------------------------------------------------------
@@ -178,7 +250,9 @@ def test_extractor_end_to_end(cuda_device, iwc):
         before = dict(LAUNCHES)
         res = pe.extract(req, flat)
         assert LAUNCHES["plan_runs_2d"] == before["plan_runs_2d"] + 1, name
-        assert LAUNCHES["gather_runs"] == before["gather_runs"] + 1, name
+        assert LAUNCHES["gather_plan_runs"] == \
+            before["gather_plan_runs"] + 1, name
+        assert LAUNCHES["gather_rows"] == before["gather_rows"], name
         np.testing.assert_array_equal(res.plan.offsets,
                                       host.extract_plan(req)[0].offsets)
         assert res.values.is_cuda
@@ -191,9 +265,11 @@ def test_service_union_read(cuda_device, iwc):
     flat = torch.from_numpy(data).to(cuda_device)
     svc = ExtractionService(iwc.cube)
     reqs = list(_requests(iwc).values())
-    before = LAUNCHES["gather_rows"]
+    before = dict(LAUNCHES)
     results = svc.submit_batch(reqs + reqs[:2], flat)
-    assert LAUNCHES["gather_rows"] > before
+    assert LAUNCHES["gather_union_slices"] == \
+        before["gather_union_slices"] + 1
+    assert LAUNCHES["gather_rows"] == before["gather_rows"]
     for res in results:
         assert res.values.is_cuda
         np.testing.assert_array_equal(res.values.cpu().numpy(),
@@ -311,14 +387,17 @@ def test_sharded_service_on_the_card(cuda_device, iwc):
     flat = torch.from_numpy(data).to(cuda_device)
     svc = ShardedExtractionService(iwc.cube, shards=3)
     reqs = list(_requests(iwc).values())
-    before = LAUNCHES["gather_rows"]
+    before = dict(LAUNCHES)
     with AdmissionQueue(svc, flat_data=flat, window_s=60.0,
                         max_batch=len(reqs) + 2) as queue:
         futs = [queue.submit(r) for r in reqs + reqs[:2]]
         results = [f.result(timeout=120) for f in futs]
         adm = queue.snapshot()
-    assert LAUNCHES["gather_rows"] > before
     assert adm.windows == 1 and adm.coalesced == 2
+    # The window's union read and all its slices: one launch, no B1.
+    assert LAUNCHES["gather_union_slices"] == \
+        before["gather_union_slices"] + 1
+    assert LAUNCHES["gather_rows"] == before["gather_rows"]
     for res in results:
         assert res.values.is_cuda
         np.testing.assert_array_equal(res.values.cpu().numpy(),
@@ -330,11 +409,12 @@ def test_launcher_on_the_card(cuda_device, tmp_path):
     from repro_torch.launch import serve
 
     out = tmp_path / "bench.json"
-    before = LAUNCHES["gather_rows"]
+    before = dict(LAUNCHES)
     run = serve.run_extract(serve.parse_args([
         "--mode", "extract", "--grid-n", "32", "--requests", "64",
         "--threads", "4", "--bench-out", str(out)]))
-    assert LAUNCHES["gather_rows"] > before
+    assert LAUNCHES["gather_union_slices"] > before["gather_union_slices"]
+    assert LAUNCHES["gather_rows"] == before["gather_rows"]
     assert run.payload.is_cuda and out.exists()
     fresh = PolytopeExtractor(run.weather.cube)
     for rank, res in run.served:

@@ -385,8 +385,14 @@ class TestDispatch:
         with pytest.raises(ValueError, match="CUDA"):
             gk.gather_rows(torch.zeros(4, 1), torch.zeros(2, dtype=torch.int32))
         with pytest.raises(ValueError, match="CUDA"):
-            gk.gather_runs(torch.zeros(4), torch.zeros(2, dtype=torch.int32),
-                           4)
+            gk.gather_plan_runs(torch.zeros(4),
+                                torch.zeros(2, dtype=torch.int32),
+                                torch.ones(2, dtype=torch.int32),
+                                torch.arange(3, dtype=torch.int64), 2)
+        with pytest.raises(ValueError, match="CUDA"):
+            gk.gather_union_slices(torch.zeros(4),
+                                   torch.zeros(2, dtype=torch.int32),
+                                   torch.zeros(2, dtype=torch.int32))
         with pytest.raises(ValueError, match="CUDA"):
             pk.plan_runs_2d(*[torch.zeros(1)] * 7, n0=1, n1=1, max_rows=8,
                             cyclic=False)
