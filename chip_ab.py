@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""B3, B6 and the extraction read of one source tree of the port, timed
-on one card, for a comparison of two trees within one call.
+"""B3, B5, B6, the batched crop planner and the extraction read of one
+source tree of the port, timed on one card, for a comparison of two
+trees within one call.
 
     python3 chip_ab.py [--src DIR]
 
@@ -32,7 +33,17 @@ are ``chip_smoke.py``'s, for both trees:
   window (its union, the slices, the uploads and every launch), each
   checked against the payload read on the host: the median host-clock
   time of 30 calls, each ending in a synchronize, and the device time
-  of one call by kernel and copy (``chip_smoke.kernel_breakdown``).
+  of one call by kernel and copy (``chip_smoke.kernel_breakdown``);
+* ``batched``: ``core.batched.batched_plan_2d`` and
+  ``batched_extract_2d`` at phase 6's inputs (``chip_smoke.batched_crops``:
+  256 crops on one F320 field, the vertices and the field on the card,
+  the axes as numpy arrays), each checked byte for byte against the same
+  call with ``device="cpu"``: the median host-clock time of 30 calls,
+  each ending in a synchronize, and the device time of one call by
+  kernel and copy;
+* ``bfs``: B5 (``slice_batch``) at phase 5's layer
+  (``chip_smoke.bfs_layer``, packed on the card), checked against its
+  plain version, timed the same way.
 
 Prints the card (``nvidia-smi``) and then one JSON line.  Compare trees
 only within one call, in turns: parent, change, change, parent.
@@ -109,7 +120,69 @@ def b6(dev) -> list:
     return out
 
 
-def read(dev) -> dict:
+def host_and_device(fn) -> dict:
+    """The median host-clock time of 30 calls of ``fn`` (after one
+    warm-up), each ending in a synchronize, and the device time of one
+    call by kernel and copy."""
+    import torch
+
+    wall = []
+    for _ in range(31):                    # the first call is a warm-up
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    return {"host_ms_median": statistics.median(wall[1:]) * 1e3,
+            **chip_smoke.kernel_breakdown(fn)}
+
+
+def batched(dev, iwc, requests, flat_np) -> dict:
+    import torch
+
+    from repro_torch.core import batched as core_batched
+    from repro_torch.kernels.slice import ops as sops
+
+    bc = chip_smoke.batched_crops(iwc, requests, flat_np, SEED)
+    verts, valid = sops.pack_polytopes(bc["crops"], device=dev)
+    field = torch.from_numpy(bc["field"]).to(dev)
+    grid = (bc["n0"], bc["n1"])
+    size = (bc["max_rows"], bc["max_cols"])
+    calls = {
+        "batched_plan_2d": lambda d, f, v, m: core_batched.batched_plan_2d(
+            v, m, bc["axis0"], bc["axis1"], *grid, *size, device=d),
+        "batched_extract_2d": lambda d, f, v, m:
+            core_batched.batched_extract_2d(f, v, m, bc["axis0"],
+                                            bc["axis1"], *size, device=d),
+    }
+    out = {"shape": {"P": len(bc["crops"]), "R": size[0], "C": size[1],
+                     "n0": grid[0], "n1": grid[1]}}
+    for name, call in calls.items():
+        plain = call("cpu", field.cpu(), verts.cpu(), valid.cpu())
+        for a, b in zip(call(dev, field, verts, valid), plain):
+            assert chip_smoke.bytes_equal(a.cpu(), b), name
+        out[name] = host_and_device(lambda: call(dev, field, verts, valid))
+    return out
+
+
+def bfs(dev, iwc, requests) -> dict:
+    import torch
+
+    from repro_torch.kernels.slice import ops as sops
+    from repro_torch.kernels.slice import ref as sref
+
+    layer, _, planes = chip_smoke.bfs_layer(iwc, requests)
+    verts, valid = sops.pack_polytopes([p for p, _ in layer], device=dev)
+    planes = torch.from_numpy(planes).to(dev)
+    for a, b in zip(sops.slice_batch(verts, valid, planes, 0),
+                    sref.slice_batch(verts, valid, planes, 0)):
+        assert chip_smoke.bytes_equal(a, b), "slice_batch"
+    return {"shape": {"P": int(verts.shape[0]), "V": int(verts.shape[1]),
+                      "D": int(verts.shape[2])},
+            "slice_batch": host_and_device(
+                lambda: sops.slice_batch(verts, valid, planes, 0))}
+
+
+def read(dev, iwc, requests, flat_np) -> dict:
     import numpy as np
     import torch
 
@@ -118,8 +191,6 @@ def read(dev) -> dict:
     from repro_torch.kernels.gather import ops as gops
     from repro_torch.serve import ExtractionService, shared_union_gather
 
-    iwc, requests = chip_smoke.weather_setup()
-    flat_np = iwc.field_data(seed=SEED)
     flat = payload_to_tensor(flat_np, dev)
     plan = Slicer(iwc.cube).extract_plan(requests["germany_all_levels"])[0]
     window = chip_smoke.serve_windows(iwc, requests, SEED)[-1]
@@ -139,16 +210,8 @@ def read(dev) -> dict:
     for r in results:
         assert chip_smoke.bytes_equal(r.values.cpu(), torch.from_numpy(
             flat_np[r.plan.offsets])), "window read"
-    out = {}
-    for name, fn in (("gather_plan_runs", burst), ("union_read", serve)):
-        wall = []
-        for _ in range(31):                # the first call is a warm-up
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall.append(time.perf_counter() - t0)
-        out[name] = {"host_ms_median": statistics.median(wall[1:]) * 1e3,
-                     **chip_smoke.kernel_breakdown(fn)}
+    out = {name: host_and_device(fn) for name, fn in
+           (("gather_plan_runs", burst), ("union_read", serve))}
     union = np.unique(np.concatenate([p.offsets for p in
                                       batch_plans.values()]))
     out["shape"] = {"N": int(plan.n_points), "R": int(len(plan.run_starts)),
@@ -183,9 +246,14 @@ def main(argv=None) -> int:
     build_s = time.perf_counter() - t0
     card = chip_smoke.card_line()
     print(card, flush=True)
+    iwc, requests = chip_smoke.weather_setup()
+    flat_np = iwc.field_data(seed=SEED)
     chip_smoke.emit({"src": str(args.src), "card": card,
-                     "build_s": build_s, "read": read(dev), "b3": b3(dev),
-                     "b6": b6(dev)})
+                     "build_s": build_s,
+                     "batched": batched(dev, iwc, requests, flat_np),
+                     "bfs": bfs(dev, iwc, requests),
+                     "read": read(dev, iwc, requests, flat_np),
+                     "b3": b3(dev), "b6": b6(dev)})
     return 0
 
 

@@ -10,7 +10,8 @@ and then, printing one JSON line per phase:
 
 1. build     — compiles the kernels; prints the build time, the card, and
                the registers and spills (``-Xptxas -v``) of B8's
-               tensor-core kernel, B3 and B6's kernels;
+               tensor-core kernel, B3, B6's kernels, the batched crop
+               planner and B5;
 2. extract   — the main path at ECMWF's regular Gaussian F320 grid
                (640 × 1280) × ERA5's 37 pressure levels × 8 datetimes,
                float64 (1.94 GB on the card):
@@ -23,7 +24,9 @@ and then, printing one JSON line per phase:
 3. serve     — ``ExtractionService(cube).submit_batch`` over 64
                Zipf-drawn requests in 4 windows with the payload on the
                card: one gather_union_slices launch per window with a
-               non-empty plan, gather_rows never;
+               non-empty plan, gather_rows never; then a plain extract
+               (``burst_gather=False``) of Germany over all levels,
+               whose read is one gather_rows (B1) launch;
 4. kernels   — holds each kernel byte for byte against its plain
                PyTorch version on the card, on the inputs the main path
                gave it: gather_plan_runs on every plan of phase 2 (and
@@ -42,12 +45,17 @@ and then, printing one JSON line per phase:
                ``convex_hull_prune`` on every pair;
 6. batched   — ``batched_plan_2d``, ``batched_plan_runs_2d`` and
                ``batched_extract_2d`` on one F320 field (float32), 256
-               country-triangle crops at seeded random shifts; lattice,
-               runs and values byte-equal to the plain versions (the
-               same calls with ``device="cpu"``), values equal to
-               ``field[offsets]``, and slice_minor_extents, plan_runs_2d
-               (float32) and gather_rows byte-equal on the inputs the
-               path gave them;
+               country-triangle crops at seeded random shifts
+               (``batched_crops``), the axes handed over as numpy
+               arrays; the lattice and the extract must each be one
+               launch of the batched crop planner (``batched_plan_2d``,
+               B4's cut inside it) and nothing else, the runs one
+               plan_runs_2d (B3); lattice, runs and values byte-equal to
+               the plain versions (the same calls with ``device="cpu"``),
+               values equal to ``field[offsets]``, and each planner
+               launch and B3 byte-equal on the inputs the path gave
+               them; B4 on its own (on no path now) byte-equal on the
+               path's (polytope, row) cuts built directly (``b4_cuts``);
 7. sharded_serve — the port's launcher (``repro_torch.launch.serve``,
                extract mode) in-process at O1280 (4 times × 4 levels,
                105,594,880 float64 elements, 0.84 GB on the card), 8
@@ -121,8 +129,11 @@ and then, printing one JSON line per phase:
 11. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B1 at
-               the batched path's call, B2 at the all-levels request,
-               the union slices at phase 3's last window; B3's
+               the plain extract's read, B2 at the all-levels request,
+               the batched crop planner at phase 6's extract and its
+               lattice, B4 on phase 6's cuts, B5 at phase 5's layer;
+               B1, the planner, B4 and B5 also by device time,
+               ``torch.profiler``), the union slices at phase 3's last window; B3's
                with the device time of each kernel and memset of a call,
                by ``torch.profiler``, at the all-levels request and at
                Germany's; B6's at
@@ -137,8 +148,9 @@ and then, printing one JSON line per phase:
                hub as variants; B8's timed in phase 10);
 12. the kernels line, with the launch counts of the paths.
 
-The launch counters are reset just before each path (phases 2-3, 5, 6,
-7, each model of 8, each shape of 9, the engine and the launcher of 10)
+The launch counters are reset just before each path (phases 2-3, the
+plain extract, 5, 6, 7, each model of 8, each shape of 9, the engine and
+the launcher of 10)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call.  The last line is
@@ -170,8 +182,10 @@ L2_FLUSH_BYTES = 256 << 20     # > the 50 MB L2: gathered bytes start cold
 B8_FLUSH_BYTES = 1 << 30       # ~0.32 ms of memset: outlasts B8's launch
 SERVE_REQUESTS = 512           # the sharded_serve phase's Zipf draws
 # Sources whose registers and spills the build row prints (-Xptxas -v):
-# B8's tensor-core kernel, B3 and B6's two kernels.
-PTXAS_SOURCES = ("paged_attn_tc", "plan_runs_2d", "gather")
+# B8's tensor-core kernel, B3, B6's two kernels, the batched crop
+# planner and B5.
+PTXAS_SOURCES = ("paged_attn_tc", "plan_runs_2d", "gather", "batched_plan",
+                 "slice_batch")
 SECTOR_BYTES = 32              # the unit in which the card reads memory
 # NequIP's graph shapes (GNN_SHAPES of the configuration), in the order
 # the gnn phase serves them, each with one untimed and 8 timed forwards.
@@ -289,17 +303,30 @@ def ptxas_usage(source: str) -> dict:
     usage, name = {}, None
     for line in (out.stdout + out.stderr).splitlines():
         if "Compiling entry function" in line:
-            mangled = line.split("'")[1]               # _Z<len><name>...
-            digits = re.match(r"_Z(\d+)", mangled)
-            start = digits.end()
-            end = start + int(digits.group(1))
-            name = mangled[start:end]
-            # A leading type argument (float, double or a word of 1-8
-            # bytes), then the integer ones.
-            args = [TYPE_CODES[mangled[end + 1]]] \
-                if mangled[end:end + 1] == "I" \
-                and mangled[end + 1:end + 2] in TYPE_CODES else []
-            args += re.findall(r"Li(\d+)E", mangled)
+            # _Z<len><name>..., or _ZN<len><scope>...<len><name>... for
+            # a kernel in a namespace (the anonymous one included): the
+            # kernel's own name is the last component.
+            mangled = line.split("'")[1]
+            nested = mangled.startswith("_ZN")
+            end = 3 if nested else 2
+            while (digits := re.match(r"\d+", mangled[end:])):
+                start = end + digits.end()
+                end = start + int(digits.group())
+                name = mangled[start:end]
+                if not nested:
+                    break
+            # Its template arguments: types (float, double or a word of
+            # 1-8 bytes) and integers, in order.
+            args, at = [], end + 1
+            while mangled[end:end + 1] == "I" and at < len(mangled):
+                if mangled[at] in TYPE_CODES:
+                    args.append(TYPE_CODES[mangled[at]])
+                    at += 1
+                elif (lit := re.match(r"Li(\d+)E", mangled[at:])):
+                    args.append(lit.group(1))
+                    at += lit.end()
+                else:
+                    break
             if args:
                 name += f"<{', '.join(args)}>"
             usage[name] = {}
@@ -373,6 +400,36 @@ def extents_cost(x, valid, planes, tol) -> tuple[int, int]:
     above = (valid[:, None, :] & (dist > tol[:, None, None])).sum(-1)
     pairs = int((below * above).sum())
     return n_bytes, b * r * v + 5 * pairs
+
+
+def batched_plan_cost(verts, valid, axis0, axis1, n0: int, n1: int,
+                      rows: int, cols: int, field=None) -> dict:
+    """Bytes the batched crop planner must move and the float operations
+    these inputs need, for one call of ``sk.batched_plan_2d``: the
+    vertices, mask and axes read once, the lattice and the counts written
+    once, and with a field each live value read once and every value
+    written once; per live (polytope, row) a distance per vertex and 5
+    per (below, above) pair lerp (``extents_cost``)."""
+    from repro_torch.kernels.slice import ref as sref
+
+    off, npts, _ = sref.batched_plan_2d(verts, valid, axis0, axis1, n0, n1,
+                                        rows, cols)
+    slots, live = off.numel(), int(npts.sum())
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in (verts, valid, axis0, axis1)) + slots * 4 \
+        + npts.numel() * 4
+    if field is not None:
+        n_bytes += (live + slots) * field.element_size()
+    live_rows = (off >= 0).any(2)
+    x4, _, valid4, planes4, tol4 = b4_cuts(verts, valid, axis0, rows)
+    dist = x4[:, None, :] - planes4[:, :, None]
+    below = (valid4[:, None, :] & (dist < -tol4[:, None, None])).sum(-1)
+    above = (valid4[:, None, :] & (dist > tol4[:, None, None])).sum(-1)
+    flops = int((live_rows * (verts.shape[1] + 5 * below * above)).sum())
+    return {"bytes": int(n_bytes), "flops": flops, "slots": slots,
+            "n_points": live, "live_rows": int(live_rows.sum()),
+            "field": None if field is None else
+            str(field.dtype).removeprefix("torch.")}
 
 
 @contextlib.contextmanager
@@ -1564,6 +1621,89 @@ def serve_windows(iwc, requests, seed: int) -> list:
             for b in range(4)]
 
 
+def bfs_layer(iwc, requests) -> tuple:
+    """Phase 5's BFS layer: every (triangle, latitude row) pair of the
+    countries' and the seam box's (lat, lon) polygons, the rows those the
+    host Slicer would visit (``OrderedAxis.indices_in_range``, lookup
+    tolerance 1e-9).  Returns (the (polytope, row) pairs, the polygons,
+    the rows as float32 planes)."""
+    import numpy as np
+
+    from repro_torch.dataplane.weather import COUNTRIES
+
+    lat_sorted = np.sort(iwc.latitudes)
+    eps = 1e-9 * max(abs(lat_sorted[0]), abs(lat_sorted[-1]), 1.0)
+    polygons = [p for name in (*COUNTRIES, "seam_box")
+                for p in requests[name].polytopes()
+                if p.axes == ("lat", "lon")]
+    layer = []
+    for poly in polygons:
+        lo, hi = poly.extents("lat")
+        i0 = np.searchsorted(lat_sorted, lo - eps, side="left")
+        i1 = np.searchsorted(lat_sorted, hi + eps, side="right")
+        layer += [(poly, lat) for lat in lat_sorted[i0:i1]]
+    return layer, polygons, np.asarray([lat for _, lat in layer],
+                                       np.float32)
+
+
+def batched_crops(iwc, requests, flat_np, seed: int, n_crops: int = 256
+                  ) -> dict:
+    """Phase 6's inputs: ``n_crops`` country triangles at shifts drawn
+    from ``seed + 6`` on one F320 field (datetime 0, level 0, rows in
+    ascending latitude, float32), with the rows and columns the widest
+    crop spans (so the lattice never truncates).  The axes stay numpy
+    arrays, as a caller hands them; ``field`` is numpy too."""
+    import numpy as np
+
+    from repro_torch.core.geometry import Polytope
+    from repro_torch.dataplane.weather import COUNTRIES
+
+    lat_sorted = np.sort(iwc.latitudes)
+    n0, n1 = len(lat_sorted), len(iwc.lon_values)
+    axis0 = lat_sorted.astype(np.float32)
+    axis1 = iwc.lon_values.astype(np.float32)
+    order = np.argsort(iwc.latitudes)
+    field = np.ascontiguousarray(
+        flat_np[:n0 * n1].reshape(n0, n1)[order].astype(np.float32)
+    ).reshape(-1)
+    tris = [p.points for name in COUNTRIES
+            for p in requests[name].polytopes() if p.axes == ("lat", "lon")]
+    rng = np.random.default_rng(seed + 6)
+    pick = rng.integers(0, len(tris), n_crops)
+    shift = np.stack([rng.uniform(-30.0, 15.0, n_crops),
+                      rng.uniform(10.0, 300.0, n_crops)], axis=1)
+    crops = [Polytope(("lat", "lon"), tris[i] + shift[j])
+             for j, i in enumerate(pick)]
+    ext = np.array([[*c.extents("lat"), *c.extents("lon")] for c in crops])
+    max_rows = 1 + int(max(
+        np.searchsorted(axis0, e[1] + 1e-6, side="right")
+        - np.searchsorted(axis0, e[0] - 1e-6) for e in ext))
+    max_cols = 1 + int(max(
+        np.searchsorted(axis1, e[3] + 1e-6, side="right")
+        - np.searchsorted(axis1, e[2] - 1e-6) for e in ext))
+    return {"crops": crops, "axis0": axis0, "axis1": axis1, "n0": n0,
+            "n1": n1, "field": field, "max_rows": max_rows,
+            "max_cols": max_cols}
+
+
+def b4_cuts(verts, valid, axis0, max_rows: int) -> tuple:
+    """B4's inputs on a batch of crops, built directly as the batched
+    planner cuts them: each crop's x and y, its mask, its ``max_rows``
+    rows from the first at or above its lowest valid x - 1e-6 (clamped to
+    the last), and its tolerance 1e-6 · max(1, |x|max), float32."""
+    import torch
+
+    from repro_torch.kernels.slice import ref as sref
+
+    x = verts[:, :, 0].contiguous()
+    lo0 = torch.where(valid, x, torch.inf).amin(1)
+    start = torch.searchsorted(axis0, lo0 - 1e-6)
+    rows = start[:, None] + torch.arange(max_rows, device=x.device)
+    planes = axis0[rows.clamp(max=axis0.numel() - 1)].contiguous()
+    tol = sref.PLANE_TOL * torch.clamp(x.abs().amax(1), min=1.0)
+    return x, verts[:, :, 1].contiguous(), valid, planes, tol
+
+
 def recording_planner(cube, **kw):
     """A ``DevicePlanner`` that records the pipeline inputs of every
     plan() call in ``.calls``, so the kernel checks and timings see the
@@ -1637,7 +1777,9 @@ def main(argv=None) -> int:
           "nvcc_seconds": _build.last_build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "b8_tensor_core_ptxas": ptxas["paged_attn_tc"],
-          "b3_ptxas": ptxas["plan_runs_2d"], "b6_ptxas": ptxas["gather"]})
+          "b3_ptxas": ptxas["plan_runs_2d"], "b6_ptxas": ptxas["gather"],
+          "batched_plan_ptxas": ptxas["batched_plan"],
+          "b5_ptxas": ptxas["slice_batch"]})
 
     # -- the cube, the payload and the requests -------------------------
     iwc, requests = weather_setup()
@@ -1728,6 +1870,20 @@ def main(argv=None) -> int:
     assert LAUNCHES["plan_runs_2d"] > 0, "the planning kernel never ran"
     assert LAUNCHES["gather_rows"] == 0, "the main path launched gather_rows"
 
+    # A plain extract (burst_gather=False) of Germany over all levels: its
+    # read is one B1 launch over the plan's 174,640 offsets.
+    reset_launches()
+    pe_plain = PolytopeExtractor(cube, device_planner=True)
+    with recording(gk, "gather_rows") as b1_calls:
+        res = pe_plain.extract(requests["germany_all_levels"], flat)
+        torch.cuda.synchronize()
+    path_launches["plain_extract"] = dict(LAUNCHES)
+    assert LAUNCHES["gather_rows"] == 1 == len(b1_calls), LAUNCHES
+    assert LAUNCHES["gather_plan_runs"] == 0, LAUNCHES
+    assert bytes_equal(res.values.cpu(), torch.from_numpy(
+        flat_np[plans["germany_all_levels"].offsets])), \
+        "plain extract values"
+
     # -- 4. kernels against their plain versions, on main-path inputs ---
     errs = {"gather_plan_runs": 0.0, "gather_union_slices": 0.0,
             "plan_runs_2d": 0.0}
@@ -1760,6 +1916,9 @@ def main(argv=None) -> int:
     for b, (a, kw) in enumerate(union_reads):
         check("gather_union_slices", gk.gather_union_slices(*a, **kw),
               gref.gather_union_slices(*a, **kw), f"window {b}")
+    for a, kw in b1_calls:
+        check("gather_rows", gk.gather_rows(*a, **kw),
+              gref.gather_rows(*a, **kw), "plain extract")
 
     recs = {}
     for dtype in (np.float64, np.float32):
@@ -1779,23 +1938,10 @@ def main(argv=None) -> int:
           "max_abs_err": errs})
 
     # -- 5. bfs_layer: one BFS layer of Algorithm 1 as a batch (B5) -----
-    from repro_torch.core.geometry import Polytope, slice_vertices
+    from repro_torch.core.geometry import slice_vertices
     from repro_torch.core.hull import convex_hull_prune
 
-    # The host Slicer's triangles and the latitude rows it would visit
-    # for each (OrderedAxis.indices_in_range, lookup tolerance 1e-9).
-    lat_sorted = np.sort(iwc.latitudes)
-    eps = 1e-9 * max(abs(lat_sorted[0]), abs(lat_sorted[-1]), 1.0)
-    polygons = [p for name in (*COUNTRIES, "seam_box")
-                for p in requests[name].polytopes() if p.axes == ("lat",
-                                                                  "lon")]
-    layer = []
-    for poly in polygons:
-        lo, hi = poly.extents("lat")
-        i0 = np.searchsorted(lat_sorted, lo - eps, side="left")
-        i1 = np.searchsorted(lat_sorted, hi + eps, side="right")
-        layer += [(poly, lat) for lat in lat_sorted[i0:i1]]
-    planes_np = np.asarray([lat for _, lat in layer], np.float32)
+    layer, polygons, planes_np = bfs_layer(iwc, requests)
     reset_launches()
     t0 = time.perf_counter()
     verts5, valid5 = sops.pack_polytopes([p for p, _ in layer], device=dev)
@@ -1829,54 +1975,50 @@ def main(argv=None) -> int:
           "polygons": len(polygons), "pairs_hit": hits,
           "seconds": layer_s, "launches": path_launches["bfs_layer"]})
 
-    # -- 6. batched: 256 crops per call on one F320 field (B4, B3, B1) --
+    # -- 6. batched: 256 crops per call on one F320 field ---------------
+    # batched_plan_2d and batched_extract_2d are one launch each of the
+    # batched crop planner (B4's cut inside it); the runs are B3.
     from repro_torch.core import batched
 
-    n0, n1 = len(lat_sorted), len(iwc.lon_values)
-    axis0 = lat_sorted.astype(np.float32)
-    axis1 = iwc.lon_values.astype(np.float32)
-    # One field (datetime 0, level 0) with its rows in ascending latitude.
-    order = np.argsort(iwc.latitudes)
-    field_np = np.ascontiguousarray(
-        flat_np[:n0 * n1].reshape(n0, n1)[order].astype(np.float32)
-    ).reshape(-1)
+    bc = batched_crops(iwc, requests, flat_np, args.seed)
+    n_crops, axis0, axis1 = len(bc["crops"]), bc["axis0"], bc["axis1"]
+    n0, n1, max_rows, max_cols = bc["n0"], bc["n1"], bc["max_rows"], \
+        bc["max_cols"]
+    field_np = bc["field"]
     field = torch.from_numpy(field_np).to(dev)
-    tris = [p.points for name in COUNTRIES
-            for p in requests[name].polytopes() if p.axes == ("lat", "lon")]
-    rng6 = np.random.default_rng(args.seed + 6)
-    n_crops = 256
-    pick = rng6.integers(0, len(tris), n_crops)
-    shift = np.stack([rng6.uniform(-30.0, 15.0, n_crops),
-                      rng6.uniform(10.0, 300.0, n_crops)], axis=1)
-    crops = [Polytope(("lat", "lon"), tris[i] + shift[j])
-             for j, i in enumerate(pick)]
-    # Rows and columns the widest crop spans: the lattice never truncates.
-    ext = np.array([[*c.extents("lat"), *c.extents("lon")] for c in crops])
-    max_rows = 1 + int(max(
-        np.searchsorted(axis0, e[1] + 1e-6, side="right")
-        - np.searchsorted(axis0, e[0] - 1e-6) for e in ext))
-    max_cols = 1 + int(max(
-        np.searchsorted(axis1, e[3] + 1e-6, side="right")
-        - np.searchsorted(axis1, e[2] - 1e-6) for e in ext))
-    verts6, valid6 = sops.pack_polytopes(crops, device=dev)
+    verts6, valid6 = sops.pack_polytopes(bc["crops"], device=dev)
     reset_launches()
-    with recording(sops, "slice_minor_extents") as b4_calls, \
-            recording(pops, "plan_runs_2d") as b3_calls, \
-            recording(gk, "gather_rows") as b1_calls:
+    entry_launches = {}
+
+    def entry(name, fn):
+        before = dict(LAUNCHES)
+        out = fn()
+        entry_launches[name] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                                if LAUNCHES[k] != before[k]}
+        return out
+
+    with recording(sk, "batched_plan_2d") as fused_calls, \
+            recording(pops, "plan_runs_2d") as b3_calls:
         t0 = time.perf_counter()
-        lattice6 = batched.batched_plan_2d(verts6, valid6, axis0, axis1, n0,
-                                           n1, max_rows, max_cols,
-                                           device=dev)
-        runs6 = batched.batched_plan_runs_2d(verts6, valid6, axis0, axis1,
-                                             max_rows, device=dev)
-        ext6 = batched.batched_extract_2d(field, verts6, valid6, axis0,
-                                          axis1, max_rows, max_cols,
-                                          device=dev)
+        lattice6 = entry("batched_plan_2d", lambda: batched.batched_plan_2d(
+            verts6, valid6, axis0, axis1, n0, n1, max_rows, max_cols,
+            device=dev))
+        runs6 = entry("batched_plan_runs_2d",
+                      lambda: batched.batched_plan_runs_2d(
+                          verts6, valid6, axis0, axis1, max_rows,
+                          device=dev))
+        ext6 = entry("batched_extract_2d", lambda: batched.batched_extract_2d(
+            field, verts6, valid6, axis0, axis1, max_rows, max_cols,
+            device=dev))
         torch.cuda.synchronize()
         batched_s = time.perf_counter() - t0
     path_launches["batched"] = dict(LAUNCHES)
-    for name in ("slice_minor_extents", "plan_runs_2d", "gather_rows"):
-        assert LAUNCHES[name] > 0, f"{name} was never launched (batched)"
+    for name in ("batched_plan_2d", "batched_extract_2d"):
+        assert entry_launches[name] == {"batched_plan_2d": 1}, \
+            f"{name}: not one launch of the batched planner " \
+            f"({entry_launches[name]})"
+    assert entry_launches["batched_plan_runs_2d"] == {"plan_runs_2d": 1}, \
+        entry_launches
 
     # The plain versions: the same calls on CPU tensors.
     cpu_args = (verts6.cpu(), valid6.cpu(), axis0, axis1)
@@ -1906,23 +2048,30 @@ def main(argv=None) -> int:
         zip(starts[:meta[0]], lengths[:meta[0]])])
     lattice_offsets = flat_off[flat_off >= 0].numpy()
     assert np.array_equal(np.sort(run_offsets), np.sort(lattice_offsets))
-    for a, kw in b4_calls:
-        x, y, valid, planes, tol = a
-        got = sk.slice_minor_extents(x, y, valid, planes, tol)
-        want = sref.slice_minor_extents_rows(x, y, valid, planes, tol)
+    # Each launch of the path against the plain version on the card.
+    assert len(fused_calls) == 2, len(fused_calls)
+    for (a, kw), what in zip(fused_calls, ("lattice", "extract")):
+        got, want = sk.batched_plan_2d(*a, **kw), sref.batched_plan_2d(*a,
+                                                                      **kw)
         for g, w in zip(got, want):
-            check("slice_minor_extents", g, w, "batched rows")
+            if w is not None:
+                check("batched_plan_2d", g, w, f"batched {what}")
+    # B4 on its own, on the path's cuts built directly: its core runs
+    # inside the batched planner's launch (and B3's).
+    axis0_dev = torch.from_numpy(axis0).to(dev)
+    b4_args = b4_cuts(verts6, valid6, axis0_dev, max_rows)
+    for g, w in zip(sk.slice_minor_extents(*b4_args),
+                    sref.slice_minor_extents_rows(*b4_args)):
+        check("slice_minor_extents", g, w, "batched rows, built directly")
     for a, kw in b3_calls:
         for g, w in zip(pk.plan_runs_2d(*a, **kw), pref.plan_runs_2d(*a,
                                                                     **kw)):
             check("plan_runs_2d", g, w, "batched float32")
-    for a, kw in b1_calls:
-        check("gather_rows", gk.gather_rows(*a, **kw),
-              gref.gather_rows(*a, **kw), "batched values")
     emit({"phase": "batched", "P": n_crops, "V": int(verts6.shape[1]),
           "max_rows": max_rows, "max_cols": max_cols, "n0": n0, "n1": n1,
           "n_points": int(npts6.sum()), "n_runs": int(meta[0]),
-          "seconds": batched_s, "launches": path_launches["batched"]})
+          "seconds": batched_s, "launches": path_launches["batched"],
+          "entry_launches": entry_launches})
 
     # -- 7. sharded_serve: the launcher at O1280 -------------------------
     from repro_torch.launch import serve as launcher
@@ -2004,12 +2153,15 @@ def main(argv=None) -> int:
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in LAUNCHES}
     for name, n in launches.items():
-        assert n > 0, f"{name} was launched on no path"
+        # B4 on its own is on no path: its core runs inside the batched
+        # planner's launch and B3's.
+        assert n > 0 or name == "slice_minor_extents", \
+            f"{name} was launched on no path"
     timer = Timer(dev)
     entries = []
 
-    # B1: the batched path's call (D = 1, float32), its main remaining
-    # use.
+    # B1: the plain extract's read of Germany over all levels (D = 1,
+    # float64).
     table1, idx1 = b1_calls[0][0]
     m = idx1.numel()
     b1_bytes = m * (4 + 2 * table1.element_size())
@@ -2023,7 +2175,9 @@ def main(argv=None) -> int:
         "plain_ms": timer(lambda: gref.gather_rows(table1, idx1)),
         "bound_ms": b1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": timer(lambda: torch.index_select(table1, 0, idx1)),
-        "shape": {"M": m, "D": int(table1.shape[1]), "dtype": "float32"}})
+        **kernel_breakdown(lambda: gk.gather_rows(table1, idx1)),
+        "shape": {"M": m, "D": int(table1.shape[1]),
+                  "dtype": str(table1.dtype).removeprefix("torch.")}})
 
     # B2: the all-levels request's runs: each point read and written once
     # plus each run's start, length and output offset.
@@ -2095,8 +2249,39 @@ def main(argv=None) -> int:
                   "max_rows": int(max_rows), "n0": g["n0"], "n1": g["n1"],
                   "flops": b3_flops, "bytes": b3_bytes}})
 
-    # B4 on its own: the batched path's (polytope, row) cuts, float32.
-    b4_args = b4_calls[0][0]
+    # The batched crop planner: phase 6's extract (the plan and the
+    # read in one launch), with its lattice-only call as a variant.
+    (fused_plan, _), (fused_extract, _) = fused_calls
+    fb = batched_plan_cost(*fused_extract)
+    t_bytes = fb["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_flops = fb["flops"] / FP32_FLOPS * 1e3
+    plan_only = batched_plan_cost(*fused_plan)
+    entries.append({
+        "name": "batched_plan_2d", "route": "cuda",
+        "source": "src/repro_torch/csrc/batched_plan.cu",
+        "replaces": "src/repro/kernels/slice/ref.py:31",
+        "launches": launches["batched_plan_2d"],
+        "max_abs_err": errs["batched_plan_2d"],
+        "ms": timer(lambda: sk.batched_plan_2d(*fused_extract)),
+        "plain_ms": timer(lambda: sref.batched_plan_2d(*fused_extract)),
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": None,
+        **kernel_breakdown(lambda: sk.batched_plan_2d(*fused_extract)),
+        "shape": {"P": n_crops, "V": int(verts6.shape[1]),
+                  **dict(zip(("n0", "n1", "R", "C"), fused_extract[4:8])),
+                  **fb},
+        "variants": [{
+            "what": "lattice only (batched_plan_2d)",
+            "ms": timer(lambda: sk.batched_plan_2d(*fused_plan)),
+            "plain_ms": timer(lambda: sref.batched_plan_2d(*fused_plan)),
+            "bound_ms": max(plan_only["bytes"] / HBM_BYTES_PER_S,
+                            plan_only["flops"] / FP32_FLOPS) * 1e3,
+            **kernel_breakdown(lambda: sk.batched_plan_2d(*fused_plan)),
+            "shape": plan_only}]})
+
+    # B4 on its own, on phase 6's (polytope, row) cuts built directly,
+    # float32: on no path (its core runs inside batched_plan_2d and B3).
     b4_bytes, b4_flops = extents_cost(b4_args[0], b4_args[2], b4_args[3],
                                       b4_args[4])
     t_bytes = b4_bytes / HBM_BYTES_PER_S * 1e3
@@ -2107,12 +2292,14 @@ def main(argv=None) -> int:
         "source": "src/repro_torch/csrc/slice_extents.cu",
         "replaces": "src/repro/kernels/slice/ref.py:31",
         "launches": launches["slice_minor_extents"],
+        "on_path": "none: inlined in batched_plan_2d and plan_runs_2d",
         "max_abs_err": errs["slice_minor_extents"],
         "ms": timer(lambda: sk.slice_minor_extents(*b4_args)),
         "plain_ms": timer(lambda: sref.slice_minor_extents_rows(*b4_args)),
         "bound_ms": max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
         "library_ms": None,
+        **kernel_breakdown(lambda: sk.slice_minor_extents(*b4_args)),
         "shape": {"B": int(x4.shape[0]), "V": int(x4.shape[1]),
                   "R": int(planes4.shape[1]), "dtype": "float32",
                   "flops": b4_flops, "bytes": b4_bytes}})
@@ -2133,6 +2320,8 @@ def main(argv=None) -> int:
         "bound_ms": max(t_bytes, t_flops),
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
         "library_ms": None,
+        **kernel_breakdown(lambda: sk.slice_batch(verts5, valid5, planes5,
+                                                  0)),
         "shape": {"P": int(verts5.shape[0]), "V": int(verts5.shape[1]),
                   "D": int(verts5.shape[2]), "flops": b5_flops,
                   "bytes": b5_bytes}})

@@ -10,11 +10,17 @@ computation: for a batch of convex 2-D polytopes over regular ordered
 axes,
 
   1. per-polytope extents on axis 0 → index ranges (``searchsorted``),
-  2. slice every (polytope × row) pair at once — kernel B4
-     ``slice_minor_extents`` on the card (``kernels.slice``),
+  2. slice every (polytope × row) pair at once — B4's cut,
+     ``slice_minor_extents``,
   3. per-row 1-D extents on axis 1 → index ranges,
   4. emit a padded (P, R, C) offset lattice + validity mask — the
-     batched extraction plan consumed by ``gather_rows`` (kernel B1).
+     batched extraction plan — and, for ``batched_extract_2d``, the
+     field's values at it.
+
+On the card all four steps, and the read, are one launch of the batched
+crop planner (``kernels.slice``, ``csrc/batched_plan.cu``) after one
+pinned copy of whatever numpy inputs the call was given; nothing is
+read back to the host.  On the CPU they are its plain PyTorch version.
 
 Shapes are fixed: R = max rows, C = max columns per row; masked slots
 are -1 (the padding convention of the gather kernels).  Geometry is
@@ -23,21 +29,34 @@ float32 with the JAX package's ``1e-6`` tolerance regime.
 ``device=None`` means the card (raises when there is none); inputs may
 be numpy arrays or tensors and are placed on ``device``.
 ``device="cpu"`` runs the plain PyTorch versions of the kernels.
+
+One deliberate difference from the JAX package (ROADMAP C7):
+``batched_extract_2d`` refuses a field of fewer than n0·n1 elements
+before any work, where the JAX function checks nothing (its ``jnp.take``
+reads a fill value for an offset past the field).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .._device import resolve_device
-from ..kernels._casting import checked_cast_i32, ensure_i32_addressable
+from .._device import resolve_device, upload
+from ..kernels._casting import ensure_i32_addressable
 from ..kernels.slice import ops as slice_ops
 from ..kernels.slice import ref as slice_ref
 
 
 def _on(device, *arrays) -> list[torch.Tensor]:
+    """``arrays`` as contiguous tensors on ``device``: the numpy arrays
+    in one packed (pinned, for the card) copy, tensors moved only when
+    they lie elsewhere."""
     dev = resolve_device(device)
-    return [torch.as_tensor(a, device=dev) for a in arrays]
+    host = upload(dev, *(a for a in arrays if isinstance(a, np.ndarray)))
+    host.reverse()
+    return [(host.pop() if isinstance(a, np.ndarray)
+             else torch.as_tensor(a, device=dev)).contiguous()
+            for a in arrays]
 
 
 def batched_plan_2d(verts, valid, axis0, axis1, n0: int, n1: int,
@@ -56,44 +75,9 @@ def batched_plan_2d(verts, valid, axis0, axis1, n0: int, n1: int,
     # A grid whose flat offsets overflow int32 fails loudly before any
     # work instead of truncating.
     ensure_i32_addressable(n0 * n1, what="batched_plan_2d grid")
-    verts, valid, axis0, axis1 = _on(device, verts, valid, axis0, axis1)
-    p, v, _ = verts.shape
-    dev = verts.device
-    big = torch.tensor(float("inf"), dtype=verts.dtype, device=dev)
-
-    c0 = torch.where(valid, verts[:, :, 0], big)
-    lo0 = c0.amin(1)
-    hi0 = torch.where(valid, verts[:, :, 0], -big).amax(1)
-
-    # rows intersecting each polytope
-    start = torch.searchsorted(axis0, lo0 - 1e-6, side="left")  # (P,)
-    row_ids = start[:, None] + torch.arange(max_rows, device=dev)[None, :]
-    row_vals = axis0[row_ids.clamp(0, n0 - 1)]                  # (P, R)
-    row_ok = (row_ids < n0) & (row_vals <= hi0[:, None] + 1e-6)
-
-    # slice every (polytope, row) pair via the shared slicing core —
-    # extents of the remaining coordinate only, so the (V × V) candidate
-    # lattice never materializes.
-    scale = torch.clamp(verts[:, :, 0].abs().amax(1), min=1.0)
-    lo1, hi1, hit2 = slice_ops.slice_minor_extents(
-        verts[:, :, 0].contiguous(), verts[:, :, 1].contiguous(), valid,
-        row_vals.contiguous(), slice_ref.PLANE_TOL * scale)
-    lo1 = lo1.reshape(p * max_rows)
-    hi1 = hi1.reshape(p * max_rows)
-    hit = hit2.reshape(p * max_rows) & row_ok.reshape(-1)
-
-    c_start = torch.searchsorted(axis1, lo1 - 1e-6, side="left")
-    col_ids = c_start[:, None] + torch.arange(max_cols, device=dev)[None, :]
-    col_ok = (col_ids < n1) & \
-        (axis1[col_ids.clamp(0, n1 - 1)] <= hi1[:, None] + 1e-6) & \
-        hit[:, None]
-
-    offsets = checked_cast_i32(torch.where(
-        col_ok,
-        row_ids.reshape(-1)[:, None] * n1 + col_ids.clamp(0, n1 - 1),
-        -1), what="batched_plan_2d offsets", allow_negative_one=True)
-    offsets = offsets.reshape(p, max_rows, max_cols)
-    n_points = (offsets >= 0).sum((1, 2), dtype=torch.int32)
+    offsets, n_points, _ = slice_ops.batched_plan_2d(
+        *_on(device, verts, valid, axis0, axis1), n0, n1, max_rows,
+        max_cols)
     return offsets, n_points
 
 
@@ -134,19 +118,16 @@ def batched_plan_runs_2d(verts, valid, axis0, axis1, max_rows: int,
 def batched_extract_2d(flat_data, verts, valid, axis0, axis1,
                        max_rows: int, max_cols: int, device=None):
     """Plan + gather: (P, max_rows·max_cols) values with 0 at padded
-    slots, plus the offset lattice and the point counts.  The read is
-    kernel B1 (``gather_rows``) on the card."""
-    from ..kernels.gather import ops as gather_ops
-
-    flat_data, = _on(device, flat_data)
+    slots, plus the offset lattice and the point counts.  On the card the
+    plan and the read are one launch.  ``flat_data`` is the (n0·n1,)
+    field, row-major over (axis0, axis1); a shorter one raises
+    ``IndexError`` before any work (ROADMAP C7)."""
     n0, n1 = int(len(axis0)), int(len(axis1))
-    offsets, n_points = batched_plan_2d(verts, valid, axis0, axis1,
-                                        n0, n1, max_rows, max_cols,
-                                        device=flat_data.device)
-    flat_off = offsets.reshape(offsets.shape[0], -1)
-    taken = gather_ops.gather_rows(flat_data[:, None],
-                                   flat_off.clamp(min=0).reshape(-1))
-    vals = torch.where(flat_off >= 0, taken.reshape(flat_off.shape),
-                       torch.zeros((), dtype=flat_data.dtype,
-                                   device=flat_data.device))
-    return vals, offsets, n_points
+    ensure_i32_addressable(n0 * n1, what="batched_plan_2d grid")
+    if len(flat_data) < n0 * n1:
+        raise IndexError(f"batched_extract_2d: a field of {len(flat_data)} "
+                         f"elements for a grid of {n0} x {n1} = {n0 * n1}")
+    flat, *tens = _on(device, flat_data, verts, valid, axis0, axis1)
+    offsets, n_points, values = slice_ops.batched_plan_2d(
+        *tens, n0, n1, max_rows, max_cols, field=flat)
+    return values, offsets, n_points

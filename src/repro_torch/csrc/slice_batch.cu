@@ -12,16 +12,21 @@
 //
 // Bound on the H100: bytes.  The (P, V + V^2, D) output dominates and
 // each slot costs a handful of float operations, far below the card's
-// float32 rate per byte written.
+// float32 rate per byte written; at a BFS layer's size (P ~ 10^3, V = 4)
+// the time is one launch's latency.
 //
-// Design.  The TPU kernel pads the batch to BLOCK_P = 8 polytopes per
-// grid step and builds the V x V lattice in VMEM.  Here a block takes a
-// group of polytopes (as many as fill 256 threads with one thread per
-// output slot), stages their V x D vertices in shared memory once, and
-// classifies every vertex there (distance to the plane, on / below /
-// above, with the per-polytope scale max(1, |x_k|max)).  Then every
-// thread writes one slot's D coordinates and its mask byte.  No padding:
-// the last block's group is simply shorter.
+// Design.  A thread per output slot, with no shared memory and no
+// barrier.  Each thread issues its loads together, all served from L1
+// after the first warp of a polytope: the polytope's V coordinates on
+// axis k (for the scale max(1, |x_k|max) and the tolerance), its plane,
+// and its one or two vertices' coordinates and mask bytes.  It then
+// classifies them (on / below / above) and writes its slot's D
+// coordinates as one vector store where D allows (float4 for D % 4 == 0,
+// float2 for D % 2 == 0; scalars otherwise) and its mask byte.  Blocks
+// of 128 threads: a layer of 959 polytopes at V = 4 (20 slots each) is
+// 150 blocks, more than the card's 132 SMs.  Any V and D: nothing is
+// staged.  (The TPU kernel pads the batch to 8 polytopes a grid step and
+// builds the V x V lattice in VMEM.)
 //
 // Exactness: the plain PyTorch version (kernels/slice/ref.py) is held
 // byte for byte against this kernel, so every value is rounded one
@@ -33,126 +38,102 @@
 #include <math.h>
 
 #include "common.cuh"
+#include "rows.cuh"
 
 namespace {
 
 constexpr float PLANE_TOL = 1e-6f;
-constexpr int THREADS = 256;
-enum : uint8_t { ON = 1, BELOW = 2, ABOVE = 4 };
+constexpr int THREADS = 128;
 
+template <int VEC>
 __global__ void slice_batch_kernel(const float* __restrict__ verts,
                                    const uint8_t* __restrict__ valid,
                                    const float* __restrict__ planes,
-                                   int64_t p, int v, int d, int k, int group,
+                                   int64_t p, int v, int d, int k,
                                    float* __restrict__ out,
                                    uint8_t* __restrict__ mask) {
-    extern __shared__ float smem[];
-    float* s_verts = smem;                          // (group, v, d)
-    float* s_dist = s_verts + group * v * d;        // (group, v)
-    float* s_plane = s_dist + group * v;            // (group,)
-    uint8_t* s_cls = reinterpret_cast<uint8_t*>(s_plane + group);
+    const int64_t slots = v + (int64_t)v * v;
+    const int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= p * slots) return;
+    const int64_t q = e / slots;
+    const int s = (int)(e - q * slots);
+    const float* pv = verts + q * v * d;
+    const uint8_t* pm = valid + q * v;
+    const float plane = planes[q];
 
-    const int64_t p0 = (int64_t)blockIdx.x * group;
-    const int np = (int)(p - p0 < group ? p - p0 : group);
-    const float* g_verts = verts + p0 * v * d;
-    for (int e = threadIdx.x; e < np * v * d; e += blockDim.x)
-        s_verts[e] = g_verts[e];
-    for (int e = threadIdx.x; e < np; e += blockDim.x)
-        s_plane[e] = planes[p0 + e];
-    __syncthreads();
-
-    // Classify every vertex of the group against its polytope's plane.
-    for (int e = threadIdx.x; e < np * v; e += blockDim.x) {
-        const int q = e / v;
-        const float* pv = s_verts + q * v * d;
-        float amax = 0.0f;
-        for (int i = 0; i < v; ++i) {
-            const float a = fabsf(pv[i * d + k]);
-            amax = a > amax ? a : amax;
-        }
-        const float scale = 1.0f > amax ? 1.0f : amax;
-        const float tol = PLANE_TOL * scale;
-        const int i = e - q * v;
-        const bool ok = valid[(p0 + q) * v + i] != 0;
-        const float dist = ok ? pv[i * d + k] - s_plane[q] : INFINITY;
-        uint8_t cls = 0;
-        if (ok && fabsf(dist) <= tol) cls |= ON;
-        if (ok && dist < -tol) cls |= BELOW;
-        if (ok && dist > tol && isfinite(dist)) cls |= ABOVE;
-        s_dist[e] = dist;
-        s_cls[e] = cls;
+    float amax = 0.0f;
+    for (int i = 0; i < v; ++i) {
+        const float a = fabsf(pv[i * d + k]);
+        amax = a > amax ? a : amax;
     }
-    __syncthreads();
+    const float scale = 1.0f > amax ? 1.0f : amax;
+    const float tol = PLANE_TOL * scale;
 
-    // One thread per output slot.
-    const int slots = v + v * v;
-    for (int e = threadIdx.x; e < np * slots; e += blockDim.x) {
-        const int q = e / slots;
-        const int s = e - q * slots;
-        const float* pv = s_verts + q * v * d;
-        const float plane = s_plane[q];
-        const int64_t o = (p0 + q) * slots + s;
-        float* dst = out + o * d;
-        if (s < v) {
-            const bool on = (s_cls[q * v + s] & ON) != 0;
-            for (int c = 0; c < d; ++c)
-                dst[c] = on ? (c == k ? plane : pv[s * d + c]) : 0.0f;
-            mask[o] = on;
-            continue;
-        }
-        const int i = (s - v) / v;
-        const int j = (s - v) - i * v;
-        const bool pair = (s_cls[q * v + i] & BELOW) != 0 &&
-                          (s_cls[q * v + j] & ABOVE) != 0;
-        if (pair) {
-            const float di = s_dist[q * v + i];
-            const float dj = s_dist[q * v + j];
-            const float denom = di - dj;
-            const float t = fabsf(denom) > 0.0f
-                                ? di / (denom == 0.0f ? 1.0f : denom)
+    // Slot s < v: vertex s on the plane.  Else the pair (i below, j above).
+    const bool single = s < v;
+    const int i = single ? s : (s - v) / v;
+    const int j = single ? s : (s - v) - i * v;
+    const bool ok_i = pm[i] != 0, ok_j = pm[j] != 0;
+    const float di = ok_i ? pv[i * d + k] - plane : INFINITY;
+    const float dj = ok_j ? pv[j * d + k] - plane : INFINITY;
+    bool live;
+    float t = 0.0f;
+    if (single) {
+        live = ok_i && fabsf(di) <= tol;
+    } else {
+        live = ok_i && di < -tol && ok_j && dj > tol && isfinite(dj);
+        const float denom = di - dj;
+        t = fabsf(denom) > 0.0f ? di / (denom == 0.0f ? 1.0f : denom)
                                 : 0.0f;
-            for (int c = 0; c < d; ++c) {
-                const float vi = pv[i * d + c];
-                const float vj = pv[j * d + c];
-                dst[c] = c == k ? plane : vi + t * (vj - vi);
-            }
-        } else {
-            for (int c = 0; c < d; ++c) dst[c] = 0.0f;
-        }
-        mask[o] = pair;
     }
+
+    float* dst = out + e * d;
+    for (int c0 = 0; c0 < d; c0 += VEC) {
+        Pack<float, VEC> pk;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) {
+            const int c = c0 + u;
+            float x = 0.0f;
+            if (live) {
+                const float vi = pv[i * d + c];
+                x = c == k ? plane
+                           : (single ? vi : vi + t * (pv[j * d + c] - vi));
+            }
+            pk.v[u] = x;
+        }
+        *reinterpret_cast<Pack<float, VEC>*>(dst + c0) = pk;
+    }
+    mask[e] = live;
+}
+
+template <int VEC>
+void launch(const void* verts, const void* valid, const void* planes,
+            int64_t p, int v, int d, int k, void* out, void* mask,
+            cudaStream_t s) {
+    const int64_t total = p * (v + (int64_t)v * v);
+    const int64_t blocks = (total + THREADS - 1) / THREADS;
+    slice_batch_kernel<VEC><<<(unsigned)blocks, THREADS, 0, s>>>(
+        static_cast<const float*>(verts), static_cast<const uint8_t*>(valid),
+        static_cast<const float*>(planes), p, v, d, k,
+        static_cast<float*>(out), static_cast<uint8_t*>(mask));
 }
 
 }  // namespace
 
-// Shared memory one block of `group` polytopes needs.
-static size_t smem_bytes(int group, int v, int d) {
-    return (size_t)group * v * d * sizeof(float)
-         + (size_t)group * v * sizeof(float) + (size_t)group * sizeof(float)
-         + (size_t)group * v;
-}
-
 // verts (p, v, d) float32, valid (p, v) bool, planes (p,) float32;
-// out (p, v + v*v, d) float32, mask (p, v + v*v) bool.  Returns
-// cudaErrorInvalidValue when one block's vertices would not fit the
-// 48 KB of shared memory a launch gets without opting in (V x D in the
-// thousands; the BFS layers have V <= 32, D <= 8).
+// out (p, v + v*v, d) float32, mask (p, v + v*v) bool.
 extern "C" int polytope_slice_batch(int device, const void* verts,
                                     const void* valid, const void* planes,
                                     int64_t p, int v, int d, int k,
                                     void* out, void* mask, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    const int slots = v + v * v;
-    int group = THREADS / slots;
-    group = group < 1 ? 1 : group;
-    const size_t smem = smem_bytes(group, v, d);
-    if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-    const int64_t blocks = (p + group - 1) / group;
-    slice_batch_kernel<<<(unsigned)blocks, THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(verts), static_cast<const uint8_t*>(valid),
-        static_cast<const float*>(planes), p, v, d, k, group,
-        static_cast<float*>(out), static_cast<uint8_t*>(mask));
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (d % 4 == 0 && aligned(out, 16))
+        launch<4>(verts, valid, planes, p, v, d, k, out, mask, s);
+    else if (d % 2 == 0 && aligned(out, 8))
+        launch<2>(verts, valid, planes, p, v, d, k, out, mask, s);
+    else
+        launch<1>(verts, valid, planes, p, v, d, k, out, mask, s);
     return polytope_launch_status();
 }

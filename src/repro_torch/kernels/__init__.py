@@ -13,8 +13,9 @@
 #          sum gather_rows_bag (B6) of the recsys models
 # plan   — device-resident planning: the Algorithm-1 trailing stage
 #          (slice → column ranges → run emission → compaction) (B3)
-# slice  — batched BFS-layer slicing slice_batch (B5) and the shared
-#          slicing core slice_minor_extents (B4)
+# slice  — batched BFS-layer slicing slice_batch (B5), the batched crop
+#          planner batched_plan_2d (one launch, B4's cut inside it) and
+#          the shared slicing core slice_minor_extents (B4) on its own
 # segment — the GNN message aggregation segment_sum (B7), and
 #           segment_max as a plain version only
 # paged_attn — the LM engine's decode attention over the paged KV pool,

@@ -32,13 +32,17 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC"]
-SOURCES = ("gather", "paged_attn", "paged_attn_tc", "plan_runs_2d",
-           "segment_sum", "slice_batch", "slice_extents")
+SOURCES = ("batched_plan", "gather", "paged_attn", "paged_attn_tc",
+           "plan_runs_2d", "segment_sum", "slice_batch", "slice_extents")
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types: every pointer and the stream
 # are c_void_p (a bare Python int would be cut to 32 bits).
 SIGNATURES = {
+    "batched_plan": {
+        "polytope_batched_plan_2d": [_I, _I, _P, _P, _I, _P, _L, _L, _P, _L,
+                                     _L, _L, _I, _I, _P, _I, _P, _P, _P, _P],
+    },
     "gather": {
         "polytope_gather_rows": [_I, _P, _L, _P, _L, _I, _P, _P],
         "polytope_gather_plan_runs": [_I, _P, _P, _P, _P, _L, _L, _I, _P,
@@ -85,12 +89,14 @@ SIGNATURES = {
 # "gather_rows_bag_tiled" its kernel for narrow rows.  "segment_plan"
 # counts B7's segment plans built on the card (kernels/segment/ops.py),
 # each the CSR that the B7 launches of one forward then share.
-LAUNCHES: dict[str, int] = {"gather_rows": 0, "gather_plan_runs": 0,
-                            "gather_union_slices": 0, "gather_rows_bag": 0,
-                            "gather_rows_bag_tiled": 0, "plan_runs_2d": 0,
-                            "slice_minor_extents": 0, "slice_batch": 0,
-                            "segment_plan": 0, "segment_sum": 0,
-                            "paged_decode_attention": 0,
+# "batched_plan_2d" counts the batched crop planner (B4's cut inside),
+# "slice_minor_extents" B4 launched on its own.
+LAUNCHES: dict[str, int] = {"batched_plan_2d": 0, "gather_rows": 0,
+                            "gather_plan_runs": 0, "gather_union_slices": 0,
+                            "gather_rows_bag": 0, "gather_rows_bag_tiled": 0,
+                            "plan_runs_2d": 0, "slice_minor_extents": 0,
+                            "slice_batch": 0, "segment_plan": 0,
+                            "segment_sum": 0, "paged_decode_attention": 0,
                             "paged_decode_attention_simt": 0}
 
 

@@ -9,7 +9,8 @@ are ignored — on the port the device decides.
 
 The host arrays a launch reads (a plan's runs; a window's union and
 positions) are validated and cast on the host, then reach the card
-through one pinned buffer and one non-blocking copy (``_upload``).
+through one pinned buffer and one non-blocking copy
+(``_device.upload``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..._device import upload
 from .._build import LAUNCHES  # noqa: F401  (ops.LAUNCHES[name])
 from .._casting import checked_cast_i32
 from . import kernel, ref
@@ -25,9 +27,6 @@ from . import kernel, ref
 # ``chunk_runs``'s default, and accepted and ignored by
 # ``gather_plan_runs``, which copies runs whole.
 BURST_BLOCK = 128
-
-_TORCH_DTYPES = {np.dtype(np.int32): torch.int32,
-                 np.dtype(np.int64): torch.int64}
 
 
 def _route(t: torch.Tensor):
@@ -49,25 +48,6 @@ def _index_tensor(indices, device: torch.device, *, what: str,
     if isinstance(idx, np.ndarray):
         idx = torch.from_numpy(idx)
     return idx.to(device)
-
-
-def _upload(device: torch.device, *arrays: np.ndarray) -> list:
-    """The int32/int64 host ``arrays`` as tensors on ``device``, packed
-    into one buffer (each at an 8-byte aligned offset) that moves in one
-    copy: pinned and non-blocking to the card.  The caching host
-    allocator keeps a pinned block from reuse until the copy that read
-    it has run, so the buffer is never rewritten in flight."""
-    arrays = [np.ascontiguousarray(a) for a in arrays]
-    at = np.concatenate([[0], np.cumsum([-(-a.nbytes // 8) * 8
-                                         for a in arrays])])
-    host = torch.empty(int(at[-1]), dtype=torch.uint8,
-                       pin_memory=device.type == "cuda")
-    staging = host.numpy()
-    for a, lo in zip(arrays, at):
-        staging[lo:lo + a.nbytes] = a.reshape(-1).view(np.uint8)
-    buf = host.to(device, non_blocking=True)
-    return [buf[lo:lo + a.nbytes].view(_TORCH_DTYPES[a.dtype])
-            for a, lo in zip(arrays, at)]
 
 
 def gather_rows(table: torch.Tensor, indices, use_pallas: bool = False,
@@ -140,7 +120,7 @@ def plan_run_inputs(flat: torch.Tensor, run_starts, run_lengths) -> tuple:
                          f"the payload's {n} elements")
     offsets = np.zeros(lengths.size + 1, np.int64)
     np.cumsum(lengths, out=offsets[1:])
-    return (*_upload(flat.device, starts, lengths.astype(np.int32),
+    return (*upload(flat.device, starts, lengths.astype(np.int32),
                      offsets), int(offsets[-1]))
 
 
@@ -173,7 +153,7 @@ def union_slice_inputs(flat: torch.Tensor, union, positions) -> tuple:
     positions = checked_cast_i32(np.asarray(positions),
                                  what="union slice positions",
                                  n_elements=union.size)
-    return tuple(_upload(flat.device, union, positions))
+    return tuple(upload(flat.device, union, positions))
 
 
 def gather_union_slices(flat: torch.Tensor, union,

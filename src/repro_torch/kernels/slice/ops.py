@@ -43,6 +43,15 @@ def slice_minor_extents(x, y, valid, planes, tol):
                   ref.slice_minor_extents_rows)(x, y, valid, planes, tol)
 
 
+def batched_plan_2d(verts, valid, axis0, axis1, n0: int, n1: int,
+                    max_rows: int, max_cols: int, field=None):
+    """The batched crop planner (``ref.batched_plan_2d`` contract):
+    (offsets, n_points, values or None).  One launch of its kernel on the
+    card, the field's read included."""
+    return _route(verts, kernel.batched_plan_2d, ref.batched_plan_2d)(
+        verts, valid, axis0, axis1, n0, n1, max_rows, max_cols, field)
+
+
 def pack_polytopes(polys, v_max: int | None = None, device=None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pack a BFS layer of host Polytopes into padded tensors on

@@ -19,8 +19,11 @@ Polytope objects (``ops.unpack_sliced``).
 
 ``slice_minor_extents`` (kernel B4) is the same sign split and
 all-pairs lerp reduced to the extents of the kept coordinate; the
-planning kernel inlines it (``csrc/slice_extents.cuh``) and
-``core/batched.py`` launches it on its own (``csrc/slice_extents.cu``).
+planning kernel (``csrc/plan_runs_2d.cu``) and the batched crop planner
+(``csrc/batched_plan.cu``) inline it from ``csrc/slice_extents.cuh``,
+and ``csrc/slice_extents.cu`` launches it on its own.
+``batched_plan_2d`` is the batched crop planner of ``core/batched.py``
+with B4's cut in it, and its read when a field is passed.
 Every operation is rounded on its own, as the kernels round it (no
 ``lerp``/``addcmul``, whose rounding differs).
 """
@@ -28,6 +31,9 @@ Every operation is rounded on its own, as the kernels round it (no
 from __future__ import annotations
 
 import torch
+
+from .._casting import checked_cast_i32
+from ..gather import ref as gather_ref
 
 PLANE_TOL = 1e-6
 
@@ -135,3 +141,64 @@ def slice_batch(verts: torch.Tensor, valid: torch.Tensor,
     out_valid = torch.cat([on, pair_valid.reshape(p, v * v)], dim=1)
     out = torch.where(out_valid[..., None], out, 0.0)
     return out, out_valid
+
+
+def batched_plan_2d(verts: torch.Tensor, valid: torch.Tensor,
+                    axis0: torch.Tensor, axis1: torch.Tensor, n0: int,
+                    n1: int, max_rows: int, max_cols: int,
+                    field: torch.Tensor | None = None):
+    """Plan a batch of convex 2-D polytopes on a regular (n0 × n1) grid
+    (``core.batched.batched_plan_2d``), and read ``field`` at the plan
+    when one is given.
+
+    verts (P, V, 2), valid (P, V), axis0 (n0,) and axis1 (n1,) sorted.
+    Returns (offsets (P, max_rows, max_cols) int32 with -1 padding,
+    n_points (P,) int32, values (P, max_rows·max_cols) of the field's
+    dtype with 0 at padded slots, or None without a field).
+    """
+    p, v, _ = verts.shape
+    dev = verts.device
+    big = torch.tensor(float("inf"), dtype=verts.dtype, device=dev)
+
+    c0 = torch.where(valid, verts[:, :, 0], big)
+    lo0 = c0.amin(1)
+    hi0 = torch.where(valid, verts[:, :, 0], -big).amax(1)
+
+    # rows intersecting each polytope
+    start = torch.searchsorted(axis0, lo0 - 1e-6, side="left")  # (P,)
+    row_ids = start[:, None] + torch.arange(max_rows, device=dev)[None, :]
+    row_vals = axis0[row_ids.clamp(0, n0 - 1)]                  # (P, R)
+    row_ok = (row_ids < n0) & (row_vals <= hi0[:, None] + 1e-6)
+
+    # slice every (polytope, row) pair via the shared slicing core —
+    # extents of the remaining coordinate only, so the (V × V) candidate
+    # lattice never materializes.
+    scale = torch.clamp(verts[:, :, 0].abs().amax(1), min=1.0)
+    lo1, hi1, hit2 = slice_minor_extents_rows(
+        verts[:, :, 0].contiguous(), verts[:, :, 1].contiguous(), valid,
+        row_vals.contiguous(), PLANE_TOL * scale)
+    lo1 = lo1.reshape(p * max_rows)
+    hi1 = hi1.reshape(p * max_rows)
+    hit = hit2.reshape(p * max_rows) & row_ok.reshape(-1)
+
+    c_start = torch.searchsorted(axis1, lo1 - 1e-6, side="left")
+    col_ids = c_start[:, None] + torch.arange(max_cols, device=dev)[None, :]
+    col_ok = (col_ids < n1) & \
+        (axis1[col_ids.clamp(0, n1 - 1)] <= hi1[:, None] + 1e-6) & \
+        hit[:, None]
+
+    offsets = checked_cast_i32(torch.where(
+        col_ok,
+        row_ids.reshape(-1)[:, None] * n1 + col_ids.clamp(0, n1 - 1),
+        -1), what="batched_plan_2d offsets", allow_negative_one=True)
+    offsets = offsets.reshape(p, max_rows, max_cols)
+    n_points = (offsets >= 0).sum((1, 2), dtype=torch.int32)
+    if field is None:
+        return offsets, n_points, None
+    flat_off = offsets.reshape(p, -1)
+    taken = gather_ref.gather_rows(field[:, None],
+                                   flat_off.clamp(min=0).reshape(-1))
+    values = torch.where(flat_off >= 0, taken.reshape(flat_off.shape),
+                         torch.zeros((), dtype=field.dtype,
+                                     device=field.device))
+    return offsets, n_points, values

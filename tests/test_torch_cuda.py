@@ -19,6 +19,10 @@ asserts which of its two kernels launched: the tensor-core one for bf16
 with Dh in {16, 32, 64, 128} and G <= 16, the CUDA-core one otherwise.
 So does each B6 case: the tiled kernel for rows of fewer than
 ``NARROW_ROW_BYTES`` (128) bytes, the wide one otherwise.  B3 runs as one launch a call.
+The batched crop planner runs as one launch per entry point
+(``batched_plan_2d``, ``batched_extract_2d``), with no launch of B4 on its
+own or of B1 and no host sync, on the layouts of
+``tests/torch_batched_cases.py``.
 """
 
 import dataclasses
@@ -46,6 +50,10 @@ from repro_torch.kernels.segment import ref as segref  # noqa: E402
 from repro_torch.kernels.slice import kernel as sk  # noqa: E402
 from repro_torch.kernels.slice import ref as sref  # noqa: E402
 from repro_torch.serve import ExtractionService  # noqa: E402
+from torch_batched_cases import AXIS0 as BATCHED_AXIS0  # noqa: E402
+from torch_batched_cases import AXIS1 as BATCHED_AXIS1  # noqa: E402
+from torch_batched_cases import CASES as BATCHED_CASES  # noqa: E402
+from torch_batched_cases import random_layer as batched_random_layer  # noqa: E402,E501
 from torch_plan_cases import PLAN_SCAN_CASES, plan_scan_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -285,7 +293,7 @@ def test_burst_gather_of_a_plan(cuda_device, iwc):
     np.testing.assert_array_equal(got.cpu().numpy(), data[plan.offsets])
 
 
-# -- B5 and B4 on its own -----------------------------------------------------
+# -- B5, B4 on its own and the batched crop planner ---------------------------
 
 def _slice_inputs(p, v, d, k, seed):
     """Random layers with on-plane vertices and padded slots: the plane
@@ -301,8 +309,14 @@ def _slice_inputs(p, v, d, k, seed):
 
 @pytest.mark.parametrize("p,v,d,k", [(4, 6, 3, 0), (10, 8, 4, 2),
                                      (1, 4, 2, 1), (9, 12, 5, 4),
-                                     (1000, 3, 2, 0), (37, 32, 8, 7)])
+                                     (1000, 3, 2, 0), (37, 32, 8, 7),
+                                     (959, 4, 2, 0), (50, 5, 1, 0),
+                                     (17, 32, 3, 1), (64, 7, 4, 3),
+                                     (300, 9, 6, 5), (3, 32, 400, 17)])
 def test_slice_batch(cuda_device, p, v, d, k):
+    """Over D = 1 (scalar stores), 2 and 6 (float2), 3 and 5 (scalars),
+    4 and 8 (float4), V up to 32, and V x D = 12,800 (past the 48 KB
+    that the former shared-memory kernel refused)."""
     tens = [torch.from_numpy(a).to(cuda_device)
             for a in _slice_inputs(p, v, d, k, seed=p + v + d + k)]
     before = LAUNCHES["slice_batch"]
@@ -350,6 +364,9 @@ def test_slice_minor_extents(cuda_device, dtype, b, v, r):
 
 
 def test_batched_paths_on_the_card(cuda_device):
+    """Each entry point against its plain version; the lattice and the
+    extract are one launch of the batched crop planner each, with no
+    launch of B4 on its own or of B1."""
     from repro_torch.core import batched
     from repro_torch.core.geometry import Polytope
     from repro_torch.kernels.slice import ops as sops
@@ -364,20 +381,179 @@ def test_batched_paths_on_the_card(cuda_device):
     on_card, on_cpu = {}, {}
     for dev, out in ((cuda_device, on_card), ("cpu", on_cpu)):
         verts, valid = sops.pack_polytopes(polys, v_max=8, device=dev)
-        before = dict(LAUNCHES)
-        out["lattice"] = batched.batched_plan_2d(
-            verts, valid, axis0, axis1, 64, 80, 64, 64, device=dev)
-        out["runs"] = batched.batched_plan_runs_2d(
-            verts, valid, axis0, axis1, 64, device=dev)
-        out["extract"] = batched.batched_extract_2d(
-            field.to(dev), verts, valid, axis0, axis1, 64, 64, device=dev)
-        if dev == cuda_device:
-            for name in ("slice_minor_extents", "plan_runs_2d",
-                         "gather_rows"):
-                assert LAUNCHES[name] > before[name], name
+        for what, call in (
+                ("lattice", lambda: batched.batched_plan_2d(
+                    verts, valid, axis0, axis1, 64, 80, 64, 64,
+                    device=dev)),
+                ("runs", lambda: batched.batched_plan_runs_2d(
+                    verts, valid, axis0, axis1, 64, device=dev)),
+                ("extract", lambda: batched.batched_extract_2d(
+                    field.to(dev), verts, valid, axis0, axis1, 64, 64,
+                    device=dev))):
+            before = dict(LAUNCHES)
+            out[what] = call()
+            if dev == cuda_device:
+                moved = {k: LAUNCHES[k] - before[k] for k in LAUNCHES
+                         if LAUNCHES[k] != before[k]}
+                assert moved == ({"plan_runs_2d": 1} if what == "runs"
+                                 else {"batched_plan_2d": 1}), (what, moved)
     for what in on_cpu:
         for a, b in zip(on_card[what], on_cpu[what]):
             assert a.is_cuda and _bytes_equal(a.cpu(), b), what
+
+
+def _card(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in arrays]
+
+
+@pytest.mark.parametrize("case", sorted(BATCHED_CASES))
+def test_batched_plan_2d_on_the_edges(cuda_device, case):
+    """The lattice's edges of tests/torch_batched_cases.py, the plan and
+    the read (float32 field), kernel against plain version on the card."""
+    (verts, valid), rows, cols = BATCHED_CASES[case]
+    tens = _card(cuda_device, verts, valid, BATCHED_AXIS0, BATCHED_AXIS1)
+    n0, n1 = BATCHED_AXIS0.size, BATCHED_AXIS1.size
+    field = torch.from_numpy(np.random.default_rng(1).normal(
+        size=n0 * n1).astype(np.float32)).to(cuda_device)
+    for f in (None, field):
+        before = LAUNCHES["batched_plan_2d"]
+        got = sk.batched_plan_2d(*tens, n0, n1, rows, cols, f)
+        assert LAUNCHES["batched_plan_2d"] == before + 1
+        want = sref.batched_plan_2d(*tens, n0, n1, rows, cols, f)
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or _bytes_equal(a, b), case
+
+
+@pytest.mark.parametrize("dtype", (np.float32, np.float64))
+@pytest.mark.parametrize("seed", range(3))
+def test_batched_plan_2d_random_layers(cuda_device, seed, dtype):
+    """Seeded random layers in float32 and in float64 (vertices and
+    axes), over a grid smaller than the axes (n0 < len(axis0))."""
+    verts, valid = batched_random_layer(seed, p=200, dtype=dtype)
+    tens = _card(cuda_device, verts, valid, BATCHED_AXIS0.astype(dtype),
+                 BATCHED_AXIS1.astype(dtype))
+    for n0, n1, rows, cols in ((16, 24, 12, 16), (14, 20, 9, 40),
+                               (16, 24, 17, 9)):
+        got = sk.batched_plan_2d(*tens, n0, n1, rows, cols)
+        want = sref.batched_plan_2d(*tens, n0, n1, rows, cols)
+        for a, b in zip(got[:2], want[:2]):
+            assert _bytes_equal(a, b), (seed, n0, n1, rows, cols)
+        assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", (np.float32, np.float64))
+def test_batched_plan_2d_axes_past_shared_memory(cuda_device, dtype):
+    """Axes of more than the 48 KB a block stages in shared memory are
+    read where they lie; the plan and the read are the same."""
+    verts, valid = batched_random_layer(4, p=100, dtype=dtype)
+    axis1 = (np.arange(13_000) * 0.5).astype(dtype)      # 52 KB or more
+    tens = _card(cuda_device, verts, valid, BATCHED_AXIS0.astype(dtype),
+                 axis1)
+    n0 = BATCHED_AXIS0.size
+    for n1 in (24, axis1.size):
+        field = torch.arange(n0 * n1, dtype=torch.float32,
+                             device=cuda_device)
+        got = sk.batched_plan_2d(*tens, n0, n1, 12, 40, field)
+        want = sref.batched_plan_2d(*tens, n0, n1, 12, 40, field)
+        for a, b in zip(got, want):
+            assert _bytes_equal(a, b), (dtype, n1)
+        assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype,len0,len1", [
+    (np.float32, 4096, 8184),     # 48 KB less the warps' counts: staged
+    (np.float32, 4096, 8185),     # 4 bytes more: read where they lie
+    (np.float32, 4096, 8192),     # F2048's axes, exactly 48 KB
+    (np.float64, 2048, 4096),     # F1024's in float64, exactly 48 KB
+])
+def test_batched_plan_2d_axes_at_the_shared_memory_edge(cuda_device, dtype,
+                                                        len0, len1):
+    """Axes at the edge of the 48 KB a block gets without opting in,
+    where the per-warp counts share it with the staged axes: every launch
+    is taken, and the plan and the read are byte-equal to the plain
+    version."""
+    verts, valid = batched_random_layer(5, p=100, dtype=dtype)
+    axis0 = np.linspace(-10, 10, len0).astype(dtype)
+    axis1 = np.linspace(-5, 17, len1).astype(dtype)
+    tens = _card(cuda_device, verts, valid, axis0, axis1)
+    field = torch.arange(len0 * len1, dtype=torch.int32, device=cuda_device)
+    got = sk.batched_plan_2d(*tens, len0, len1, 48, 64, field)
+    want = sref.batched_plan_2d(*tens, len0, len1, 48, 64, field)
+    for a, b in zip(got, want):
+        assert _bytes_equal(a, b), (dtype, len0, len1)
+    assert int(got[1].sum()) > 0
+
+
+@pytest.mark.parametrize("dtype", (torch.float64, torch.float32,
+                                   torch.bfloat16, torch.int16,
+                                   torch.uint8, torch.bool))
+def test_batched_plan_2d_reads_every_word_width(cuda_device, dtype):
+    """The read moves 8-, 4-, 2- and 1-byte words: live values copied bit
+    for bit, padded slots all-zero bytes (+0.0)."""
+    verts, valid = batched_random_layer(7, p=64)
+    tens = _card(cuda_device, verts, valid, BATCHED_AXIS0, BATCHED_AXIS1)
+    n0, n1 = BATCHED_AXIS0.size, BATCHED_AXIS1.size
+    gen = torch.Generator().manual_seed(0)
+    field = (torch.randn(n0 * n1, generator=gen) * 50).to(dtype)
+    field = field.to(cuda_device)
+    got = sk.batched_plan_2d(*tens, n0, n1, 12, 16, field)
+    want = sref.batched_plan_2d(*tens, n0, n1, 12, 16, field)
+    for a, b in zip(got, want):
+        assert _bytes_equal(a, b), dtype
+
+
+def test_batched_entry_points_make_no_host_sync(cuda_device):
+    """With numpy axes (one pinned copy) and card tensors, neither entry
+    point synchronises with the host."""
+    from repro_torch.core import batched
+
+    verts, valid = batched_random_layer(2, p=128)
+    verts, valid = _card(cuda_device, verts, valid)
+    n0, n1 = BATCHED_AXIS0.size, BATCHED_AXIS1.size
+    field = torch.arange(n0 * n1, dtype=torch.float32, device=cuda_device)
+
+    def both():
+        plan = batched.batched_plan_2d(verts, valid, BATCHED_AXIS0,
+                                       BATCHED_AXIS1, n0, n1, 12, 16,
+                                       device=cuda_device)
+        return plan, batched.batched_extract_2d(
+            field, verts, valid, BATCHED_AXIS0, BATCHED_AXIS1, 12, 16,
+            device=cuda_device)
+
+    both()                                  # builds the kernels
+    torch.cuda.synchronize()
+    before = LAUNCHES["batched_plan_2d"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plan, extract = both()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert LAUNCHES["batched_plan_2d"] == before + 2
+    for a, b in zip(plan, extract[1:]):
+        assert torch.equal(a, b)
+
+
+def test_batched_plan_2d_refuses_what_it_does_not_take(cuda_device):
+    verts, valid = batched_random_layer(0, p=4)
+    tens = _card(cuda_device, verts, valid, BATCHED_AXIS0, BATCHED_AXIS1)
+    n0, n1 = BATCHED_AXIS0.size, BATCHED_AXIS1.size
+    with pytest.raises(TypeError):                   # mixed dtypes
+        sk.batched_plan_2d(tens[0], tens[1], tens[2].double(), tens[3], n0,
+                           n1, 4, 4)
+    with pytest.raises(ValueError, match="outside the axes"):
+        sk.batched_plan_2d(*tens, n0 + 1, n1, 4, 4)
+    with pytest.raises(IndexError, match="field of"):
+        sk.batched_plan_2d(*tens, n0, n1, 4, 4,
+                           torch.zeros(n0 * n1 - 1, device=cuda_device))
+    with pytest.raises(TypeError, match="16 bytes"):
+        sk.batched_plan_2d(*tens, n0, n1, 4, 4, torch.zeros(
+            n0 * n1, dtype=torch.complex128, device=cuda_device))
+    with pytest.raises(IndexError, match="grid of"):
+        from repro_torch.core import batched
+        batched.batched_extract_2d(
+            torch.zeros(n0 * n1 - 1, device=cuda_device), tens[0], tens[1],
+            BATCHED_AXIS0, BATCHED_AXIS1, 4, 4, device=cuda_device)
 
 
 def test_sharded_service_on_the_card(cuda_device, iwc):
