@@ -126,7 +126,37 @@ and then, printing one JSON line per phase:
                at its automatic split and at 1-32 splits, the CUDA-core
                kernel on the same bf16 inputs at its automatic split and
                at one, the plain version, SDPA and the bound;
-11. timing   — each kernel at the shapes its path gave it, with CUDA
+11. lm_moe   — DeepSeek-V3 (5 of its 61 layers: the 3 dense layers and
+               2 MoE layers; MLA, 256 experts top 8 and a shared expert;
+               26.38 B parameters, 52.8 GB) and then Arctic (2 of its 35
+               layers, both MoE with the dense residual; 56 heads over 8
+               KV heads; 27.45 B parameters, 54.9 GB) at published width
+               in bf16, seeded random weights drawn on the card, each
+               freed before the next (GLM-4's weights and pools freed
+               first).  Each serves 12 requests (prompts of 256-1024
+               tokens, half a multiple of 32 so that prefill routes 32
+               groups, half not so that it routes one; 8-24 new tokens)
+               through ``ServeEngine`` with 8 slots, so admission runs
+               mid-stream.  Arctic's decode rounds are one B8 launch a
+               layer, every one on the tensor-core kernel at G = 7 and
+               held against B8's plain version inside the call;
+               DeepSeek's path launches no kernel of the port (MLA's
+               absorbed paged decode and the MoE layers are plain
+               PyTorch and cuBLAS).  The routing of every MoE layer at
+               the first prefill of each group branch and at the first
+               decode round is byte-equal to the same routing run on the
+               CPU from the card's float32 logits; the first decode
+               round's MoE layers agree with a plain per-token
+               formulation within ``MOE_LAYER_*`` and two planted faults
+               (a dropped second choice, swapped gates) fall outside;
+               two requests served dropless agree with a teacher-forced
+               ``forward`` within ``MOE_LOGITS_*`` away from routing
+               flips at near ties, and a forward that drops falls
+               outside.  It prints the init and prefill time, the p50
+               round, tokens/s, the replayed round's idle share and top
+               kernels, the peak memory, the prefill's dropped share and
+               the round's bound (the weights a round reads, once);
+12. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B1 at
                the plain extract's read, B2 at the all-levels request,
@@ -146,14 +176,16 @@ and then, printing one JSON line per phase:
                a built plan, the plan's build, and a call on the ids),
                with its l = 0 and l = 1 sums, the energy readout and the
                hub as variants; B8's timed in phase 10);
-12. the kernels line, with the launch counts of the paths.
+13. the kernels line, with the launch counts of the paths.
 
 The launch counters are reset just before each path (phases 2-3, the
 plain extract, 5, 6, 7, each model of 8, each shape of 9, the engine and
-the launcher of 10)
+the launcher of 10, each model of 11)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
-are read, except B8's, which run inside each call.  The last line is
+are read, except B8's, which run inside each call (and phase 11's
+routing records).  ``chip_lm_moe.py`` runs phase 11 alone at several
+seeds.  The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.
 """
@@ -226,6 +258,46 @@ B8_SPLITS = (1, 2, 4, 8, 16, 32)
 # readings, below both faults.
 LM_LOGITS_MAX = 0.28           # max |difference| of any logit
 LM_LOGITS_MEAN = 0.0375        # mean |difference| over all logits
+# The lm_moe phase: DeepSeek-V3 and Arctic at their published widths in
+# bf16, cut in depth to fit one card: (arch, layers, parameters), the
+# counts from jax.eval_shape over the JAX init_params at the cut.
+# DeepSeek keeps its 3 dense layers and 2 MoE layers (52.8 GB; 3 MoE
+# layers would be 75.7 GB), Arctic 2 MoE layers with the dense residual
+# (54.9 GB).
+MOE_MODELS = (("deepseek-v3-671b", 5, 26_377_966_592),
+              ("arctic-480b", 2, 27_451_755_520))
+MOE_ENGINE = dict(max_batch=8, max_seq=1056, page_size=16, n_pages=1024)
+MOE_REQUESTS = 12              # against 8 slots: admission mid-stream
+MOE_PROMPT = (256, 1024)       # prompt tokens, half a multiple of 32
+MOE_NEW = (8, 24)              # max_new_tokens
+MOE_REPLAYS = 8                # unchecked replays of the first round
+# The first decode round's MoE layers against the plain per-token
+# formulation (moe_plain_layer), bf16: both take the same routing and
+# sum in choice order; the batched cuBLAS product over experts and the
+# per-token matrix-vector products sum their float32 terms in other
+# orders, so an element of an expert's output may round to the other
+# bf16 neighbour.  Over seeds 0-2 (H100, chip_lm_moe.py) the gaps reached
+# max 0.015625 (one bf16 ulp of an output in [2, 4)), mean 9.0e-5; the
+# planted faults gave max 0.33-1.45, mean 0.040-0.212.  The bounds are
+# twice the gaps' largest readings.
+MOE_LAYER_MAX = 0.03125
+MOE_LAYER_MEAN = 1.8e-4
+# Logits of two requests served dropless through the paged engine (for
+# DeepSeek the absorbed latent decode) against a teacher-forced forward
+# (expanded K and V, the expert buffers of the whole sequence), bf16,
+# at the positions whose routing agrees: over seeds 0-2 the gaps reached
+# max 0.125, mean 0.0191; the forward with the configuration's own
+# capacity (slots dropped) gave max 1.60-7.64, mean 0.239-0.992.  The
+# bounds are twice the gaps' largest readings.
+MOE_LOGITS_MAX = 0.25
+MOE_LOGITS_MEAN = 0.0383
+# A teacher-forced position whose routing differs from the served one
+# (0-7 of 8-22 positions a request over seeds 0-2) is left out of those
+# bounds if, in the forward, the k-th and (k+1)-th router logits of
+# every MoE layer whose choice differs are closer than this: a near tie
+# that bf16 noise flips (margins 0.0003-0.041 over seeds 0-2, twice the
+# largest).  A flip off a near tie fails the phase.
+MOE_FLIP_MARGIN = 0.082
 
 
 def emit(obj) -> None:
@@ -1099,6 +1171,28 @@ def b8_gap(got, want) -> dict:
             "ok": ok}
 
 
+def b8_check_call(out, args, tally: dict) -> None:
+    """Hold one B8 call's ``out`` against B8's plain version on the same
+    ``args`` (q, k_pages, v_pages, block_table, seq_lens) at once, on the
+    card (the pool changes after every call), and add it to ``tally``:
+    ``calls``, the largest ``max_abs_err`` and ``rel_err``, and the
+    seconds the check took (``check_s``)."""
+    import torch
+
+    from repro_torch.kernels.paged_attn import ref as paref
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gap = b8_gap(out, paref.paged_decode_attention(*args))
+    assert bool(torch.isfinite(out).all()), "B8: non-finite output"
+    assert gap["ok"], \
+        f"B8 != its plain version (call {tally['calls']}, {gap})"
+    tally["max_abs_err"] = max(tally["max_abs_err"], gap["max_abs_err"])
+    tally["rel_err"] = max(tally["rel_err"], gap["rel_err"])
+    tally["calls"] += 1
+    tally["check_s"] += time.perf_counter() - t
+
+
 def b8_faults(table, lens, ps: int, n_split: int, n_pages: int) -> dict:
     """Planted faults of B8 (its tensor-core kernel), each as the plan
     that makes the correct kernel compute what a faulty one would: the
@@ -1123,13 +1217,44 @@ def b8_faults(table, lens, ps: int, n_split: int, n_pages: int) -> dict:
                 torch.where(table >= 0, (table + 1) % n_pages, table), lens)}
 
 
-def logits_gap(got, want) -> dict:
-    """Max and mean |got - want| of two logit arrays, and whether they
-    are within the stated bf16 bounds."""
+def replayed_round_ms(params, cfg, engine, host_plan, dev, n: int
+                      ) -> list[float]:
+    """Host-clock milliseconds of ``n`` replays of one decode round as
+    the engine runs it: the host plan (block table, lengths, tokens as
+    numpy) copied to the card at once, the step, the argmax read back.
+    Each replay writes its cache rows into pages that are free by now."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    table_np, lens_np, tokens_np = host_plan
+    nb, pmax = table_np.shape
+    out = []
+    torch.cuda.synchronize()
+    for _ in range(n):
+        t = time.perf_counter()
+        flat = torch.from_numpy(np.concatenate(
+            [table_np.reshape(-1), lens_np, tokens_np])).to(dev)
+        seq_lens = flat[nb * pmax:nb * pmax + nb]
+        with torch.no_grad():
+            logits = tf.decode_paged(
+                params, cfg, engine.k_pool, engine.v_pool,
+                flat[nb * pmax + nb:], seq_lens - 1,
+                flat[:nb * pmax].view(nb, pmax), seq_lens)
+        torch.argmax(logits, dim=-1).tolist()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def logits_gap(got, want, max_bound: float = LM_LOGITS_MAX,
+               mean_bound: float = LM_LOGITS_MEAN) -> dict:
+    """Max and mean |got - want| of two arrays (logits by default), and
+    whether they are within the stated bf16 bounds."""
     d = (got.float() - want.float()).abs()
     gap = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean())}
-    gap["ok"] = gap["max_abs_err"] <= LM_LOGITS_MAX and \
-        gap["mean_abs_err"] <= LM_LOGITS_MEAN
+    gap["ok"] = gap["max_abs_err"] <= max_bound and \
+        gap["mean_abs_err"] <= mean_bound
     return gap
 
 
@@ -1201,23 +1326,11 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
         return b8_fault
 
     def b8_checked(q, kp, vp, table, lens_, **kw):
-        # The pool changes after every call: check at once, on the card.
         out = kernel_fn(q, kp, vp, table, lens_, **kw)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        want = plain_b8(q, kp, vp, table, lens_)
-        gap = b8_gap(out, want)
-        err = gap["max_abs_err"]
-        assert bool(torch.isfinite(out).all()), "B8: non-finite output"
-        assert gap["ok"], \
-            f"B8 != its plain version (call {b8['calls']}, {gap})"
-        b8["max_abs_err"] = max(b8["max_abs_err"], err)
-        b8["rel_err"] = max(b8["rel_err"], gap["rel_err"])
-        b8["calls"] += 1
+        b8_check_call(out, (q, kp, vp, table, lens_), b8)
         b8["last"] = (q, kp, vp, table, lens_)
         if b8["first"] is None:
             b8["first"] = b8["last"]
-        b8["check_s"] += time.perf_counter() - t
         return out
 
     def decode_rec(params_, cfg_, k_pool, v_pool, *plan):
@@ -1346,26 +1459,10 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
     # check and no profiler, then once more profiled.  Both write their
     # K/V rows into pages that are free by now.
     plan = first_round.pop("plan")
-    table_np, lens_np, tokens_np = first_round.pop("host_plan")
-    nb, pmax = table_np.shape
-
-    def replay_round():
-        flat = torch.from_numpy(np.concatenate(
-            [table_np.reshape(-1), lens_np, tokens_np])).to(dev)
-        seq_lens = flat[nb * pmax:nb * pmax + nb]
-        with torch.no_grad():
-            logits = tf.decode_paged(
-                params, cfg, engine.k_pool, engine.v_pool,
-                flat[nb * pmax + nb:], seq_lens - 1,
-                flat[:nb * pmax].view(nb, pmax), seq_lens)
-        return torch.argmax(logits, dim=-1).tolist()
-
-    replay_ms = []
-    torch.cuda.synchronize()
-    for _ in range(LM_REPLAYS):
-        t = time.perf_counter()
-        replay_round()
-        replay_ms.append((time.perf_counter() - t) * 1e3)
+    host_plan = first_round.pop("host_plan")
+    nb = host_plan[0].shape[0]
+    replay_ms = replayed_round_ms(params, cfg, engine, host_plan, dev,
+                                  LM_REPLAYS)
     with torch.no_grad():
         profiled = device_profile(
             lambda: tf.decode_paged(params, cfg, engine.k_pool,
@@ -1582,6 +1679,464 @@ def b8_decode_32k(dev, seed: int) -> list:
                      drill=True)]
     del kp, vp
     return out
+
+
+def moe_plain_layer(params, cfg, x):
+    """The decode path's MoE layer of ``params`` on x (B, S, D), written
+    per token: the dispatch's dropless routing of the same groups, then,
+    for each token and each of its choices, that expert's SwiGLU of the
+    token alone (a matrix-vector product per weight).  Returns (y (T, k,
+    D), gates (T, k), keep (T, k), shared (T, D) or None) for
+    ``moe_plain_sum``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    b, s, d = x.shape
+    t = b * s
+    g = min(cfg.n_groups, t)
+    if t % g:
+        g = 1
+    xg = x.reshape(g, t // g, d)
+    r = moe.route(moe.router_logits(params, xg), cfg, dropless=True)
+    ids = r.expert_ids.reshape(t, cfg.top_k).tolist()
+    keep = r.keep.reshape(t, cfg.top_k)
+    xt = x.reshape(t, d)
+    y = torch.zeros((t, cfg.top_k, d), dtype=x.dtype, device=x.device)
+    for i in range(t):
+        for j, e in enumerate(ids[i]):
+            y[i, j] = moe.swiglu(params["w_gate"][e], params["w_up"][e],
+                                 params["w_down"][e], xt[i:i + 1])[0]
+    shared = None
+    if cfg.n_shared:
+        sh = params["shared"]
+        shared = moe.swiglu(sh["w_gate"], sh["w_up"], sh["w_down"], x
+                            ).reshape(t, d)
+    return y, r.gates.reshape(t, cfg.top_k), keep, shared
+
+
+def moe_plain_sum(y, gates, keep, shared, shape):
+    """Σ over choices in order of gate · y at the kept slots, in float32,
+    rounded to y's dtype once, plus the shared expert: ``_moe_group``'s
+    combine written per token."""
+    import torch
+
+    acc = torch.zeros(y.shape[0], y.shape[2], dtype=torch.float32,
+                      device=y.device)
+    for j in range(y.shape[1]):
+        w = y[:, j] * gates[:, j, None].to(y.dtype)
+        acc = acc + torch.where(keep[:, j, None], w, 0).float()
+    out = acc.to(y.dtype)
+    if shared is not None:
+        out = out + shared
+    return out.reshape(shape)
+
+
+def moe_prompts(rng, vocab: int) -> list:
+    """``MOE_REQUESTS`` requests: half the prompts a multiple of 32 tokens
+    (32 routing groups at prefill), half not (one group), shuffled; each
+    asks for ``MOE_NEW`` new tokens."""
+    import numpy as np
+
+    from repro_torch.serve.engine import Request
+
+    half = MOE_REQUESTS // 2
+    lens = rng.integers(MOE_PROMPT[0], MOE_PROMPT[1] + 1, MOE_REQUESTS)
+    lens[:half] = lens[:half] // 32 * 32
+    lens[half:] = np.minimum(lens[half:], MOE_PROMPT[1] - 1)
+    lens[half:] += lens[half:] % 32 == 0
+    lens = rng.permutation(lens)
+    news = rng.integers(MOE_NEW[0], MOE_NEW[1] + 1, MOE_REQUESTS)
+    return [Request(prompt=rng.integers(0, vocab, int(n)).astype(np.int32),
+                    max_new_tokens=int(m), rid=i)
+            for i, (n, m) in enumerate(zip(lens, news))]
+
+
+def lm_moe(dev, seed: int, card: str, path_launches: dict) -> list:
+    """Phase 11: DeepSeek-V3 and Arctic at published width, cut depth,
+    in bf16 behind ``ServeEngine``, one model at a time, each freed
+    before the next (``serve_moe_model``).  Returns B8's timings at the
+    GQA model's path shape (variants of B8's kernels-line entry)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    matmul = tf32_off("lm_moe")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()    # the earlier phases' inputs
+    b8_variants = []
+    for arch, n_layers, n_params in MOE_MODELS:
+        cfg = dataclasses.replace(configs.get_config(arch),
+                                  n_layers=n_layers)
+        row = serve_moe_model(dev, seed, cfg, n_params, path_launches)
+        emit({"phase": "lm_moe", **row, "held_before_gb": held / 1e9,
+              "matmul": matmul, "card": card})
+        assert not row["failed"], f"lm_moe {arch}: {row['failed']}"
+        if row["b8_timing"] is not None:
+            # the path's largest gap beside the timed call's own
+            b8_variants.append({**row["b8_timing"],
+                                "path_max_abs_err": row["b8"]["max_abs_err"],
+                                "path_launches": row["b8"]["calls"]})
+        gc.collect()
+        torch.cuda.empty_cache()
+    return b8_variants
+
+
+def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
+                    path_launches: dict) -> dict:
+    """One model of phase 11: seeded random weights drawn on the card,
+    ``MOE_REQUESTS`` requests through ``ServeEngine`` (``MOE_ENGINE``),
+    then the checks: launches (GQA's decode is one B8 launch a layer,
+    each on the tensor-core kernel and held against its plain version
+    inside the call; MLA's launches no kernel of the port), routing on
+    the card byte-equal to the CPU's on the same logits, the first
+    decode round's MoE layers against ``moe_plain_layer`` (and two
+    planted faults outside the bound), and two requests served dropless
+    against a teacher-forced ``forward``; then the first round replayed
+    and profiled.  Returns the row, with the failed checks under
+    ``failed``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.paged_attn import kernel as pak
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tf.init_params(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counted = tf.count_params(params)
+    assert n_params is None or counted == n_params, (cfg.name, counted)
+    read_bytes = sum(t.numel() * t.element_size() for t in tf.tree_leaves(
+        {k: v for k, v in params.items() if k != "mtp"}))
+    ecfg = EngineConfig(**MOE_ENGINE)
+    engine = ServeEngine(params, cfg, ecfg, device=dev)
+    requests = moe_prompts(np.random.default_rng(seed), cfg.vocab)
+    full = sorted(-(-(len(r.prompt) + r.max_new_tokens) // ecfg.page_size)
+                  for r in requests)
+    assert sum(full[-ecfg.max_batch:]) <= ecfg.n_pages   # C4 cannot fire
+
+    gqa = cfg.attn_type != "mla"
+    kernel_fn, route_fn, moe_fn = (pak.paged_decode_attention, moe.route,
+                                   tf.moe_ffn)
+    decode_fn, prefill_fn = tf.decode_paged, tf.prefill_paged
+    round_fn = engine._decode_round
+    b8 = {"calls": 0, "max_abs_err": 0.0, "rel_err": 0.0, "check_s": 0.0,
+          "groups": set()}
+    stage = {"name": None}
+    rounds, prefill_s, checks = [], [], [0.0]
+    routings, layers, drops, first_plan = [], [], [], {}
+    want_prefill = {}                    # group branch → its first prefill
+
+    def b8_checked(q, kp, vp, table, lens_, **kw):
+        out = kernel_fn(q, kp, vp, table, lens_, **kw)
+        before = b8["check_s"]
+        b8_check_call(out, (q, kp, vp, table, lens_), b8)
+        assert pak.takes_tensor_cores(q, kp, vp), "B8 off the tensor cores"
+        b8["groups"].add(q.shape[1] // kp.shape[1])
+        b8.setdefault("first", (q, kp, vp, table, lens_))
+        checks[0] += b8["check_s"] - before
+        return out
+
+    def route_rec(logits, cfg_, dropless):
+        r = route_fn(logits, cfg_, dropless)
+        if not dropless:
+            drops.append(((~r.keep).sum(), r.keep.numel()))
+        if stage["name"] is not None:
+            t = time.perf_counter()
+            routings.append({"stage": stage["name"], "dropless": dropless,
+                             "logits": logits.cpu(), "capacity": r.capacity,
+                             "card": [a.cpu() for a in r[:5]]})
+            checks[0] += time.perf_counter() - t
+        return r
+
+    def moe_rec(params_, cfg_, x, dropless=False):
+        out = moe_fn(params_, cfg_, x, dropless=dropless)
+        if stage["name"] == "first decode round":
+            layers.append((params_, x.clone(), out[0].clone()))
+        return out
+
+    def prefill_rec(params_, cfg_, tokens, *a):
+        s = tokens.shape[1]
+        branch = "32 groups" if s % 32 == 0 else "1 group"
+        first = branch not in want_prefill
+        if first:
+            want_prefill[branch] = s
+        stage["name"] = f"first prefill, {branch}" if first else None
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        before = checks[0]
+        out = prefill_fn(params_, cfg_, tokens, *a)
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t - (checks[0] - before))
+        stage["name"] = None
+        return out
+
+    def decode_rec(params_, cfg_, k_pool, v_pool, *plan):
+        if not first_plan:
+            first_plan.update(plan=plan, host=[plan[i].cpu().numpy()
+                                               for i in (2, 3, 0)])
+        return decode_fn(params_, cfg_, k_pool, v_pool, *plan)
+
+    def round_rec():
+        if not engine.live:
+            return round_fn()
+        stage["name"] = "first decode round" if not rounds else None
+        batch = len(engine.live)
+        before = checks[0]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        round_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        check = checks[0] - before
+        rounds.append({"ms": (wall - check) * 1e3, "check_ms": check * 1e3,
+                       "batch": batch})
+        stage["name"] = None
+
+    engine._decode_round = round_rec
+    reset_launches()
+    with swapped(pak, "paged_decode_attention", b8_checked), \
+            swapped(moe, "route", route_rec), \
+            swapped(tf, "moe_ffn", moe_rec), \
+            swapped(tf, "prefill_paged", prefill_rec), \
+            swapped(tf, "decode_paged", decode_rec):
+        for req in requests:
+            engine.submit(req)
+        t0 = time.perf_counter()
+        done = engine.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    del engine._decode_round
+    launches = path_launches[f"lm_moe {cfg.name}"] = dict(LAUNCHES)
+    n_rounds = len(rounds)
+    if gqa:
+        assert launches["paged_decode_attention"] == \
+            cfg.n_layers * n_rounds == b8["calls"], (launches, n_rounds)
+        assert b8["groups"] == {cfg.n_heads // cfg.n_kv_heads}
+    others = {k: n for k, n in launches.items()
+              if n and not (gqa and k == "paged_decode_attention")}
+    assert not others, f"lm_moe {cfg.name} launched {others}"
+    assert sorted(r.rid for r in done) == list(range(MOE_REQUESTS))
+    for r in done:
+        assert len(r.out_tokens) == r.max_new_tokens
+        assert all(0 <= t < cfg.vocab for t in r.out_tokens)
+    assert engine.pager.utilization == 0.0
+    assert max(r["batch"] for r in rounds) == ecfg.max_batch
+    assert set(want_prefill) == {"32 groups", "1 group"}
+    failed = []
+
+    # Routing: the card's decisions against the CPU's on the same logits.
+    n_moe = sum(cfg.layer_uses_moe())
+    assert len(routings) == 3 * n_moe, len(routings)
+    for rec in routings:
+        host = route_fn(rec["logits"], cfg.moe, rec["dropless"])
+        rec["byte_equal"] = host.capacity == rec["capacity"] and all(
+            bytes_equal(a, b) for a, b in zip(host[:5], rec["card"]))
+        if not rec["byte_equal"]:
+            failed.append(f"routing at the {rec['stage']}")
+    dropped = sum(int(n) for n, _ in drops)
+    slots = sum(n for _, n in drops)
+
+    # The first decode round's MoE layers against the plain per-token
+    # formulation, and two planted faults of the combine.
+    assert len(layers) == n_moe
+    moe_gaps = []
+    for lp, x, out in layers:
+        y, gates, keep, shared = moe_plain_layer(lp, cfg.moe, x)
+        plain = moe_plain_sum(y, gates, keep, shared, out.shape)
+        no_second = keep.clone()
+        no_second[:, 1] = False
+        swapped_gates = gates[:, [1, 0, *range(2, gates.shape[1])]]
+        gap = {**logits_gap(out, plain, MOE_LAYER_MAX, MOE_LAYER_MEAN),
+               "batch": int(x.shape[0]), "faults": {
+                   "second choice dropped": logits_gap(
+                       out, moe_plain_sum(y, gates, no_second, shared,
+                                          out.shape),
+                       MOE_LAYER_MAX, MOE_LAYER_MEAN),
+                   "gates of choices 1 and 2 swapped": logits_gap(
+                       out, moe_plain_sum(y, swapped_gates, keep, shared,
+                                          out.shape),
+                       MOE_LAYER_MAX, MOE_LAYER_MEAN)}}
+        moe_gaps.append(gap)
+        if not gap["ok"]:
+            failed.append("MoE layer against its plain version")
+        failed += [f"MoE layer, {name}: not caught"
+                   for name, f in gap["faults"].items() if f["ok"]]
+    del layers, y
+
+    # Teacher forcing: two requests served dropless (capacity_factor =
+    # E / k: capacity t, nothing dropped at prefill either) through the
+    # same paged entry points; their prefill and decode logits against a
+    # forward over prompt + generated tokens, of the same function.  A
+    # near tie between a token's k-th and (k+1)-th expert can flip under
+    # bf16 noise between the two computations and move that position's
+    # logits by far more than the noise: such positions are counted, each
+    # flip must be a near tie (router logit margin under MOE_FLIP_MARGIN
+    # in the forward), and the bounds hold the other positions.
+    cfg_tf = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    watch = [requests[0], requests[-1]]
+    tf_engine = ServeEngine(params, cfg_tf, EngineConfig(
+        max_batch=2, max_seq=ecfg.max_seq, page_size=ecfg.page_size,
+        n_pages=2 * ecfg.max_seq // ecfg.page_size), device=dev)
+    got_logits = {i: [] for i in range(len(watch))}
+    served_routes = {i: {} for i in range(len(watch))}   # rid → pos → ids
+    route_log = []
+
+    def route_logged(logits, cfg_, dropless):
+        r = route_fn(logits, cfg_, dropless)
+        route_log.append((r.expert_ids.reshape(-1, cfg_.top_k).cpu(),
+                          logits.reshape(-1, cfg_.n_experts).cpu()))
+        return r
+
+    def tf_prefill(params_, cfg_, tokens, *a):
+        rid = sum(1 for v in got_logits.values() if v)   # first come
+        route_log.clear()
+        out = prefill_fn(params_, cfg_, tokens, *a)
+        got_logits[rid].append(out[0].float())
+        last = tokens.shape[1] - 1
+        served_routes[rid][last] = [ids[last] for ids, _ in route_log]
+        return out
+
+    def tf_decode(*a):
+        route_log.clear()
+        out = decode_fn(*a)
+        for i, (rid, pos) in enumerate(zip(tf_engine.live, a[5].tolist())):
+            got_logits[rid].append(out[i].float())
+            served_routes[rid][pos] = [ids[i] for ids, _ in route_log]
+        return out
+
+    with swapped(tf, "prefill_paged", tf_prefill), \
+            swapped(tf, "decode_paged", tf_decode), \
+            swapped(moe, "route", route_logged):
+        for i, r in enumerate(watch):
+            tf_engine.submit(Request(prompt=r.prompt, rid=i,
+                                     max_new_tokens=r.max_new_tokens))
+        tf_done = tf_engine.run()
+    forced = []
+    for req in tf_done:
+        p, n = len(req.prompt), len(req.out_tokens)
+        seq = np.concatenate([req.prompt, req.out_tokens[:-1]])
+        route_log.clear()
+        with torch.no_grad(), swapped(moe, "route", route_logged):
+            full_logits, _ = tf.forward(params, cfg_tf, torch.from_numpy(
+                seq[None].astype(np.int64)).to(dev))
+        want = full_logits[0, p - 1:p + n - 1]
+        got = torch.stack(got_logits[req.rid])
+        assert got.shape == want.shape, (got.shape, want.shape)
+        k = cfg.moe.top_k
+        flips, margins = [], []
+        for j, pos in enumerate(range(p - 1, p + n - 1)):
+            served = served_routes[req.rid][pos]
+            assert len(served) == len(route_log) == n_moe
+            for mine, (ids, logits) in zip(served, route_log):
+                if set(mine.tolist()) != set(ids[pos].tolist()):
+                    top = torch.sort(logits[pos], descending=True).values
+                    margins.append(float(top[k - 1] - top[k]))
+                    flips.append(j)
+        held = torch.ones(n, dtype=torch.bool)
+        held[sorted(set(flips))] = False
+        gap = logits_gap(got[held.to(dev)], want[held.to(dev)],
+                         MOE_LOGITS_MAX, MOE_LOGITS_MEAN)
+        agree = float((want.argmax(-1).cpu() == torch.tensor(
+            req.out_tokens)).float().mean())
+        # A planted fault: the forward with the configuration's own
+        # capacity, which drops slots at every position.
+        with torch.no_grad():
+            dropping, _ = tf.forward(params, cfg, torch.from_numpy(
+                seq[None].astype(np.int64)).to(dev))
+        fault = logits_gap(got[held.to(dev)],
+                           dropping[0, p - 1:p + n - 1][held.to(dev)],
+                           MOE_LOGITS_MAX, MOE_LOGITS_MEAN)
+        forced.append({"prompt": p, "generated": n,
+                       "argmax_agrees": agree, **gap,
+                       "routing_flips": len(set(flips)),
+                       "flip_margins": margins,
+                       "with_flips": logits_gap(got, want, MOE_LOGITS_MAX,
+                                                MOE_LOGITS_MEAN),
+                       "fault_capacity_not_lifted": fault})
+        if not gap["ok"]:
+            failed.append(f"teacher-forced logits (prompt {p})")
+        if fault["ok"]:
+            failed.append(f"teacher-forced, capacity not lifted: not "
+                          f"caught (prompt {p})")
+        del dropping
+        if any(m >= MOE_FLIP_MARGIN for m in margins):
+            failed.append(f"teacher-forced routing flip off a near tie "
+                          f"(prompt {p}, margins {margins})")
+        del full_logits, want, got
+    del tf_engine, got_logits, route_log
+    peak = torch.cuda.max_memory_allocated()
+
+    # The first round replayed as the engine runs it (the plan copied to
+    # the card, the step, the argmax read back), unchecked, then profiled.
+    nb = first_plan["host"][0].shape[0]
+    replay_ms = replayed_round_ms(params, cfg, engine, first_plan["host"],
+                                  dev, MOE_REPLAYS)
+    plan = first_plan["plan"]
+    with torch.no_grad():
+        profiled = device_profile(
+            lambda: tf.decode_paged(params, cfg, engine.k_pool,
+                                    engine.v_pool, *plan),
+            named=("b8_kernel_ms", "paged_attn_tc_kernel"))
+    replay_p50 = float(np.median(replay_ms))
+    bound_ms = read_bytes / HBM_BYTES_PER_S * 1e3
+    # B8 at this path's shape: the first decode round's first layer.
+    first_b8 = b8.pop("first", None)
+    b8_timed = None if first_b8 is None else b8_timing(
+        dev, *first_b8, f"{cfg.name} first decode round, layer 1 "
+        f"(G = {cfg.n_heads // cfg.n_kv_heads})")
+
+    ms = [r["ms"] for r in rounds]
+    prompt_tokens = sum(len(r.prompt) for r in requests)
+    row = {"model": cfg.name, "n_layers": cfg.n_layers,
+           "layer_moe": cfg.layer_uses_moe(), "params": counted,
+           "weight_bytes": sum(t.numel() * t.element_size()
+                               for t in tf.tree_leaves(params)),
+           "init_s": init_s, "engine": MOE_ENGINE, "requests": MOE_REQUESTS,
+           "prompt_lens": [len(r.prompt) for r in requests],
+           "first_prefill_lens": want_prefill,
+           "prompt_tokens": prompt_tokens,
+           "tokens_served": sum(len(r.out_tokens) for r in done),
+           "decode_rounds": n_rounds, "round_ms_p50": float(np.median(ms)),
+           "round_ms_max": max(ms),
+           "decode_tokens_per_s": sum(r["batch"] for r in rounds)
+           / (sum(ms) / 1e3),
+           "prefill_s": sum(prefill_s),
+           "prefill_tokens_per_s": prompt_tokens / sum(prefill_s),
+           "serve_s": serve_s, "check_s": checks[0],
+           "prefill_dropped_share": dropped / slots,
+           "replayed_first_round": {
+               "batch": nb, "rounds_ms": replay_ms,
+               "round_ms_p50": replay_p50,
+               "decode_tokens_per_s": nb / (replay_p50 / 1e3),
+               "idle_share": 1.0 - profiled["kernel_ms"] / replay_p50},
+           "profiled_first_round": profiled,
+           "round_bound_ms": bound_ms, "round_read_bytes": read_bytes,
+           "b8": {**b8, "groups": sorted(b8["groups"])},
+           "routing_checked": [
+               {k: v for k, v in r.items() if k not in ("logits", "card")}
+               for r in routings],
+           "moe_layer": moe_gaps,
+           "moe_layer_bounds": {"max": MOE_LAYER_MAX, "mean": MOE_LAYER_MEAN},
+           "teacher_forced": forced,
+           "logits_bounds": {"max": MOE_LOGITS_MAX, "mean": MOE_LOGITS_MEAN},
+           "peak_gb": peak / 1e9, "launches": launches, "failed": failed,
+           "b8_timing": b8_timed}
+    del engine, params, plan, first_plan, first_b8
+    row["seconds"] = time.perf_counter() - start
+    return row
 
 
 def weather_setup():
@@ -2149,7 +2704,11 @@ def main(argv=None) -> int:
     # -- 10. lm_serve: GLM-4 9B at full width behind the engine (B8) ---
     b8_timing_entry = lm_serve(dev, args.seed, card, path_launches)
 
-    # -- 11. timing at the shapes each path gave its kernels ------------
+    # -- 11. lm_moe: DeepSeek-V3 and Arctic at full width, cut depth -----
+    b8_timing_entry["variants"] += lm_moe(dev, args.seed, card,
+                                          path_launches)
+
+    # -- 12. timing at the shapes each path gave its kernels ------------
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in LAUNCHES}
     for name, n in launches.items():
@@ -2352,9 +2911,9 @@ def main(argv=None) -> int:
         "max_abs_err": errs["segment_sum"], **b7_timing})
 
     # B8: the last decode round of lm_serve (timed in phase 10) on the
-    # tensor-core kernel, with the first round's and the decode_32k
-    # per-layer shape under "variants"; max_abs_err over every call of
-    # the path.  Its CUDA-core kernel (float32 and other shapes; the
+    # tensor-core kernel, with the first round's, the decode_32k
+    # per-layer shape and Arctic's first round (phase 11, G = 7) under
+    # "variants"; max_abs_err over every call of lm_serve's path.  Its CUDA-core kernel (float32 and other shapes; the
     # launcher's float32 smoke model) is timed beside it at each shape.
     entries.append({
         "name": "paged_decode_attention", "route": "cuda",
@@ -2366,7 +2925,7 @@ def main(argv=None) -> int:
         **b8_timing_entry})
     emit({"phase": "timing", "card": card})
 
-    # -- 12. the kernels line, the card, the result ----------------------
+    # -- 13. the kernels line, the card, the result ----------------------
     emit({"kernels": entries, "launches": launches,
           "path_launches": path_launches})
     print(card, flush=True)

@@ -8,7 +8,7 @@ other.  The models do have weights: ``dlrm_from_params``,
 ``deepfm_from_params`` and ``nequip_from_params`` load a parameter tree
 of numpy arrays, laid out as the JAX package's initialisers build it,
 into the port's modules, and ``transformer_from_params`` turns such a
-tree into the dense decoder's parameter dict.
+tree into the decoder's parameter dict.
 
 Datacube spec::
 
@@ -200,9 +200,10 @@ def nequip_from_params(cfg: _nequip.NequIPConfig, params: dict,
 
 
 def _carry_tree(tree: dict, want: dict, what: str, device: torch.device,
-                dtype: torch.dtype, layer: int | None = None) -> dict:
+                layer: int | None = None) -> dict:
     """``tree`` (numpy arrays; with ``layer``, stacked along a leading
-    layer axis and taken at ``layer``) as tensors shaped like ``want``."""
+    layer axis and taken at ``layer``) as tensors shaped like ``want``
+    and in its dtypes."""
     if set(tree) != set(want):
         raise ValueError(f"{what}: keys {sorted(tree)}, expected "
                          f"{sorted(want)}")
@@ -210,8 +211,7 @@ def _carry_tree(tree: dict, want: dict, what: str, device: torch.device,
     for key, spec in want.items():
         name = f"{what}.{key}"
         if isinstance(spec, dict):
-            out[key] = _carry_tree(tree[key], spec, name, device, dtype,
-                                   layer)
+            out[key] = _carry_tree(tree[key], spec, name, device, layer)
             continue
         arr = np.asarray(tree[key])
         if layer is not None:
@@ -220,7 +220,7 @@ def _carry_tree(tree: dict, want: dict, what: str, device: torch.device,
             raise ValueError(f"{name}: shape {arr.shape}, expected "
                              f"{tuple(spec.shape)}")
         out[key] = torch.from_numpy(np.array(arr, order="C")).to(
-            device=device, dtype=dtype)
+            device=device, dtype=spec.dtype)
     return out
 
 
@@ -228,27 +228,34 @@ def transformer_from_params(cfg: _transformer.TransformerConfig,
                             params: dict, device=None) -> dict:
     """The port's parameter dict for ``params``, a tree of numpy arrays
     as the JAX package's ``init_params`` builds it: ``{"embed":
-    {"table"}, "final_norm": {"scale"}, "groups": [stacked layers]}``
-    (and ``"head"`` for untied embeddings).  The one group of a dense
-    model holds each layer leaf stacked (L, ...): it is unstacked into
-    ``params["layers"]``.  Every shape is checked; the tensors are cast
-    to ``cfg.dtype`` on ``device`` (None = the card)."""
+    {"table"}, "final_norm": {"scale"}, "groups": [stacked layers, ...]}``
+    (and ``"head"`` for untied embeddings, ``"mtp"`` for DeepSeek's
+    multi-token-prediction head).  Each of ``cfg.layer_groups()``'s
+    groups holds its layers' leaves stacked (L_group, ...): they are
+    unstacked into ``params["layers"]`` in execution order.  The group
+    count, every key and every shape are checked; the tensors are cast
+    to ``cfg.dtype`` (the MoE router stays float32) on ``device`` (None
+    = the card)."""
     want = _transformer.init_params(cfg, device="meta")
     dev = resolve_device(device)
     groups = params.get("groups", [])
-    if len(groups) != 1:
-        raise ValueError(f"{cfg.name}: {len(groups)} layer groups, a "
-                         f"dense model has one")
+    layout = cfg.layer_groups()
+    if len(groups) != len(layout):
+        raise ValueError(f"{cfg.name}: {len(groups)} layer groups, the "
+                         f"configuration has {len(layout)}")
     top = {k: v for k, v in params.items() if k != "groups"}
     top_want = {k: v for k, v in want.items() if k != "layers"}
-    out = _carry_tree(top, top_want, cfg.name, dev, cfg.dtype)
-    for leaf in _transformer.tree_leaves(groups[0]):
-        if np.shape(leaf)[:1] != (cfg.n_layers,):
-            raise ValueError(f"{cfg.name}: a stacked layer leaf of shape "
-                             f"{np.shape(leaf)}, expected {cfg.n_layers} "
-                             f"layers")
-    out["layers"] = [
-        _carry_tree(groups[0], spec, f"{cfg.name}.layers[{i}]", dev,
-                    cfg.dtype, layer=i)
-        for i, spec in enumerate(want["layers"])]
+    out = _carry_tree(top, top_want, cfg.name, dev)
+    out["layers"] = []
+    for gi, ((n, _), group) in enumerate(zip(layout, groups)):
+        for leaf in _transformer.tree_leaves(group):
+            if np.shape(leaf)[:1] != (n,):
+                raise ValueError(f"{cfg.name}: a stacked leaf of group {gi} "
+                                 f"has shape {np.shape(leaf)}, expected "
+                                 f"{n} layers")
+        for j in range(n):
+            i = len(out["layers"])
+            out["layers"].append(_carry_tree(
+                group, want["layers"][i], f"{cfg.name}.layers[{i}]", dev,
+                layer=j))
     return out

@@ -11,6 +11,8 @@ from __future__ import annotations
 import importlib
 
 _MODULES = {
+    "deepseek-v3-671b": "deepseek_v3_671b",
+    "arctic-480b": "arctic_480b",
     "dlrm-rm2": "dlrm_rm2",
     "deepfm": "deepfm",
     "nequip": "nequip",

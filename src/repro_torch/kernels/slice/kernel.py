@@ -15,6 +15,7 @@ import torch
 
 from .. import _build
 from .._build import LAUNCHES
+from .ref import promote_bool
 
 
 def slice_batch(verts: torch.Tensor, valid: torch.Tensor,
@@ -163,7 +164,7 @@ def batched_plan_2d(verts: torch.Tensor, valid: torch.Tensor,
         values = torch.empty((p, max_rows * max_cols), dtype=field.dtype,
                              device=dev)
     if p == 0:
-        return offsets, n_points, values
+        return offsets, n_points, _promoted(values)
     lib = _build.library("batched_plan")
     status = lib.polytope_batched_plan_2d(
         dev.index or 0, int(fdt == torch.float64), verts.data_ptr(),
@@ -175,4 +176,10 @@ def batched_plan_2d(verts: torch.Tensor, valid: torch.Tensor,
         _build.stream_of(dev))
     _build.check(lib, status, "batched_plan_2d")
     LAUNCHES["batched_plan_2d"] += 1
-    return offsets, n_points, values
+    return offsets, n_points, _promoted(values)
+
+
+def _promoted(values: torch.Tensor | None) -> torch.Tensor | None:
+    """A bool field's values, read as 1-byte words, cast to int32 as the
+    plain version (``ref.promote_bool``) and the JAX package give them."""
+    return None if values is None else promote_bool(values)

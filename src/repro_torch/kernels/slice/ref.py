@@ -201,4 +201,10 @@ def batched_plan_2d(verts: torch.Tensor, valid: torch.Tensor,
     values = torch.where(flat_off >= 0, taken.reshape(flat_off.shape),
                          torch.zeros((), dtype=field.dtype,
                                      device=field.device))
-    return offsets, n_points, values
+    return offsets, n_points, promote_bool(values)
+
+
+def promote_bool(values: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``jnp.where(mask, take, 0)`` promotes a bool
+    field's values to int32; every other dtype keeps its own."""
+    return values.to(torch.int32) if values.dtype == torch.bool else values

@@ -1,4 +1,12 @@
-"""Serving launcher for the port.
+"""Serving launcher for the port, in two modes: ``lm`` (the default, as
+in the JAX package's launcher) and ``extract``.
+
+``lm`` — the continuous-batching LM engine over the paged KV cache, on
+the architecture's smoke configuration with random weights (seed 0);
+each decode round's GQA attention runs through kernel B8, MLA's
+(DeepSeek-V3) in plain PyTorch over its latent pages:
+
+    python -m repro_torch.launch.serve --arch deepseek-v3-671b
 
 ``extract`` — the polytope extraction service under a Zipfian request
 mix (the production pattern: a few hot crops dominate traffic), serving
@@ -6,12 +14,6 @@ plans from the sharded LRU plan cache (DESIGN.md §4, §7) and reading
 values from a payload that lives on the card:
 
     python -m repro_torch.launch.serve --mode extract --grid-n 1280
-
-``lm`` — the continuous-batching LM engine over the paged KV cache, on
-the architecture's smoke configuration with random weights (seed 0),
-each decode round's attention through kernel B8:
-
-    python -m repro_torch.launch.serve --mode lm --arch glm4-9b
 
 ``--device cpu`` runs either mode with the plain PyTorch versions of
 the kernels.
@@ -183,7 +185,7 @@ def run_extract(args) -> ExtractRun:
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", choices=["lm", "extract"], default="extract")
+    ap.add_argument("--mode", choices=["lm", "extract"], default="lm")
     ap.add_argument("--requests", type=int, default=8)
     # lm mode
     ap.add_argument("--arch", default="glm4-9b")

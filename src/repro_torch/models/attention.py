@@ -1,27 +1,31 @@
-"""Attention: GQA (grouped-query), over a dense cache and over the
-paged KV pool.
+"""Attention: GQA (grouped-query) and MLA (multi-head latent attention,
+DeepSeek), over a dense cache and over the paged pool.
 
-Three paths, as in the JAX package, plus the serving engine's:
+The JAX package's paths, plus the serving engine's:
 
-* ``gqa_forward`` — prefill or a forward over a full sequence,
-  optionally q-chunked so the live score tiles stay bounded;
-* ``gqa_decode`` — one-token decode against a dense (B, S_max, KVH, Dh)
-  cache;
+* ``gqa_forward`` / ``mla_forward`` — prefill or a forward over a full
+  sequence, optionally q-chunked so the live score tiles stay bounded
+  (MLA expands K and V from the latent per head);
+* ``gqa_decode`` / ``mla_decode`` — one-token decode against a dense
+  cache: GQA's (B, S_max, KVH, Dh) K and V, MLA's (B, S_max, kv_rank)
+  latent and (B, S_max, rope_dim) rope key, read in the *absorbed* form
+  (scores taken in the latent space, scale 1/√(dn + dr));
 * ``gqa_decode_paged`` — one-token decode against the page pool
   (NP, KVH, PS, Dh) addressed by the engine's block tables: the new K/V
   row is written into its page, then kernel B8
-  (``kernels.paged_attn``) attends over the planned pages.
+  (``kernels.paged_attn``) attends over the planned pages;
+* ``mla_decode_paged`` — the same for MLA's latent pages, (NP, PS,
+  kv_rank) and (NP, PS, rope_dim): the new latent row is written into
+  its page, each sequence's pages are gathered into a dense view, and
+  the absorbed decode runs over it in plain PyTorch.  MLA decode has no
+  Pallas kernel in the JAX package (B8 is GQA's).
 
 Scores and softmax are float32, with the JAX package's finite mask value
 ``NEG_INF`` in the dense paths; B8 masks by ``pos < seq_lens``, which
 agrees with the dense decode's ``pos <= position`` when
 ``seq_lens = position + 1``.  JAX arrays are immutable; here the dense
-decode's ``_scatter_time`` and the paged decode's K/V write update the
+decodes' ``_scatter_time`` and the paged decodes' row writes update the
 cache in place, and return it.
-
-MLA (multi-head latent attention, DeepSeek) is not ported yet (ROADMAP
-A10b): ``AttnConfig`` has only the GQA fields, and the transformer raises
-for an ``attn_type="mla"`` configuration.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from dataclasses import dataclass
 import torch
 
 from ..kernels.paged_attn import ops as paged_ops
-from .layers import apply_rope, dense_init, rope_freqs
+from .layers import (apply_rope, dense_init, rmsnorm, rmsnorm_init,
+                     rope_freqs)
 
 NEG_INF = -1e30
 
@@ -44,6 +49,16 @@ class AttnConfig:
     n_kv_heads: int
     d_head: int
     rope_theta: float = 10_000.0
+    # MLA (None → GQA)
+    q_lora_rank: int | None = None
+    kv_lora_rank: int | None = None
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+
+    @property
+    def is_mla(self) -> bool:
+        return self.kv_lora_rank is not None
 
 
 def gqa_init(cfg: AttnConfig, **kw) -> dict:
@@ -175,3 +190,165 @@ def gqa_decode_paged(params: dict, cfg: AttnConfig, x: torch.Tensor,
     out = paged_ops.paged_decode_attention(q.reshape(b, h, dh), k_pages,
                                            v_pages, block_table, seq_lens)
     return out.reshape(b, 1, h * dh) @ params["wo"].to(x.dtype)
+
+
+# =====================================================================
+# MLA (DeepSeek-V2/V3 multi-head latent attention)
+# =====================================================================
+def mla_init(cfg: AttnConfig, **kw) -> dict:
+    """``wkv_a``, ``kv_norm``, ``wk_b``, ``wv_b``, ``wo`` and either
+    ``wq_a``, ``q_norm``, ``wq_b`` (with ``q_lora_rank``) or ``wq``."""
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    p = {
+        "wkv_a": dense_init(d, kvr + dr, **kw)["w"],
+        "kv_norm": rmsnorm_init(kvr, **kw),
+        "wk_b": dense_init(kvr, h * dn, **kw)["w"],
+        "wv_b": dense_init(kvr, h * dv, **kw)["w"],
+        "wo": dense_init(h * dv, d, **kw)["w"],
+    }
+    if qr is not None:
+        p["wq_a"] = dense_init(d, qr, **kw)["w"]
+        p["q_norm"] = rmsnorm_init(qr, **kw)
+        p["wq_b"] = dense_init(qr, h * (dn + dr), **kw)["w"]
+    else:
+        p["wq"] = dense_init(d, h * (dn + dr), **kw)["w"]
+    return p
+
+
+def _mla_q(params: dict, cfg: AttnConfig, x: torch.Tensor):
+    """x (B,S,D) → q_nope (B,S,H,dn), q_rope (B,S,H,dr), RoPE not yet
+    applied."""
+    b, s, _ = x.shape
+    h, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank is not None:
+        ql = rmsnorm(params["q_norm"], x @ params["wq_a"].to(x.dtype))
+        q = ql @ params["wq_b"].to(x.dtype)
+    else:
+        q = x @ params["wq"].to(x.dtype)
+    q = q.reshape(b, s, h, dn + dr)
+    return q[..., :dn], q[..., dn:]
+
+
+def _mla_latent(params: dict, cfg: AttnConfig, x: torch.Tensor, cos, sin):
+    """x (B,S,D) → the latent c_kv (B,S,kv_rank), normed, and the rope
+    key (B,S,dr), rotated: what the cache holds."""
+    b, s, _ = x.shape
+    kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    kv = x @ params["wkv_a"].to(x.dtype)                  # (B,S,kvr+dr)
+    c_kv = rmsnorm(params["kv_norm"], kv[..., :kvr])
+    k_rope = apply_rope(kv[..., kvr:].reshape(b, s, 1, dr), cos, sin)
+    return c_kv, k_rope[:, :, 0]
+
+
+def mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
+                positions: torch.Tensor, causal: bool = True,
+                q_chunk: int | None = 1024, return_cache: bool = False):
+    """x (B,S,D) → (B,S,D), K and V expanded from the latent per head;
+    with ``return_cache`` also ``{"c_kv", "k_rope"}`` (B,S,kv_rank) and
+    (B,S,dr)."""
+    b, s, _ = x.shape
+    h, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(params, cfg, x)
+    cos, sin = rope_freqs(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_kv, k_rope = _mla_latent(params, cfg, x, cos, sin)
+
+    k_nope = (c_kv @ params["wk_b"].to(x.dtype)).reshape(b, s, h, dn)
+    v = (c_kv @ params["wv_b"].to(x.dtype)).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, dr)], dim=-1)
+    out = _sdpa(q, k, v, positions, positions, causal, q_chunk)
+    out = out.reshape(b, s, h * dv) @ params["wo"].to(x.dtype)
+    if return_cache:
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
+    return out
+
+
+def _mla_absorbed(params: dict, cfg: AttnConfig, x: torch.Tensor,
+                  q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  c_kv: torch.Tensor, k_rope: torch.Tensor,
+                  live: torch.Tensor) -> torch.Tensor:
+    """One query token per sequence over its latent rows: q_nope
+    (B,H,dn), q_rope (B,H,dr) rotated, c_kv (B,S,kv_rank), k_rope
+    (B,S,dr), live (B,S) → (B,1,D).  W_kb is absorbed into q and W_vb
+    applied after the latent output, all in float32."""
+    b = x.shape[0]
+    h, dn, dr, dv, kvr = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                          cfg.v_head_dim, cfg.kv_lora_rank)
+    c32 = c_kv.float()
+    wkb = params["wk_b"].float().reshape(kvr, h, dn)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), wkb)
+    s_lat = torch.einsum("bhr,bsr->bhs", q_lat, c32)        # (B,H,S)
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope.float(), k_rope.float())
+    scores = (s_lat + s_rope) * (1.0 / math.sqrt(dn + dr))
+    scores = torch.where(live[:, None, :], scores, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", p, c32)
+    wvb = params["wv_b"].float().reshape(kvr, h, dv)
+    out = torch.einsum("bhr,rhd->bhd", o_lat, wvb)          # absorb W_vb
+    return out.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"].to(x.dtype)
+
+
+def _mla_decode_q(params: dict, cfg: AttnConfig, x: torch.Tensor,
+                  position: torch.Tensor):
+    """The decode token's q_nope, rotated q_rope (B,H,·) and its new
+    latent and rope-key rows (B,1,·)."""
+    q_nope, q_rope = _mla_q(params, cfg, x)                # (B,1,H,dn/dr)
+    cos, sin = rope_freqs(position[:, None], cfg.qk_rope_dim, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    c_new, kr_new = _mla_latent(params, cfg, x, cos, sin)
+    return q_nope[:, 0], q_rope[:, 0], c_new, kr_new
+
+
+def mla_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
+               cache: dict, position: torch.Tensor):
+    """Absorbed-matmul MLA decode over a dense cache: x (B,1,D); cache
+    ``c_kv`` (B,S_max,kv_rank) and ``k_rope`` (B,S_max,dr); position
+    (B,).  Returns out (B,1,D) and the cache, updated in place at
+    ``position``."""
+    q_nope, q_rope, c_new, kr_new = _mla_decode_q(params, cfg, x, position)
+    c_kv = _scatter_time(cache["c_kv"], c_new, position)
+    k_rope = _scatter_time(cache["k_rope"], kr_new, position)
+    live = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= \
+        position.long()[:, None]
+    out = _mla_absorbed(params, cfg, x, q_nope, q_rope, c_kv, k_rope, live)
+    return out, {"c_kv": c_kv, "k_rope": k_rope}
+
+
+def mla_decode_paged(params: dict, cfg: AttnConfig, x: torch.Tensor,
+                     c_pages: torch.Tensor, r_pages: torch.Tensor,
+                     position: torch.Tensor, block_table: torch.Tensor,
+                     seq_lens: torch.Tensor) -> torch.Tensor:
+    """One decode token per sequence against the latent page pool.
+
+    x (B,1,D); c_pages (NP,PS,kv_rank) and r_pages (NP,PS,dr), this
+    layer's pool; position, block_table (B,PMAX) and seq_lens as
+    ``gqa_decode_paged`` takes them.  The new latent row is written in
+    place into page ``block_table[b, pos // PS]``, slot ``pos % PS``;
+    then each sequence's PMAX pages are gathered (unused entries, -1,
+    read page 0) into a (B, PMAX·PS, ·) view and the absorbed decode
+    attends over the ``seq_lens[b]`` live rows; the rest are masked, so
+    what they hold never reaches the output.
+    Returns (B,1,D)."""
+    ps = c_pages.shape[1]
+    b, pmax = block_table.shape
+    q_nope, q_rope, c_new, kr_new = _mla_decode_q(params, cfg, x, position)
+    pos = position.long()
+    table = block_table.long()
+    page = table.gather(1, (pos // ps)[:, None])[:, 0]
+    slot = pos % ps
+    c_pages[page, slot] = c_new[:, 0].to(c_pages.dtype)
+    r_pages[page, slot] = kr_new[:, 0].to(r_pages.dtype)
+    pages = table.clamp(min=0)
+    live = torch.arange(pmax * ps, device=x.device)[None, :] < \
+        seq_lens.long()[:, None]
+    # Rows past seq_lens (the last page's tail, unused entries) score
+    # NEG_INF and weigh 0: zeroed, whatever they hold, as B8 never reads
+    # them.
+    c_kv = torch.where(live[..., None],
+                       c_pages[pages].reshape(b, pmax * ps, -1), 0)
+    k_rope = r_pages[pages].reshape(b, pmax * ps, -1)
+    return _mla_absorbed(params, cfg, x, q_nope, q_rope, c_kv, k_rope, live)

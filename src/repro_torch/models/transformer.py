@@ -1,37 +1,51 @@
-"""The dense GQA decoder (GLM-4, Granite, Yi): forward, prefill and
-decode over a dense cache, and the serving engine's paged prefill and
-decode over the page pool.
+"""The decoder of the five LM architectures: dense GQA (GLM-4, Granite,
+Yi), MLA with fine-grained MoE and MTP (DeepSeek-V3) and dense-residual
+MoE (Arctic); forward, prefill and decode over a dense cache, and the
+serving engine's paged prefill and decode over the page pool.
 
 Parameters are a nested dict of tensors with the JAX package's keys:
 ``embed.table``, ``final_norm.scale``, ``head.w`` (untied embeddings
-only) and, per layer, ``attn_norm``, ``attn`` (``wq``, ``wk``, ``wv``,
-``wo``), ``ffn_norm`` and ``ffn`` (``w_gate``, ``w_up``, ``w_down``).
-The JAX package stacks a group's layers along a leading axis for
-``jax.lax.scan``; here ``params["layers"]`` is a list, one dict per
-layer, run by a Python loop (``carry.transformer_from_params`` unstacks
-a JAX tree).  The dense caches keep the JAX layout, one group of
-``{"k", "v"}`` stacked (L, B, S_max, KVH, Dh); the page pool is one
-(L, NP, KVH, PS, Dh) tensor each for K and V.
+only), ``mtp`` (DeepSeek's multi-token-prediction head: ``norm_h``,
+``norm_e``, ``proj``, ``layer``) and, per layer, ``attn_norm``, ``attn``
+(GQA's ``wq``, ``wk``, ``wv``, ``wo`` or MLA's, ``attention.mla_init``),
+``ffn_norm`` and the FFN: ``ffn`` (``w_gate``, ``w_up``, ``w_down``) in a
+dense layer, ``moe`` (``moe.moe_init``) in an MoE layer, and both with
+``dense_residual``.  The JAX package stacks each group of layers
+(``layer_groups``: DeepSeek's leading dense layers, then the MoE layers)
+along a leading axis for ``jax.lax.scan``; here ``params["layers"]`` is
+a list, one dict per layer in execution order, run by a Python loop
+(``carry.transformer_from_params`` unstacks a JAX tree).  The dense
+caches keep the JAX layout, one dict per group stacked (L_group, B,
+S_max, ...): ``{"k", "v"}`` for GQA, ``{"c_kv", "k_rope"}`` for MLA.
+The page pools are two tensors over all layers: K and V, (L, NP, KVH,
+PS, Dh) each, for GQA; the latent and the rope key, (L, NP, PS,
+kv_rank) and (L, NP, PS, rope_dim), for MLA.  The engine holds either
+pair the same way.
+
+MoE layers route with capacity on the forward and prefill paths and
+dropless on the decode paths, as in the JAX package.  The ``mtp``
+subtree is drawn and carried, and serving never reads it; its loss
+(``_mtp_loss``) waits for the training port (ROADMAP A10d).
 
 Left out, as for NequIP: ``constrain`` (a sharding hint for the pod) and
-``jax.checkpoint`` (recomputation for training).  Not ported yet: MoE,
-dense-residual MoE and MTP (DeepSeek-V3, Arctic; ROADMAP A10b), MLA
-(A10b) and learned positions (BERT4Rec; A10c): a configuration that asks
-for one raises.
+``jax.checkpoint`` (recomputation for training).  Not ported yet:
+learned positions (BERT4Rec; ROADMAP A10c): a configuration that asks
+for them raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any
 
 import torch
 
 from .._device import resolve_device
 from .attention import (AttnConfig, gqa_decode, gqa_decode_paged,
-                        gqa_forward, gqa_init)
+                        gqa_forward, gqa_init, mla_decode, mla_decode_paged,
+                        mla_forward, mla_init)
 from .layers import (dense_init, embed, embedding_init, glu_ffn,
                      glu_ffn_init, rmsnorm, rmsnorm_init, unembed)
+from .moe import MoEConfig, moe_ffn, moe_init
 
 Params = dict
 
@@ -47,13 +61,23 @@ class TransformerConfig:
     d_head: int
     d_ff: int
     # attention
-    attn_type: str = "gqa"                  # "gqa" | "mla" (not ported)
+    attn_type: str = "gqa"                  # "gqa" | "mla"
+    q_lora_rank: int | None = None
+    kv_lora_rank: int | None = None
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
     rope_theta: float = 10_000.0
     causal: bool = True
     learned_pos: bool = False               # BERT4Rec (not ported)
-    # ffn and heads
-    moe: Any = None                         # MoE (not ported)
-    mtp: bool = False                       # DeepSeek MTP (not ported)
+    # ffn
+    moe: MoEConfig | None = None
+    n_dense_layers: int = 0                 # leading dense layers w/ MoE
+    dense_d_ff: int | None = None           # d_ff of those dense layers
+    dense_residual: bool = False            # Arctic: dense FFN ∥ MoE
+    # heads
+    mtp: bool = False                       # DeepSeek multi-token predict
+    mtp_loss_weight: float = 0.3
     tied_embeddings: bool = True
     # execution
     dtype: torch.dtype = torch.float32
@@ -63,18 +87,26 @@ class TransformerConfig:
         return AttnConfig(
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, d_head=self.d_head,
-            rope_theta=self.rope_theta)
+            rope_theta=self.rope_theta, q_lora_rank=self.q_lora_rank,
+            kv_lora_rank=self.kv_lora_rank, qk_nope_dim=self.qk_nope_dim,
+            qk_rope_dim=self.qk_rope_dim, v_head_dim=self.v_head_dim)
+
+    def layer_groups(self) -> list[tuple[int, bool]]:
+        """[(n_layers, uses_moe), …] in execution order."""
+        if self.moe is None:
+            return [(self.n_layers, False)]
+        if self.n_dense_layers:
+            return [(self.n_dense_layers, False),
+                    (self.n_layers - self.n_dense_layers, True)]
+        return [(self.n_layers, True)]
+
+    def layer_uses_moe(self) -> list[bool]:
+        """Whether each layer, in execution order, is an MoE layer."""
+        return [m for n, m in self.layer_groups() for _ in range(n)]
 
 
 def check_ported(cfg: TransformerConfig) -> None:
     """Raise for a configuration this module does not run yet."""
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attn_type} attention is not ported yet "
-            f"(ROADMAP A10b)")
-    if cfg.moe is not None or cfg.mtp:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MTP are not ported yet (ROADMAP A10b)")
     if cfg.learned_pos:
         raise NotImplementedError(
             f"{cfg.name}: learned positions are not ported yet "
@@ -82,14 +114,34 @@ def check_ported(cfg: TransformerConfig) -> None:
 
 
 # -- init --------------------------------------------------------------------
+def _layer_init(cfg: TransformerConfig, use_moe: bool, **kw) -> Params:
+    acfg = cfg.attn_config()
+    d = cfg.d_model
+    p = {
+        "attn_norm": rmsnorm_init(d, **kw),
+        "attn": (mla_init(acfg, **kw) if cfg.attn_type == "mla"
+                 else gqa_init(acfg, **kw)),
+        "ffn_norm": rmsnorm_init(d, **kw),
+    }
+    if use_moe:
+        p["moe"] = moe_init(cfg.moe, **kw)
+        if cfg.dense_residual:
+            p["ffn"] = glu_ffn_init(d, cfg.dense_d_ff or cfg.d_ff, **kw)
+    else:
+        d_ff = cfg.dense_d_ff if (cfg.moe is not None and cfg.dense_d_ff) \
+            else cfg.d_ff
+        p["ffn"] = glu_ffn_init(d, d_ff, **kw)
+    return p
+
+
 def init_params(cfg: TransformerConfig, device=None, seed: int = 0
                 ) -> Params:
     """Random weights as the JAX package's ``init_params`` draws them
-    (normal · 1/√d_in, embeddings · 0.02, norms ones), in ``cfg.dtype``
-    on ``device`` (None = the card), from a ``torch.Generator`` seeded
-    with ``seed``.  Each tensor is drawn in place where it lives, so the
-    weights are never held twice.  ``device="meta"`` gives the shapes
-    and allocates nothing."""
+    (normal · 1/√d_in, embeddings · 0.02, norms ones; the MoE router in
+    float32, everything else in ``cfg.dtype``) on ``device`` (None = the
+    card), from a ``torch.Generator`` seeded with ``seed``.  Each tensor
+    is drawn in place where it lives, so the weights are never held
+    twice.  ``device="meta"`` gives the shapes and allocates nothing."""
     check_ported(cfg)
     dev = torch.device("meta") if device == "meta" else \
         resolve_device(device)
@@ -100,18 +152,17 @@ def init_params(cfg: TransformerConfig, device=None, seed: int = 0
     params: Params = {
         "embed": embedding_init(cfg.vocab, d, **kw),
         "final_norm": rmsnorm_init(d, **kw),
-        "layers": [],
+        "layers": [_layer_init(cfg, m, **kw) for m in cfg.layer_uses_moe()],
     }
     if not cfg.tied_embeddings:
         params["head"] = dense_init(d, cfg.vocab, **kw)
-    acfg = cfg.attn_config()
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "attn_norm": rmsnorm_init(d, **kw),
-            "attn": gqa_init(acfg, **kw),
-            "ffn_norm": rmsnorm_init(d, **kw),
-            "ffn": glu_ffn_init(d, cfg.d_ff, **kw),
-        })
+    if cfg.mtp:
+        params["mtp"] = {
+            "norm_h": rmsnorm_init(d, **kw),
+            "norm_e": rmsnorm_init(d, **kw),
+            "proj": dense_init(2 * d, d, **kw),
+            "layer": _layer_init(cfg, False, **kw),
+        }
     return params
 
 
@@ -136,8 +187,18 @@ def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
     return embed(params["embed"], tokens).to(cfg.dtype)
 
 
-def _ffn_block(lp: Params, x: torch.Tensor) -> torch.Tensor:
-    return x + glu_ffn(lp["ffn"], rmsnorm(lp["ffn_norm"], x))
+def _ffn_block(cfg: TransformerConfig, use_moe: bool, lp: Params,
+               x: torch.Tensor, dropless: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The residual FFN half of a layer (``_layer_apply``'s second half):
+    (x + FFN(norm(x)), the MoE aux loss or None)."""
+    f = rmsnorm(lp["ffn_norm"], x)
+    if not use_moe:
+        return x + glu_ffn(lp["ffn"], f), None
+    out, aux = moe_ffn(lp["moe"], cfg.moe, f, dropless=dropless)
+    if cfg.dense_residual:
+        out = out + glu_ffn(lp["ffn"], f)
+    return x + out, aux
 
 
 def _logits(params: Params, cfg: TransformerConfig, h: torch.Tensor):
@@ -151,20 +212,27 @@ def _positions(tokens: torch.Tensor) -> torch.Tensor:
     return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
 
 
+def _forward_attn(cfg: TransformerConfig):
+    return mla_forward if cfg.attn_type == "mla" else gqa_forward
+
+
 def trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
           positions: torch.Tensor | None = None
           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) → (hidden (B, S, D) after final norm, aux_loss)."""
+    """tokens (B, S) → (hidden (B, S, D) after final norm, aux_loss, the
+    MoE layers' summed)."""
     check_ported(cfg)
     if positions is None:
         positions = _positions(tokens)
-    acfg = cfg.attn_config()
+    acfg, attn = cfg.attn_config(), _forward_attn(cfg)
     x = _embed(params, cfg, tokens)
-    for lp in params["layers"]:
-        h = gqa_forward(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x),
-                        positions, causal=cfg.causal, q_chunk=cfg.q_chunk)
-        x = _ffn_block(lp, x + h)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, use_moe in zip(params["layers"], cfg.layer_uses_moe()):
+        h = attn(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), positions,
+                 causal=cfg.causal, q_chunk=cfg.q_chunk)
+        x, a = _ffn_block(cfg, use_moe, lp, x + h)
+        if a is not None:
+            aux = aux + a
     return rmsnorm(params["final_norm"], x), aux
 
 
@@ -177,30 +245,52 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
 
 
 # -- serving over a dense cache ------------------------------------------
+def _cache_shapes(cfg: TransformerConfig, batch: int, max_seq: int
+                  ) -> dict[str, tuple[int, ...]]:
+    """One layer's dense cache entries, (B, S_max, ...) each."""
+    if cfg.attn_type == "mla":
+        return {"c_kv": (batch, max_seq, cfg.kv_lora_rank),
+                "k_rope": (batch, max_seq, cfg.qk_rope_dim)}
+    kv = (batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    return {"k": kv, "v": kv}
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
                dtype: torch.dtype | None = None, device=None) -> list:
-    """Dense decode cache: one group ``{"k", "v"}`` stacked
-    (L, B, S_max, KVH, Dh), zeros."""
+    """Dense decode cache, one dict per layer group stacked (L_group, B,
+    S_max, ...): ``{"k", "v"}`` (GQA) or ``{"c_kv", "k_rope"}`` (MLA),
+    zeros."""
     check_ported(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
     kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
-    return [{"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}]
+    shapes = _cache_shapes(cfg, batch, max_seq)
+    return [{key: torch.zeros((n, *shape), **kw)
+             for key, shape in shapes.items()}
+            for n, _ in cfg.layer_groups()]
+
+
+def _layer_caches(cfg: TransformerConfig, caches: list) -> list[dict]:
+    """Each layer's view of the dense cache, in execution order."""
+    return [{key: c[j] for key, c in cache.items()}
+            for (n, _), cache in zip(cfg.layer_groups(), caches)
+            for j in range(n)]
 
 
 def _prefill_trunk(params: Params, cfg: TransformerConfig,
                    tokens: torch.Tensor, store) -> torch.Tensor:
-    """Run the prompt, hand each layer's K/V (B, S, KVH, Dh) to
-    ``store(layer, k, v)``, and return the last position's logits."""
+    """Run the prompt, hand each layer's cache entries (``{"k", "v"}``
+    (B, S, KVH, Dh) or ``{"c_kv", "k_rope"}`` (B, S, ·)) to
+    ``store(layer, entries)``, and return the last position's logits."""
     check_ported(cfg)
     positions = _positions(tokens)
-    acfg = cfg.attn_config()
+    acfg, attn = cfg.attn_config(), _forward_attn(cfg)
     x = _embed(params, cfg, tokens)
-    for i, lp in enumerate(params["layers"]):
-        h, kv = gqa_forward(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x),
-                            positions, causal=cfg.causal,
-                            q_chunk=cfg.q_chunk, return_cache=True)
-        store(i, kv["k"], kv["v"])
-        x = _ffn_block(lp, x + h)
+    for i, (lp, use_moe) in enumerate(zip(params["layers"],
+                                          cfg.layer_uses_moe())):
+        h, kv = attn(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x),
+                     positions, causal=cfg.causal, q_chunk=cfg.q_chunk,
+                     return_cache=True)
+        store(i, kv)
+        x, _ = _ffn_block(cfg, use_moe, lp, x + h)
     h = rmsnorm(params["final_norm"], x[:, -1:])
     return _logits(params, cfg, h)[:, 0]
 
@@ -211,10 +301,11 @@ def prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     filled dense cache, padded with zeros to ``max_seq``."""
     b, s = tokens.shape
     caches = init_cache(cfg, b, max_seq, device=tokens.device)
+    layers = _layer_caches(cfg, caches)
 
-    def store(i, k, v):
-        caches[0]["k"][i, :, :s] = k
-        caches[0]["v"][i, :, :s] = v
+    def store(i, kv):
+        for key, value in kv.items():
+            layers[i][key][:, :s] = value
 
     return _prefill_trunk(params, cfg, tokens, store), caches
 
@@ -223,16 +314,17 @@ def decode_step(params: Params, cfg: TransformerConfig, caches: list,
                 token: torch.Tensor, position: torch.Tensor
                 ) -> tuple[torch.Tensor, list]:
     """One decode step over the dense cache.  token (B,), position (B,)
-    → logits (B, V); the caches are updated in place and returned."""
+    → logits (B, V); the caches are updated in place and returned.  MoE
+    layers route dropless."""
     check_ported(cfg)
     acfg = cfg.attn_config()
+    dec = mla_decode if cfg.attn_type == "mla" else gqa_decode
     x = _embed(params, cfg, token[:, None])
-    cache = caches[0]
-    for i, lp in enumerate(params["layers"]):
-        lc = {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _ = gqa_decode(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x),
-                          lc, position)
-        x = _ffn_block(lp, x + h)
+    for lp, lc, use_moe in zip(params["layers"], _layer_caches(cfg, caches),
+                               cfg.layer_uses_moe()):
+        h, _ = dec(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), lc,
+                   position)
+        x, _ = _ffn_block(cfg, use_moe, lp, x + h, dropless=True)
     h = rmsnorm(params["final_norm"], x)
     return _logits(params, cfg, h)[:, 0], caches
 
@@ -240,11 +332,17 @@ def decode_step(params: Params, cfg: TransformerConfig, caches: list,
 # -- serving over the page pool ------------------------------------------
 def init_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
                      device=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The K and V page pools, (L, NP, KVH, PS, Dh) each in
-    ``cfg.dtype``, zeros."""
+    """The two page pools over all layers in ``cfg.dtype``, zeros: K and
+    V, (L, NP, KVH, PS, Dh) each (GQA), or the latent and the rope key,
+    (L, NP, PS, kv_rank) and (L, NP, PS, rope_dim) (MLA)."""
     check_ported(cfg)
-    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.d_head)
     kw = dict(dtype=cfg.dtype, device=resolve_device(device))
+    if cfg.attn_type == "mla":
+        return (torch.zeros((cfg.n_layers, n_pages, page_size,
+                             cfg.kv_lora_rank), **kw),
+                torch.zeros((cfg.n_layers, n_pages, page_size,
+                             cfg.qk_rope_dim), **kw))
+    shape = (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size, cfg.d_head)
     return torch.zeros(shape, **kw), torch.zeros(shape, **kw)
 
 
@@ -252,18 +350,23 @@ def prefill_paged(params: Params, cfg: TransformerConfig,
                   tokens: torch.Tensor, k_pool: torch.Tensor,
                   v_pool: torch.Tensor, pages: torch.Tensor
                   ) -> torch.Tensor:
-    """Prefill one prompt (1, S) and write its K/V into ``pages`` (the
-    pager's table for it, ceil(S / PS) page ids) of every layer's pool,
-    in place: token t goes to page ``pages[t // PS]``, slot
-    ``t % PS``.  Returns the last position's logits (1, V)."""
+    """Prefill one prompt (1, S) and write its cache rows into ``pages``
+    (the pager's table for it, ceil(S / PS) page ids) of every layer's
+    pools (``init_paged_cache``'s pair), in place: token t goes to page
+    ``pages[t // PS]``, slot ``t % PS``.  Returns the last position's
+    logits (1, V)."""
     s = tokens.shape[1]
-    ps = k_pool.shape[3]
+    ps = k_pool.shape[-2]
     t = torch.arange(s, device=tokens.device)
     page, slot = pages.long()[t // ps], t % ps
 
-    def store(i, k, v):
-        k_pool[i, page, :, slot] = k[0]
-        v_pool[i, page, :, slot] = v[0]
+    def store(i, kv):
+        if cfg.attn_type == "mla":
+            k_pool[i, page, slot] = kv["c_kv"][0]
+            v_pool[i, page, slot] = kv["k_rope"][0]
+        else:
+            k_pool[i, page, :, slot] = kv["k"][0]
+            v_pool[i, page, :, slot] = kv["v"][0]
 
     return _prefill_trunk(params, cfg, tokens, store)
 
@@ -273,17 +376,20 @@ def decode_paged(params: Params, cfg: TransformerConfig,
                  token: torch.Tensor, position: torch.Tensor,
                  block_table: torch.Tensor, seq_lens: torch.Tensor
                  ) -> torch.Tensor:
-    """One batched decode step over the page pool: token (B,), position
+    """One batched decode step over the page pools: token (B,), position
     (B,), block_table (B, PMAX), seq_lens (B,) = position + 1 →
-    logits (B, V).  Each layer writes the new K/V row into the pool in
-    place and launches B8 once over all B sequences."""
+    logits (B, V).  Each layer writes the new cache row into its pools
+    in place; GQA then launches B8 once over all B sequences, MLA runs
+    its absorbed decode over the gathered latent pages.  MoE layers
+    route dropless."""
     check_ported(cfg)
     acfg = cfg.attn_config()
+    dec = mla_decode_paged if cfg.attn_type == "mla" else gqa_decode_paged
     x = _embed(params, cfg, token[:, None])
-    for i, lp in enumerate(params["layers"]):
-        h = gqa_decode_paged(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x),
-                             k_pool[i], v_pool[i], position, block_table,
-                             seq_lens)
-        x = _ffn_block(lp, x + h)
+    for i, (lp, use_moe) in enumerate(zip(params["layers"],
+                                          cfg.layer_uses_moe())):
+        h = dec(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), k_pool[i],
+                v_pool[i], position, block_table, seq_lens)
+        x, _ = _ffn_block(cfg, use_moe, lp, x + h, dropless=True)
     h = rmsnorm(params["final_norm"], x)
     return _logits(params, cfg, h)[:, 0]

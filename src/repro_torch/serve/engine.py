@@ -10,14 +10,19 @@ exhaust the pool (``MemoryError``, ROADMAP C4); a request that no pool of
 ``n_pages`` could ever hold raises at ``submit`` instead of waiting
 forever.
 
-The K/V of every sequence lives in the page pool, one (L, NP, KVH, PS,
-Dh) tensor each for K and V in ``cfg.dtype`` on the engine's device,
-addressed by the pager's block tables.  Prefill runs per request over
-its prompt and writes the prompt's K/V into its pages.  A decode round
-takes one ``pager.plan`` of the live sequences (insertion order), copies
-it to the device once, and runs one batched decode step: every layer
-writes the new K/V row at position ``lengths - 1`` and launches B8
-(``kernels.paged_attn``) once over all live sequences.  The JAX engine
+The cache of every sequence lives in the page pools that
+``transformer.init_paged_cache`` gives, in ``cfg.dtype`` on the engine's
+device, addressed by the pager's block tables: K and V, (L, NP, KVH,
+PS, Dh) each, for GQA; the latent and the rope key, (L, NP, PS, ·), for
+MLA (DeepSeek-V3).  The engine holds either pair as ``k_pool`` and
+``v_pool``.  Prefill runs per request over its prompt and writes the
+prompt's rows into its pages.  A decode round takes one ``pager.plan``
+of the live sequences (insertion order), copies it to the device once,
+and runs one batched decode step: every layer writes the new row at
+position ``lengths - 1``; GQA then launches B8 (``kernels.paged_attn``)
+once over all live sequences, MLA attends over its gathered latent
+pages.  MoE layers route dropless in a decode round, with capacity at
+prefill, as in the JAX package.  The JAX engine
 decodes each sequence alone over a dense cache and keeps the pager as
 bookkeeping only; the token streams and the pager's decisions are the
 same.
@@ -51,6 +56,8 @@ class EngineConfig:
     max_seq: int = 256
     page_size: int = 16
     n_pages: int = 512
+    greedy: bool = True        # the JAX package's field; both engines are
+                               # greedy and neither reads it
 
 
 class ServeEngine:

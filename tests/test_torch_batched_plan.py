@@ -228,6 +228,8 @@ def _field(dtype, seed=0):
     n = AXIS0.size * AXIS1.size
     if np.dtype(dtype).kind == "f":
         return rng.normal(size=n).astype(dtype)
+    if np.dtype(dtype).kind == "b":
+        return rng.integers(0, 2, n).astype(dtype)
     return rng.integers(1, 100, n).astype(dtype)
 
 
@@ -246,9 +248,12 @@ def test_plain_plan_matches_jax(case):
         _assert_bytes_equal(g, w)
 
 
-@pytest.mark.parametrize("dtype", (np.float32, np.int16, np.uint8))
+@pytest.mark.parametrize("dtype", (np.float32, np.int16, np.uint8,
+                                   np.bool_))
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_extract_matches_jax(case, dtype):
+    """Values, offsets and counts byte-equal, dtype included: a bool
+    field's values come back as int32 (ROADMAP C10)."""
     (verts, valid), rows, cols = CASES[case]
     field = _field(dtype)
     got = port_core.batched_extract_2d(torch.from_numpy(field), verts, valid,

@@ -22,7 +22,11 @@ So does each B6 case: the tiled kernel for rows of fewer than
 The batched crop planner runs as one launch per entry point
 (``batched_plan_2d``, ``batched_extract_2d``), with no launch of B4 on its
 own or of B1 and no host sync, on the layouts of
-``tests/torch_batched_cases.py``.
+``tests/torch_batched_cases.py``; a bool field's values come back as
+int32 on the card as on the CPU.  The MoE routing and layer and MLA run
+no kernel of the port (plain PyTorch and cuBLAS on the card): routing is
+byte-equal to the CPU's on the same logits, the layers within
+rtol = atol = 2e-5 in float32.
 """
 
 import dataclasses
@@ -501,6 +505,26 @@ def test_batched_plan_2d_reads_every_word_width(cuda_device, dtype):
     want = sref.batched_plan_2d(*tens, n0, n1, 12, 16, field)
     for a, b in zip(got, want):
         assert _bytes_equal(a, b), dtype
+
+
+def test_batched_extract_2d_bool_field_gives_int32(cuda_device):
+    """A bool field's values, read as 1-byte words on the card, come back
+    as int32, as on the CPU and in the JAX package (ROADMAP C10)."""
+    from repro_torch.core import batched
+
+    verts, valid = batched_random_layer(3, p=64)
+    n0, n1 = BATCHED_AXIS0.size, BATCHED_AXIS1.size
+    gen = torch.Generator().manual_seed(1)
+    field = torch.randint(0, 2, (n0 * n1,), generator=gen).bool()
+    got = batched.batched_extract_2d(field.to(cuda_device), verts, valid,
+                                     BATCHED_AXIS0, BATCHED_AXIS1, 12, 16,
+                                     device=cuda_device)
+    want = batched.batched_extract_2d(field, verts, valid, BATCHED_AXIS0,
+                                      BATCHED_AXIS1, 12, 16, device="cpu")
+    assert got[0].dtype == want[0].dtype == torch.int32
+    assert int(got[0].sum()) > 0
+    for a, b in zip(got, want):
+        assert _bytes_equal(a.cpu(), b)
 
 
 def test_batched_entry_points_make_no_host_sync(cuda_device):
@@ -1036,7 +1060,7 @@ def test_paged_decode_attention_refuses_what_it_does_not_take(cuda_device):
             -1, -1, -1, 256).contiguous(), table[:1], lens[:1])
 
 
-@pytest.mark.parametrize("arch", ("glm4-9b", "yi-34b"))
+@pytest.mark.parametrize("arch", ("glm4-9b", "yi-34b", "arctic-480b"))
 def test_engine_on_the_card_equals_plain_attention(cuda_device, arch,
                                                    monkeypatch):
     from repro_torch import configs
@@ -1091,3 +1115,101 @@ def test_paged_decode_attention_refuses_minus_one_among_live_pages(
         with pytest.raises(IndexError, match="live pages"):
             paops.paged_decode_attention(q, kp, vp, bad, lens)
     assert LAUNCHES[name] == before + 1
+
+
+# -- MoE routing, the MoE layer and MLA (plain PyTorch on the card) ------------
+
+def _moe_params(cfg, seed):
+    from repro_torch.models import moe
+
+    gen = torch.Generator().manual_seed(seed)
+    return moe.moe_init(cfg, generator=gen, device=torch.device("cpu"),
+                        dtype=torch.float32)
+
+
+@pytest.mark.parametrize("e,k,t", [(256, 8, 1024), (128, 2, 1000),
+                                   (8, 2, 7)])
+@pytest.mark.parametrize("ties", (False, True))
+def test_route_on_the_card_equals_the_cpu(cuda_device, e, k, t, ties):
+    """The same float32 logits route to the same bytes on both devices:
+    ids, gates, positions, kept slots (and the float32 probabilities)."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(d_model=4, d_ff=4, n_experts=e, top_k=k)
+    gen = torch.Generator().manual_seed(e + t)
+    logits = torch.randn(2, t, e, generator=gen) * 2
+    if ties:
+        logits = torch.round(logits)          # many equal values a row
+    for dropless in (False, True):
+        got = moe.route(logits.to(cuda_device), cfg, dropless)
+        want = moe.route(logits, cfg, dropless)
+        assert got.capacity == want.capacity
+        for a, b in zip(got[:5], want[:5]):
+            assert _bytes_equal(a.cpu(), b)
+        assert dropless or not bool(want.keep.all())
+
+
+@pytest.mark.parametrize("n_shared,n_groups,shape",
+                         [(1, 32, (1, 64)), (1, 32, (1, 50)),
+                          (0, 32, (8, 1)), (0, 1, (2, 9))])
+@pytest.mark.parametrize("dropless", (False, True))
+def test_moe_ffn_on_the_card(cuda_device, n_shared, n_groups, shape,
+                             dropless):
+    """``moe_ffn`` in float32 (TF32 off) on the card against the CPU:
+    the same routing, values within rtol = atol = 2e-5 (cuBLAS and the
+    CPU order their float32 products their own way)."""
+    from repro_torch.models import moe
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = moe.MoEConfig(d_model=32, d_ff=48, n_experts=16, top_k=4,
+                        n_shared=n_shared, n_groups=n_groups)
+    params = _moe_params(cfg, seed=1)
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn(*shape, 32, generator=gen)
+    want, aux = moe.moe_ffn(params, cfg, x, dropless=dropless)
+    on = {key: v.to(cuda_device) if torch.is_tensor(v) else
+          {kk: vv.to(cuda_device) for kk, vv in v.items()}
+          for key, v in params.items()}
+    got, got_aux = moe.moe_ffn(on, cfg, x.to(cuda_device),
+                               dropless=dropless)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(got_aux.cpu(), aux, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("q_lora_rank", (None, 24))
+def test_mla_on_the_card(cuda_device, q_lora_rank):
+    """``mla_forward`` and the paged MLA decode in float32 on the card
+    against the CPU, within rtol = atol = 2e-5."""
+    from repro_torch.models import attention as attn
+
+    cfg = attn.AttnConfig(d_model=32, n_heads=4, n_kv_heads=4, d_head=16,
+                          q_lora_rank=q_lora_rank, kv_lora_rank=16,
+                          qk_nope_dim=8, qk_rope_dim=8, v_head_dim=12)
+    gen = torch.Generator().manual_seed(3)
+    params = attn.mla_init(cfg, generator=gen, device=torch.device("cpu"),
+                           dtype=torch.float32)
+    on = {key: v.to(cuda_device) if torch.is_tensor(v) else
+          {kk: vv.to(cuda_device) for kk, vv in v.items()}
+          for key, v in params.items()}
+    x = torch.randn(2, 11, 32, generator=gen)
+    pos = torch.arange(11)[None].expand(2, 11)
+    want, kv = attn.mla_forward(params, cfg, x, pos, q_chunk=4,
+                                return_cache=True)
+    got, gkv = attn.mla_forward(on, cfg, x.to(cuda_device),
+                                pos.to(cuda_device), q_chunk=4,
+                                return_cache=True)
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    # the paged decode: both sequences' 11 rows in pages of 4, one step
+    c_pool = torch.zeros(8, 4, 16)
+    r_pool = torch.zeros(8, 4, 8)
+    table = torch.tensor([[5, 0, 2, -1], [1, 7, 3, 6]], dtype=torch.int32)
+    t = torch.arange(11)
+    for b in range(2):
+        c_pool[table[b, t // 4].long(), t % 4] = kv["c_kv"][b]
+        r_pool[table[b, t // 4].long(), t % 4] = kv["k_rope"][b]
+    lens = torch.tensor([12, 12], dtype=torch.int32)
+    xd = torch.randn(2, 1, 32, generator=gen)
+    args = (xd, c_pool, r_pool, lens - 1, table, lens)
+    want = attn.mla_decode_paged(params, cfg, *[a.clone() for a in args])
+    got = attn.mla_decode_paged(on, cfg, *[a.to(cuda_device) for a in args])
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)

@@ -31,6 +31,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import arctic_480b as ref_arctic  # noqa: E402
+from repro.configs import deepseek_v3_671b as ref_deepseek  # noqa: E402
 from repro.configs import glm4_9b as ref_glm  # noqa: E402
 from repro.configs import granite_3_8b as ref_granite  # noqa: E402
 from repro.configs import yi_34b as ref_yi  # noqa: E402
@@ -44,12 +46,14 @@ from repro.serve.kv_cache import PagedKVCache as RefPagedKVCache  # noqa: E402
 
 from repro_torch import carry, configs  # noqa: E402
 from repro_torch.configs import common as port_common  # noqa: E402
-from repro_torch.configs import glm4_9b, granite_3_8b, yi_34b  # noqa: E402
+from repro_torch.configs import (arctic_480b, deepseek_v3_671b,  # noqa: E402
+                                 glm4_9b, granite_3_8b, yi_34b)
 from repro_torch.kernels import LAUNCHES  # noqa: E402
 from repro_torch.kernels.paged_attn import ops as pops  # noqa: E402
 from repro_torch.kernels.paged_attn import ref as pref  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
 from repro_torch.models import layers as port_layers  # noqa: E402
+from repro_torch.models import moe as port_moe  # noqa: E402
 from repro_torch.models import transformer as port_tf  # noqa: E402
 from repro_torch.serve import engine as port_engine  # noqa: E402
 from repro_torch.serve.kv_cache import PagedKVCache  # noqa: E402
@@ -65,7 +69,9 @@ def tol(dtype):
 
 ARCHS = {"glm4-9b": (glm4_9b, ref_glm),
          "granite-3-8b": (granite_3_8b, ref_granite),
-         "yi-34b": (yi_34b, ref_yi)}
+         "yi-34b": (yi_34b, ref_yi),
+         "deepseek-v3-671b": (deepseek_v3_671b, ref_deepseek),
+         "arctic-480b": (arctic_480b, ref_arctic)}
 
 
 # -- kernel B8 ---------------------------------------------------------------
@@ -431,6 +437,17 @@ class TestLayers:
                                           jnp.asarray(x))), **F32)
 
 
+def _assert_caches_close(cache, jcache):
+    """The dense caches, group by group and key by key (``{"k", "v"}``
+    or MLA's ``{"c_kv", "k_rope"}``)."""
+    assert len(cache) == len(jcache)
+    for ours, theirs in zip(cache, jcache):
+        assert set(ours) == set(theirs)
+        for key in theirs:
+            np.testing.assert_allclose(ours[key].numpy(),
+                                       np.asarray(theirs[key]), **F32)
+
+
 @pytest.mark.parametrize("arch", tuple(ARCHS))
 class TestDecoder:
     def test_forward(self, arch):
@@ -463,9 +480,7 @@ class TestDecoder:
         jlg, jcache = ref_tf.prefill(jp, ref_cfg, jnp.asarray(toks),
                                      max_seq=16)
         np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **F32)
-        for key in ("k", "v"):
-            np.testing.assert_allclose(cache[0][key].numpy(),
-                                       np.asarray(jcache[0][key]), **F32)
+        _assert_caches_close(cache, jcache)
         pos = np.array([9, 9], np.int32)
         for step in range(4):
             nxt = np.asarray(jnp.argmax(jlg, -1)).astype(np.int32)
@@ -477,9 +492,7 @@ class TestDecoder:
                                              jnp.asarray(pos))
             np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), **F32)
             pos = pos + 1
-        for key in ("k", "v"):
-            np.testing.assert_allclose(cache[0][key].numpy(),
-                                       np.asarray(jcache[0][key]), **F32)
+        _assert_caches_close(cache, jcache)
 
     def test_paged_decode_equals_dense_decode(self, arch):
         """The engine's paged prefill and batched paged decode (B8's
@@ -566,12 +579,27 @@ class TestParams:
         assert not a["layers"][0]["attn_norm"]["scale"].float().sub(1).any()
 
     @pytest.mark.parametrize("change", (
-        dict(attn_type="mla"), dict(moe=object()), dict(mtp=True),
+        dict(attn_type="mla", kv_lora_rank=16, qk_nope_dim=8,
+             qk_rope_dim=8, v_head_dim=16),
+        dict(moe=port_moe.MoEConfig(d_model=64, d_ff=32, n_experts=4,
+                                    top_k=2)),
+        dict(mtp=True),
         dict(learned_pos=True)), ids=("mla", "moe", "mtp", "learned_pos"))
     def test_unported_paths_raise(self, change):
+        """Only learned positions are still to port (ROADMAP A10c): MLA,
+        MoE and MTP configurations build and run one forward."""
         cfg = dataclasses.replace(glm4_9b._smoke(), **change)
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            port_tf.init_params(cfg, device="cpu")
+        if cfg.learned_pos:
+            with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
+                port_tf.init_params(cfg, device="cpu")
+            return
+        params = port_tf.init_params(cfg, device="cpu", seed=1)
+        assert ("mtp" in params) == cfg.mtp
+        logits, aux = port_tf.forward(params, cfg, torch.from_numpy(
+            _tokens(cfg.vocab, (2, 7), 0)))
+        assert logits.shape == (2, 7, cfg.vocab)
+        assert bool(torch.isfinite(logits).all())
+        assert (float(aux) > 0) == (cfg.moe is not None)
 
     def test_entry_points_default_to_the_card(self):
         cfg = glm4_9b._smoke()
@@ -665,6 +693,14 @@ def _lockstep(ours, theirs) -> tuple[list, list]:
 
 
 class TestEngine:
+    def test_reference_engine_config_constructs(self):
+        """ROADMAP C9: a configuration written for the JAX engine (its
+        ``greedy`` field included) carries over."""
+        theirs = ref_engine.EngineConfig()
+        ours = port_engine.EngineConfig(**dataclasses.asdict(theirs))
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+        assert ours.greedy is True
+
     def test_end_to_end_batch(self):
         ours, theirs = _engines(*tiny_cfgs(), dict(
             max_batch=4, max_seq=64, page_size=8, n_pages=64))
@@ -816,6 +852,13 @@ class TestLauncher:
         assert run.engine.k_pool.shape == (2, 256, _smoke(arch)[0].n_kv_heads,
                                            16, _smoke(arch)[0].d_head)
 
+    def test_lm_is_the_default_mode(self, capsys):
+        """ROADMAP C8: with no ``--mode`` the launcher serves the LM, as
+        the JAX package's does."""
+        launcher.main(["--device", "cpu", "--requests", "2",
+                       "--max-new-tokens", "2"])
+        assert "served 2 requests / 4 tokens" in capsys.readouterr().out
+
     def test_lm_mode_guards(self):
         assert launcher.parse_args([]).arch == "glm4-9b"
         assert launcher.parse_args([]).max_new_tokens == 16
@@ -824,4 +867,4 @@ class TestLauncher:
                            "--arch", "nequip"])
         with pytest.raises(SystemExit, match="unknown arch"):
             launcher.main(["--mode", "lm", "--device", "cpu",
-                           "--arch", "deepseek-v3-671b"])
+                           "--arch", "bert4rec"])

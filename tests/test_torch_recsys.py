@@ -387,7 +387,8 @@ class TestConfigs:
 
     def test_shapes_and_registry(self):
         assert port_common.RECSYS_SHAPES == REF_SHAPES
-        assert configs.ARCH_IDS == ("dlrm-rm2", "deepfm", "nequip",
+        assert configs.ARCH_IDS == ("deepseek-v3-671b", "arctic-480b",
+                                    "dlrm-rm2", "deepfm", "nequip",
                                     "glm4-9b", "granite-3-8b", "yi-34b")
         with pytest.raises(KeyError):
             configs.get_config("bert4rec")

@@ -674,7 +674,7 @@ class TestLauncher:
     def test_guards(self, tmp_path, monkeypatch):
         assert launcher.parse_args([]).bench_out == "BENCH_torch_serve.json"
         assert launcher.parse_args([]).device == "cuda"
-        assert launcher.parse_args([]).mode == "extract"
+        assert launcher.parse_args([]).mode == "lm"
         with pytest.raises(SystemExit, match="zipf"):
             launcher.run_extract(launcher.parse_args(
                 _argv(tmp_path, "--zipf-s", "1.0")))
