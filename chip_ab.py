@@ -106,7 +106,7 @@ def b6(dev) -> list:
     for kind, cfg, cls in chip_smoke.recsys_models():
         with torch.no_grad():
             model = cls(cfg, device=dev, seed=SEED)
-            bulk = chip_smoke.recsys_batches(cfg)[-1]
+            bulk = chip_smoke.recsys_batches(cfg, retrieval=False)[-1]
             with chip_smoke.recording(gk, "gather_rows_bag") as calls:
                 model(*chip_smoke.recsys_inputs(model, bulk, dev))
         bulk_calls = [a for a, _ in calls]

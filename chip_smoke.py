@@ -70,9 +70,12 @@ and then, printing one JSON line per phase:
                float32 tables) and then DeepFM (39 × 10⁶ × 10 and its
                width-1 first-order tables, 1.72 GB) at full published
                width on the card, seeded random weights, each serving
-               one untimed ``serve_p99`` batch of 512, 8 timed ones and
-               one ``serve_bulk`` batch of 262,144 from a
-               ``ClickStream``, with TF32 off; every EmbeddingBag is
+               one untimed ``serve_p99`` batch of 512, 8 timed ones,
+               one ``serve_bulk`` batch of 262,144 and one
+               ``retrieval_cand`` batch of 1,048,576 candidate rows for
+               one user (DLRM's dense features of its first row on every
+               row) from a ``ClickStream``, with TF32 off; every
+               EmbeddingBag is
                one gather_rows_bag (B6) launch: DLRM's 64-wide rows on
                B6's wide kernel, DeepFM's on its tiled kernel for narrow
                rows, each path asserted to take its own.  Every B6
@@ -80,10 +83,37 @@ and then, printing one JSON line per phase:
                byte, and so
                must the logits of the same batches with the plain
                version in B6's place; B6 is also held on the DLRM bulk
-               ids padded to L = 8; the first p99 batch's logits must
-               agree with the port's float64 CPU forward (on the rows the
+               ids padded to L = 8; the first p99 batch's logits and
+               4,096 seeded rows of the retrieval batch's must agree
+               with the port's float64 CPU forward (on the rows the
                batch reads and the weights copied to the host) within
                rtol = atol = 1e-4.  Each model is freed before the next;
+8b. recsys_retrieval — two-tower retrieval (10⁶ users and 10⁶ items ×
+               256, towers 1024-512-256, 2.05 GB of float32 tables) and
+               then BERT4Rec (vocab 2²⁰ × 64, 2 layers, 200 learned
+               positions, no causal mask) at full published width,
+               seeded random weights drawn on the card, TF32 off, each
+               freed before the next.  Two-tower: one untimed and 8
+               timed ``serve_p99`` calls (512 users × 512 items) and
+               ``retrieval_cand`` calls (one user × 2²⁰ candidates),
+               each tower's lookup one gather_rows (B1) launch on 1 KB
+               rows; every B1 call byte-equal to its plain version, and
+               so the scores with the plain version in B1's place; the
+               p99 scores and 4,096 seeded candidates within
+               ``TT_F64_MAX`` of a float64 CPU forward, two planted
+               faults (ids shifted by one, no L2 norm) outside it; one
+               profiled ``retrieval_cand`` call.  BERT4Rec: 1 + 8
+               ``serve_p99`` calls ((512, 200) histories → (512, 2²⁰)
+               logits) and ``retrieval_cand`` calls ((1, 200)), plain
+               PyTorch and cuBLAS; 9 rows within ``BERT_F64_MAX`` of a
+               float64 CPU forward, two planted faults (a causal mask,
+               no learned positions) outside it; one profiled p99 call;
+               then 4 requests behind ``ServeEngine`` within the 200
+               positions, each decode round one B8 launch a layer on
+               its CUDA-core kernel (float32, G = 1, Dh = 32), the
+               tokens equal to a run with B8's plain version.
+               ``serve_bulk`` is cut for both (its outputs: 275 GB and
+               1.1 TB);
 9. gnn       — NequIP at its published width (5 layers, 32 channels,
                l_max = 2; seeded random weights carried from a numpy
                tree with ``carry.nequip_from_params``) on three graph
@@ -159,7 +189,9 @@ and then, printing one JSON line per phase:
 12. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B1 at
-               the plain extract's read, B2 at the all-levels request,
+               the plain extract's read, with two-tower's candidate and
+               p99 item lookups timed in phase 8b as variants; B2 at the
+               all-levels request,
                the batched crop planner at phase 6's extract and its
                lattice, B4 on phase 6's cuts, B5 at phase 5's layer;
                B1, the planner, B4 and B5 also by device time,
@@ -169,7 +201,8 @@ and then, printing one JSON line per phase:
                Germany's; B6's at
                the DLRM ``serve_bulk`` shape, timed in phase 8 while the
                tables are on the card, with DeepFM's D = 10 and D = 1
-               bulk calls and the padded L = 8 bags as variants, each
+               bulk calls, the padded L = 8 bags and each model's
+               retrieval_cand calls (B = 1,048,576) as variants, each
                with the sector floor beside its bound and the kernel it
                took; B7's at
                the minibatch's l = 2 sum, timed in phase 9 (the walk over
@@ -179,13 +212,14 @@ and then, printing one JSON line per phase:
 13. the kernels line, with the launch counts of the paths.
 
 The launch counters are reset just before each path (phases 2-3, the
-plain extract, 5, 6, 7, each model of 8, each shape of 9, the engine and
-the launcher of 10, each model of 11)
+plain extract, 5, 6, 7, each model of 8, two-tower, BERT4Rec and
+BERT4Rec's engine in 8b, each shape of 9, the engine and the launcher of
+10, each model of 11)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call (and phase 11's
 routing records).  ``chip_lm_moe.py`` runs phase 11 alone at several
-seeds.  The last line is
+seeds, ``chip_retrieval.py`` phase 8b.  The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.
 """
@@ -219,6 +253,27 @@ SERVE_REQUESTS = 512           # the sharded_serve phase's Zipf draws
 PTXAS_SOURCES = ("paged_attn_tc", "plan_runs_2d", "gather", "batched_plan",
                  "slice_batch")
 SECTOR_BYTES = 32              # the unit in which the card reads memory
+# The recsys_retrieval phase (and phase 8's retrieval_cand batches):
+# rows of a 2^20-row output checked against a float64 CPU forward, and
+# the timed calls after one untimed call, at each shape.
+RETRIEVAL_SAMPLE = 4096
+RETRIEVAL_TIMED = 8
+BERT_SAMPLE_ROWS = 8           # BERT4Rec serve_p99 rows checked in float64
+# Card float32 (TF32 off) against the float64 CPU forward of the same
+# weights and inputs: two-tower's scores (cosines of 256-wide unit
+# vectors, each tower's products summed by cuBLAS in its own order) and
+# BERT4Rec's last-position logits.  Over seeds 0-2 (H100,
+# chip_retrieval.py) the gaps reached 2.20e-7 and 1.10e-6; the planted
+# faults gave 0.165-0.249 (two-tower) and 0.365-1.153 (BERT4Rec).  The
+# bounds are twice the gaps' largest readings.
+TT_F64_MAX = 4.41e-7
+BERT_F64_MAX = 2.21e-6
+# BERT4Rec behind the engine: 4 requests within its 200 positions (B8's
+# CUDA-core kernel at G = 1, Dh = 32, float32).
+BERT_ENGINE = dict(max_batch=4, max_seq=208, page_size=16, n_pages=64)
+BERT_REQUESTS = 4
+BERT_PROMPT = (64, 180)
+BERT_NEW = (8, 16)
 # NequIP's graph shapes (GNN_SHAPES of the configuration), in the order
 # the gnn phase serves them, each with one untimed and 8 timed forwards.
 GNN_RUNS = ("molecule", "full_graph_sm", "minibatch_lg")
@@ -642,6 +697,7 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
         return host(*dense, torch.from_numpy(local)).numpy()
 
     start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         t0 = time.perf_counter()
         model = cls(cfg, device=dev, seed=seed)
@@ -650,6 +706,7 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
         table_bytes = sum(m.tables.numel() * m.tables.element_size()
                           for m in bag_modules(model))
         batches = recsys_batches(cfg)
+        n_cand = RECSYS_SHAPES["retrieval_cand"]["n_cand"]
         reset_launches()
         logits, secs = [], []
         with recording(gk, "gather_rows_bag", results=True) as b6_calls:
@@ -683,14 +740,25 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
         for got in logits:
             assert bool(torch.isfinite(got).all()), f"{kind}: non-finite"
         assert tuple(logits[1].shape) == (p99_batch,)
-        assert tuple(logits[-1].shape) == (bulk_batch,)
-        # The first timed p99 batch (step 0) against the float64 CPU
-        # forward.
-        host = host_forward(model, batches[1])
-        card64 = logits[1].double().cpu().numpy()
-        host_err = float(np.abs(card64 - host).max())
-        assert np.allclose(card64, host, rtol=1e-4, atol=1e-4), \
-            f"{kind}: card logits != float64 CPU forward ({host_err})"
+        assert tuple(logits[-2].shape) == (bulk_batch,)
+        assert tuple(logits[-1].shape) == (n_cand,)
+        # The first timed p99 batch (step 0), and a seeded sample of
+        # RETRIEVAL_SAMPLE rows of the retrieval_cand batch, against the
+        # float64 CPU forward.
+        host_err = {}
+        sample = np.sort(np.random.default_rng(seed).choice(
+            n_cand, RETRIEVAL_SAMPLE, replace=False))
+        for what, batch, got in (
+                ("serve_p99", batches[1], logits[1]),
+                ("retrieval_cand", {k: v[sample] for k, v in
+                                    batches[-1].items()},
+                 logits[-1][torch.from_numpy(sample).to(dev)])):
+            host = host_forward(model, batch)
+            card64 = got.double().cpu().numpy()
+            host_err[what] = float(np.abs(card64 - host).max())
+            assert np.allclose(card64, host, rtol=1e-4, atol=1e-4), \
+                f"{kind} {what}: card logits != float64 CPU forward " \
+                f"({host_err[what]})"
         p99_ms = [t * 1e3 for t in secs[1:9]]
         row = {"model": cfg.name, "tables_bytes": table_bytes,
                "init_s": init_s, "warmup_batch_ms": secs[0] * 1e3,
@@ -699,23 +767,37 @@ def serve_recsys_model(dev, seed: int, kind: str, cfg, cls, check,
                "p99_batch_ms_max": max(p99_ms),
                "bulk_batch": bulk_batch, "bulk_s": secs[9],
                "bulk_samples_per_s": bulk_batch / secs[9],
+               "retrieval_cand_rows": n_cand,
+               "retrieval_cand_ms": secs[10] * 1e3,
+               "retrieval_cand_rows_per_s": n_cand / secs[10],
                "host_f64_max_abs_err": host_err,
+               "host_f64_retrieval_sample": RETRIEVAL_SAMPLE,
                "b6_calls_checked": len(b6_calls),
                "launches": path_launches[f"recsys_{kind}"]}
-        n_bulk = len(b6_calls) // len(batches)
-        timings = b6_bulk_timings(dev, seed, cfg.name,
-                                  [a for a, _, _ in b6_calls[-n_bulk:]],
-                                  check, padded=extras)
+        row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # B6 at the bulk batch's calls, then at the retrieval batch's
+        # (the path's outputs freed first).
+        n_batch = len(b6_calls) // len(batches)
+        bulk_args = [a for a, _, _ in b6_calls[-2 * n_batch:-n_batch]]
+        cand_args = [a for a, _, _ in b6_calls[-n_batch:]]
+        del b6_calls, logits
+        timings = b6_bulk_timings(dev, seed, cfg.name, bulk_args, check,
+                                  padded=extras)
         if extras:
             row["padded_bags"] = timings[-1]["shape"]["bags"]
+        timings += [bag_timing(dev, *a, f"{cfg.name} retrieval_cand")
+                    for a in cand_args]
     row["seconds"] = time.perf_counter() - start
     return row, timings
 
 
-def recsys_batches(cfg) -> list:
+def recsys_batches(cfg, retrieval: bool = True) -> list:
     """Phase 8's batches for a model of ``cfg``: step 9 first (untimed: the
     model's first call sets up cuBLAS and the allocator, which is not
-    serving), steps 0-7 at ``serve_p99`` and step 8 at ``serve_bulk``."""
+    serving), steps 0-7 at ``serve_p99``, step 8 at ``serve_bulk`` and,
+    with ``retrieval``, step 10 at ``retrieval_cand``: 2²⁰ candidate rows
+    scored for one user, so the dense features (DLRM's) of its first row
+    are repeated on every row and the sparse ids are the stream's."""
     from repro_torch.configs.common import RECSYS_SHAPES
     from repro_torch.dataplane.recsys import ClickStream
 
@@ -723,6 +805,10 @@ def recsys_batches(cfg) -> list:
     batches = [stream.batch(step, RECSYS_SHAPES["serve_p99"]["batch"])
                for step in (9, *range(8))]
     batches.append(stream.batch(8, RECSYS_SHAPES["serve_bulk"]["batch"]))
+    if retrieval:
+        cand = stream.batch(10, RECSYS_SHAPES["retrieval_cand"]["n_cand"])
+        cand["dense"][:] = cand["dense"][0]
+        batches.append(cand)
     return batches
 
 
@@ -806,6 +892,443 @@ def bag_timing(dev, table, bags, what: str) -> dict:
         "shape": {"what": what, "bags": n, "L": int(bags.shape[1]), "D": d,
                   "N": int(table.shape[0]), "distinct_rows": distinct,
                   "bytes": n_bytes, "sector_bytes": sector_bytes}}
+
+
+def model_bound(flops: int, n_bytes: int) -> dict:
+    """The least time the card could take for a float32 model call: the
+    larger of its operations at the float32 peak and its bytes at the
+    memory rate."""
+    t_flops = flops / FP32_FLOPS * 1e3
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_flops, t_bytes),
+            "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+            "flops": int(flops), "bytes": int(n_bytes)}
+
+
+def peak_of(fn) -> tuple:
+    """(``fn()``, the device memory its call allocated at its peak above
+    what was held before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    out = fn()
+    return out, torch.cuda.max_memory_allocated() - held
+
+
+def timed_calls(fn, n: int, keep=None) -> tuple[list, list]:
+    """``fn()`` ``n`` times, each timed on the host clock to a
+    synchronize: (outputs, milliseconds).  With ``keep``, only the
+    output of call ``keep`` is kept (the others are None)."""
+    import torch
+
+    outs, ms = [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out if keep is None or i == keep else None)
+        del out
+    return outs, ms
+
+
+def latency(ms: list, bound: dict) -> dict:
+    """p50 and max of the timed calls (the first, untimed, left out),
+    beside the bound."""
+    import numpy as np
+
+    timed = ms[1:]
+    return {"warmup_ms": ms[0], "ms": timed,
+            "ms_p50": float(np.median(timed)), "ms_max": max(timed),
+            **bound}
+
+
+def b1_timing(timer, table, idx, what: str) -> dict:
+    """B1, its plain version and ``torch.index_select`` on the same rows;
+    the bound reads each index and its row once and writes the row
+    once."""
+    import torch
+
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    m = idx.numel()
+    n_bytes = m * (4 + 2 * table.shape[1] * table.element_size())
+    return {
+        "ms": timer(lambda: gk.gather_rows(table, idx)),
+        "plain_ms": timer(lambda: gref.gather_rows(table, idx)),
+        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(lambda: torch.index_select(table, 0, idx)),
+        **kernel_breakdown(lambda: gk.gather_rows(table, idx)),
+        "shape": {"what": what, "M": m, "D": int(table.shape[1]),
+                  "N": int(table.shape[0]), "bytes": n_bytes,
+                  "dtype": str(table.dtype).removeprefix("torch.")}}
+
+
+def tower_f64(table, mlp, ids):
+    """One tower of two-tower in float64 on the CPU, written out: the
+    rows of ``ids``, the dense layers with ReLU between them, the L2
+    norm."""
+    import torch
+
+    x = table[torch.as_tensor(ids, device=table.device).long()]
+    x = x.double().cpu()
+    last = len(mlp.layers) - 1
+    for i, layer in enumerate(mlp.layers):
+        x = x @ layer.w.double().cpu() + layer.b.double().cpu()
+        if i < last:
+            x = torch.relu(x)
+    return x / x.norm(dim=-1, keepdim=True).clamp(min=1e-6)
+
+
+def two_tower_f64(model, users, items):
+    """Two-tower's scores of ``users`` × ``items`` in float64 on the CPU."""
+    return tower_f64(model.user_embed, model.user_tower, users) \
+        @ tower_f64(model.item_embed, model.item_tower, items).T
+
+
+def recsys_retrieval(dev, seed: int, card: str, check,
+                     path_launches: dict) -> list:
+    """Phase recsys_retrieval: two-tower retrieval and then BERT4Rec at
+    their published widths on the card, with TF32 off, each freed
+    before the next.  Fails on a failed check.  Returns B1's timings at
+    two-tower's shapes (variants of B1's kernels-line entry)."""
+    import torch
+
+    matmul = tf32_off("recsys_retrieval")
+    b1_variants = []
+    for serve in (serve_two_tower, serve_bert4rec):
+        row, timed = serve(dev, seed, check, path_launches)
+        emit({"phase": "recsys_retrieval", **row, "matmul": matmul,
+              "card": card})
+        assert not row["failed"], f"{row['model']}: {row['failed']}"
+        b1_variants += timed
+        gc.collect()
+        torch.cuda.empty_cache()        # the model is gone: free it
+    return b1_variants
+
+
+def serve_two_tower(dev, seed: int, check, path_launches: dict):
+    """Two-tower at published width (10⁶ users and 10⁶ items × 256,
+    towers 1024-512-256): one untimed and 8 timed ``serve_p99`` calls
+    (512 users × 512 items) and ``retrieval_cand`` calls (one user ×
+    2²⁰ candidates: a seeded permutation of the 10⁶ items, padded with
+    48,576 ids drawn from it), each lookup one B1 launch.  Checks: every
+    B1 call of the path byte-equal to its plain version; the scores with
+    the plain version in B1's place byte-equal; the p99 batch and a
+    seeded sample of candidates within ``TT_F64_MAX`` of the float64 CPU
+    forward, and two planted faults (ids shifted by one, the L2 norm
+    left out) outside it.  Returns (the row, B1's timings)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import two_tower_retrieval
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+    from repro_torch.models import recsys
+
+    start = time.perf_counter()
+    cfg = two_tower_retrieval._cfg()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model = recsys.TwoTower(cfg, device=dev, seed=seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_p99 = RECSYS_SHAPES["serve_p99"]["batch"]
+        n_cand = RECSYS_SHAPES["retrieval_cand"]["n_cand"]
+        rng = np.random.default_rng(seed)
+        p99_ids = [(rng.integers(0, cfg.n_users, n_p99).astype(np.int32),
+                    rng.integers(0, cfg.n_items, n_p99).astype(np.int32))
+                   for _ in range(1 + RETRIEVAL_TIMED)]
+        perm = rng.permutation(cfg.n_items)
+        cand_np = np.concatenate([perm, rng.choice(
+            perm, n_cand - cfg.n_items)]).astype(np.int32)
+        user_np = rng.integers(0, cfg.n_users, 1).astype(np.int32)
+        cand = torch.from_numpy(cand_np).to(dev)
+        user = torch.from_numpy(user_np).to(dev)
+        # The request ids arrive from the host (checked there); the
+        # candidate set lives on the card.
+        p99_iter = iter(p99_ids)
+
+        reset_launches()
+        with recording(gk, "gather_rows", results=True) as b1_calls:
+            p99, p99_ms = timed_calls(
+                lambda: model.score_candidates(*next(p99_iter)),
+                1 + RETRIEVAL_TIMED)
+            cands, cand_ms = timed_calls(
+                lambda: model.score_candidates(user, cand),
+                1 + RETRIEVAL_TIMED)
+        path_launches["retrieval_two_tower"] = dict(LAUNCHES)
+        n_calls = 2 * 2 * (1 + RETRIEVAL_TIMED)
+        assert LAUNCHES["gather_rows"] == n_calls == len(b1_calls), \
+            f"two-tower: {LAUNCHES['gather_rows']} B1 launches, " \
+            f"{len(b1_calls)} calls, expected {n_calls}"
+        assert sum(LAUNCHES.values()) == n_calls, LAUNCHES
+        path_peak = torch.cuda.max_memory_allocated() - held_before
+        for got in (*p99, *cands):
+            assert bool(torch.isfinite(got).all()), "two-tower: non-finite"
+        assert tuple(p99[1].shape) == (n_p99, n_p99)
+        assert tuple(cands[1].shape) == (1, n_cand)
+        assert all(bytes_equal(c, cands[1]) for c in cands), \
+            "two-tower: retrieval_cand scores differ between calls"
+        # Every B1 call of the path against the plain version.
+        for i, (a, kw, out) in enumerate(b1_calls):
+            check("gather_rows", out, gref.gather_rows(*a, **kw),
+                  f"two-tower call {i}, M = {a[1].numel()}")
+        b1_args = {"retrieval_cand": b1_calls[-1][0],
+                   "serve_p99": b1_calls[3][0]}
+        del b1_calls
+        # The same calls with the plain version in B1's place.
+        with swapped(gk, "gather_rows", gref.gather_rows):
+            assert bytes_equal(model.score_candidates(*p99_ids[1]),
+                               p99[1]), "two-tower p99: B1 != plain"
+            assert bytes_equal(model.score_candidates(user, cand),
+                               cands[1]), "two-tower cand: B1 != plain"
+        # Against the float64 CPU forward: the first timed p99 batch and
+        # a seeded sample of the candidates; then the planted faults.
+        sample = np.sort(rng.choice(n_cand, RETRIEVAL_SAMPLE,
+                                    replace=False))
+        host_p99 = two_tower_f64(model, *p99_ids[1])
+        host_cand = two_tower_f64(model, user_np, cand_np[sample])
+
+        def gap(got, want):
+            return float((got.double().cpu() - want).abs().max())
+
+        f64 = {"serve_p99": gap(p99[1], host_p99),
+               "retrieval_cand_sample": gap(
+                   cands[1][:, torch.from_numpy(sample).to(dev)],
+                   host_cand)}
+        shifted = (cand_np[sample] + 1) % cfg.n_items
+        with swapped(recsys, "_l2n", lambda x: x):
+            no_l2 = model.score_candidates(user_np, cand_np[sample])
+        faults = {"item ids shifted by one": gap(
+                      model.score_candidates(user_np, shifted), host_cand),
+                  "L2 norm left out": gap(no_l2, host_cand)}
+        failed = [f"f64 {k}: {v} > {TT_F64_MAX}" for k, v in f64.items()
+                  if not v <= TT_F64_MAX]
+        failed += [f"fault {k}: {v} within {TT_F64_MAX}"
+                   for k, v in faults.items() if not v > TT_F64_MAX]
+
+        # Bounds: the towers' products, the scores' product, the rows
+        # and the weights read once, the scores written once.
+        d = cfg.embed_dim
+        dims = [d, *cfg.tower]
+        macs = sum(a * b for a, b in zip(dims[:-1], dims[1:]))
+        w_bytes = 2 * sum((a + 1) * b for a, b in zip(dims[:-1],
+                                                      dims[1:])) * 4
+
+        def bound(b, n):
+            return model_bound(
+                2 * (b + n) * macs + 2 * b * n * cfg.tower[-1],
+                (b + n) * (4 + d * 4) + w_bytes + b * n * 4)
+
+        profiled, call_peak = peak_of(lambda: device_profile(
+            lambda: model.score_candidates(user, cand),
+            named=("b1_kernel_ms", "gather_rows")))
+        timer = Timer(dev)
+        timings = [b1_timing(timer, *b1_args[k], f"two-tower {k}")
+                   for k in ("retrieval_cand", "serve_p99")]
+    row = {"model": cfg.name, "seed": seed, "init_s": init_s,
+           "tables_bytes": (cfg.n_users + cfg.n_items) * d * 4,
+           "serve_p99": latency(p99_ms, bound(n_p99, n_p99)),
+           "retrieval_cand": latency(cand_ms, bound(1, n_cand)),
+           "retrieval_cand_profile": profiled,
+           "cut": "serve_bulk: (262,144 x 262,144) float32 scores, 275 GB",
+           "host_f64_max_abs_err": f64, "bound": TT_F64_MAX,
+           "faults": faults, "failed": failed,
+           "b1_calls_checked": n_calls, "path_peak_bytes": path_peak,
+           "call_peak_bytes": call_peak,
+           "launches": path_launches["retrieval_two_tower"],
+           "seconds": time.perf_counter() - start}
+    return row, timings
+
+
+def decoder_flops(cfg, b: int, s: int) -> int:
+    """Floating-point operations of a dense GQA decoder's trunk over
+    (b, s) tokens with every position attending to all s (no causal
+    mask): the projections, the GLU FFN and the scores and their V
+    products."""
+    hd, kvd = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    per_token = 2 * cfg.d_model * (2 * hd + 2 * kvd) \
+        + 3 * 2 * cfg.d_model * cfg.d_ff + 2 * 2 * s * hd
+    return b * s * cfg.n_layers * per_token
+
+
+def serve_bert4rec(dev, seed: int, check, path_launches: dict):
+    """BERT4Rec at published width (vocab 2²⁰ × 64, 2 layers, 2 heads of
+    32, d_ff 256, 200 learned positions, no causal mask): one untimed and
+    8 timed ``serve_p99`` calls ((512, 200) item histories → (512, 2²⁰)
+    next-item logits) and ``retrieval_cand`` calls ((1, 200) → (1, 2²⁰)),
+    plain PyTorch and cuBLAS; then 4 requests within the 200 positions
+    behind ``ServeEngine``, each decode round one B8 launch a layer on
+    its CUDA-core kernel.  Checks: ``BERT_SAMPLE_ROWS`` rows of the p99
+    logits and the retrieval logits within ``BERT_F64_MAX`` of the
+    float64 CPU forward, and two planted faults (a causal mask, the
+    learned positions left out) outside it; the engine's tokens equal to
+    a run with B8's plain version in its place.  Returns (the row, [])."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import bert4rec
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.dataplane.recsys import InteractionStream
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.paged_attn import kernel as pak
+    from repro_torch.kernels.paged_attn import ref as paref
+    from repro_torch.models import recsys
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    start = time.perf_counter()
+    cfg = bert4rec._cfg()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    n_p99 = RECSYS_SHAPES["serve_p99"]["batch"]
+    s = cfg.max_seq
+    mask_token = cfg.vocab - 2
+    stream = InteractionStream(n_items=mask_token, seed=seed)
+
+    def histories(step: int, b: int) -> torch.Tensor:
+        """(b, 200) item histories ending in the mask token: the
+        position whose item BERT4Rec predicts."""
+        items = stream.sequences(step, b, s, mask_prob=0.0)["items"]
+        items[:, -1] = mask_token
+        return torch.from_numpy(items).to(dev)
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        params = recsys.bert4rec_init(cfg, device=dev, seed=seed)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        p99_in = [histories(step, n_p99) for step in range(
+            1 + RETRIEVAL_TIMED)]
+        one = histories(100, 1)
+        p99_iter = iter(p99_in)
+
+        reset_launches()
+        # Only the first timed call's (512, 2²⁰) logits are kept.
+        p99, p99_ms = timed_calls(
+            lambda: recsys.bert4rec_score(params, cfg, next(p99_iter)),
+            1 + RETRIEVAL_TIMED, keep=1)
+        cands, cand_ms = timed_calls(
+            lambda: recsys.bert4rec_score(params, cfg, one),
+            1 + RETRIEVAL_TIMED)
+        path_launches["retrieval_bert4rec"] = dict(LAUNCHES)
+        # Plain PyTorch and cuBLAS: no kernel of the port on this path.
+        assert sum(LAUNCHES.values()) == 0, LAUNCHES
+        path_peak = torch.cuda.max_memory_allocated() - held_before
+        logits = p99[1]
+        del p99
+        assert tuple(logits.shape) == (n_p99, cfg.vocab)
+        assert tuple(cands[1].shape) == (1, cfg.vocab)
+        assert bool(torch.isfinite(logits).all()) and \
+            bool(torch.isfinite(cands[1]).all()), "bert4rec: non-finite"
+        assert all(bytes_equal(c, cands[1]) for c in cands), \
+            "bert4rec: retrieval_cand logits differ between calls"
+        # Against the float64 CPU forward; then the planted faults.
+        rows = np.sort(np.random.default_rng(seed).choice(
+            n_p99, BERT_SAMPLE_ROWS, replace=False))
+        rows_t = torch.from_numpy(rows).to(dev)
+        sample = torch.cat([p99_in[1][rows_t], one])
+        got = torch.cat([logits[rows_t], cands[1]])
+        del logits
+        cfg64 = dataclasses.replace(cfg, dtype=torch.float64)
+        params64 = tree_map(lambda t: t.double().cpu(), params)
+        host = recsys.bert4rec_score(params64, cfg64, sample.cpu())
+
+        def gap(card):
+            return float((card.double().cpu() - host).abs().max())
+
+        f64 = gap(got)
+        causal = dataclasses.replace(cfg, causal=True)
+        no_pos = dataclasses.replace(cfg, learned_pos=False)
+        faults = {
+            "causal mask": gap(recsys.bert4rec_score(params, causal,
+                                                     sample)),
+            "learned positions left out": gap(recsys.bert4rec_score(
+                {k: v for k, v in params.items() if k != "pos_embed"},
+                no_pos, sample))}
+        failed = [] if f64 <= BERT_F64_MAX else \
+            [f"f64: {f64} > {BERT_F64_MAX}"]
+        failed += [f"fault {k}: {v} within {BERT_F64_MAX}"
+                   for k, v in faults.items() if not v > BERT_F64_MAX]
+        del params64, host
+
+        profiled, call_peak = peak_of(lambda: device_profile(
+            lambda: recsys.bert4rec_score(params, cfg, p99_in[1]),
+            named=("gemm_ms", "gemm")))
+        n_params = tf.count_params(params)
+
+        def bound(b):
+            return model_bound(
+                decoder_flops(cfg, b, s) + 2 * b * cfg.d_model * cfg.vocab,
+                n_params * 4 + b * s * 4 + b * cfg.vocab * 4)
+
+        # The engine: 4 requests within the 200 positions.
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(BERT_PROMPT[0], BERT_PROMPT[1] + 1,
+                            BERT_REQUESTS)
+        news = rng.integers(BERT_NEW[0], BERT_NEW[1] + 1, BERT_REQUESTS)
+        prompts = [rng.integers(0, mask_token, int(n)).astype(np.int32)
+                   for n in lens]
+
+        def serve():
+            eng = ServeEngine(params, cfg, EngineConfig(**BERT_ENGINE),
+                              device=dev)
+            for rid, (p, m) in enumerate(zip(prompts, news)):
+                eng.submit(Request(prompt=p, rid=rid,
+                                   max_new_tokens=int(m)))
+            done = eng.run()
+            torch.cuda.synchronize()
+            return {r.rid: r.out_tokens for r in done}
+
+        reset_launches()
+        t0 = time.perf_counter()
+        tokens = serve()
+        engine_s = time.perf_counter() - t0
+        path_launches["retrieval_bert4rec_engine"] = dict(LAUNCHES)
+        b8 = LAUNCHES["paged_decode_attention_simt"]
+        assert b8 > 0 and b8 % cfg.n_layers == 0 and \
+            LAUNCHES["paged_decode_attention"] == 0, LAUNCHES
+        with swapped(pak, "paged_decode_attention",
+                     lambda *a, **kw: paref.paged_decode_attention(*a)):
+            plain = serve()
+        if plain != tokens:
+            failed.append("engine: tokens with B8 != with its plain version")
+    row = {"model": cfg.name, "seed": seed, "init_s": init_s,
+           "params": n_params,
+           "serve_p99": latency(p99_ms, bound(n_p99)),
+           "serve_p99_profile": profiled,
+           "retrieval_cand": latency(cand_ms, bound(1)),
+           "cut": "serve_bulk: (262,144 x 2^20) float32 logits, 1.1 TB",
+           "host_f64_max_abs_err": f64, "host_f64_rows": len(rows) + 1,
+           "bound": BERT_F64_MAX, "faults": faults, "failed": failed,
+           "engine": {**BERT_ENGINE, "requests": BERT_REQUESTS,
+                      "prompt_tokens": [int(n) for n in lens],
+                      "new_tokens": [int(m) for m in news],
+                      "tokens": sum(map(len, tokens.values())),
+                      "seconds": engine_s, "b8_launches": b8},
+           "path_peak_bytes": path_peak, "call_peak_bytes": call_peak,
+           "launches": path_launches["retrieval_bert4rec"],
+           "seconds": time.perf_counter() - start}
+    return row, []
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor of a nested dict/list tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
+    return fn(tree)
 
 
 def gnn_batch(shape: str) -> dict:
@@ -2698,6 +3221,10 @@ def main(argv=None) -> int:
     # -- 8. recsys_serve: DLRM-RM2 and DeepFM at full width (B6) --------
     b6_timing = recsys_serve(dev, args.seed, card, check, path_launches)
 
+    # -- 8b. recsys_retrieval: two-tower and BERT4Rec at full width (B1)
+    b1_variants = recsys_retrieval(dev, args.seed, card, check,
+                                   path_launches)
+
     # -- 9. gnn: NequIP at full width on three graph shapes (B7) --------
     b7_timing = gnn(dev, args.seed, card, check, path_launches)
 
@@ -2720,23 +3247,21 @@ def main(argv=None) -> int:
     entries = []
 
     # B1: the plain extract's read of Germany over all levels (D = 1,
-    # float64).
+    # float64), with two-tower's candidate and p99 item lookups (D = 256,
+    # float32; timed in phase 8b) under "variants"; its launches by path.
     table1, idx1 = b1_calls[0][0]
-    m = idx1.numel()
-    b1_bytes = m * (4 + 2 * table1.element_size())
     entries.append({
         "name": "gather_rows", "route": "cuda",
         "source": "src/repro_torch/csrc/gather.cu",
         "replaces": "src/repro/kernels/gather/kernel.py:71",
         "launches": launches["gather_rows"],
+        "launches_by_path": {k: p["gather_rows"]
+                             for k, p in path_launches.items()
+                             if p["gather_rows"]},
         "max_abs_err": errs["gather_rows"],
-        "ms": timer(lambda: gk.gather_rows(table1, idx1)),
-        "plain_ms": timer(lambda: gref.gather_rows(table1, idx1)),
-        "bound_ms": b1_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-        "library_ms": timer(lambda: torch.index_select(table1, 0, idx1)),
-        **kernel_breakdown(lambda: gk.gather_rows(table1, idx1)),
-        "shape": {"M": m, "D": int(table1.shape[1]),
-                  "dtype": str(table1.dtype).removeprefix("torch.")}})
+        **b1_timing(timer, table1, idx1, "plain extract, Germany, all "
+                                         "levels"),
+        "variants": b1_variants})
 
     # B2: the all-levels request's runs: each point read and written once
     # plus each run's start, length and output offset.

@@ -5,10 +5,11 @@ payload and the requests.  A *spec* is a plain dict of numpy arrays,
 numbers and strings that either implementation can be described by, so
 the same arrays feed both and nothing of one package leaks into the
 other.  The models do have weights: ``dlrm_from_params``,
-``deepfm_from_params`` and ``nequip_from_params`` load a parameter tree
-of numpy arrays, laid out as the JAX package's initialisers build it,
-into the port's modules, and ``transformer_from_params`` turns such a
-tree into the decoder's parameter dict.
+``deepfm_from_params``, ``twotower_from_params`` and
+``nequip_from_params`` load a parameter tree of numpy arrays, laid out
+as the JAX package's initialisers build it, into the port's modules, and
+``transformer_from_params`` turns such a tree into the decoder's
+parameter dict (BERT4Rec's too, with its ``pos_embed``).
 
 Datacube spec::
 
@@ -168,6 +169,19 @@ def deepfm_from_params(cfg: _recsys.DeepFMConfig, params: dict,
     return model
 
 
+def twotower_from_params(cfg: _recsys.TwoTowerConfig, params: dict,
+                         device=None) -> _recsys.TwoTower:
+    """A ``TwoTower`` holding ``params``: ``{"user_embed": {"table"},
+    "item_embed": {"table"}, "user_tower": {"layers": [{"w", "b"}, ...]},
+    "item_tower": {...}}`` as numpy arrays."""
+    model = _recsys.TwoTower(cfg, device=device)
+    _load(model.user_embed, params["user_embed"]["table"], "user_embed")
+    _load(model.item_embed, params["item_embed"]["table"], "item_embed")
+    _load_mlp(model.user_tower, params["user_tower"], "user_tower")
+    _load_mlp(model.item_tower, params["item_tower"], "item_tower")
+    return model
+
+
 def _load_keyed(params: torch.nn.ParameterDict, tree: dict,
                 what: str) -> None:
     if set(tree) != set(params.keys()):
@@ -230,7 +244,8 @@ def transformer_from_params(cfg: _transformer.TransformerConfig,
     as the JAX package's ``init_params`` builds it: ``{"embed":
     {"table"}, "final_norm": {"scale"}, "groups": [stacked layers, ...]}``
     (and ``"head"`` for untied embeddings, ``"mtp"`` for DeepSeek's
-    multi-token-prediction head).  Each of ``cfg.layer_groups()``'s
+    multi-token-prediction head, ``"pos_embed"`` for learned
+    positions).  Each of ``cfg.layer_groups()``'s
     groups holds its layers' leaves stacked (L_group, ...): they are
     unstacked into ``params["layers"]`` in execution order.  The group
     count, every key and every shape are checked; the tensors are cast

@@ -2,8 +2,8 @@
 
 Each module holds ``ID``, the full published configuration ``_cfg()``
 and a reduced smoke configuration ``_smoke()``, with the same values as
-the JAX package's configuration modules.  Only the architectures the
-port runs are listed; the sharding rules and lowerings are not ported.
+the JAX package's configuration modules: the same ten architectures.
+The sharding rules and lowerings are not ported.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ _MODULES = {
     "arctic-480b": "arctic_480b",
     "dlrm-rm2": "dlrm_rm2",
     "deepfm": "deepfm",
+    "two-tower-retrieval": "two_tower_retrieval",
+    "bert4rec": "bert4rec",
     "nequip": "nequip",
     "glm4-9b": "glm4_9b",
     "granite-3-8b": "granite_3_8b",

@@ -58,6 +58,18 @@ def gather_rows(table: torch.Tensor, indices, use_pallas: bool = False,
     return _route(table).gather_rows(table, idx)
 
 
+def gather_plan_rows(flat: torch.Tensor, offsets, row: int,
+                     use_pallas: bool = False) -> torch.Tensor:
+    """Extraction-plan adapter: gather ``row``-element blocks of a flat
+    (n,) payload, one B1 launch on the card.  ``offsets`` (numpy or a
+    tensor) are block-aligned element offsets of an extraction plan
+    (``run_starts`` coalesced to ``row``-element blocks); the payload's
+    tail past its last whole block is not addressable.  Returns
+    (len(offsets), row)."""
+    n = flat.shape[0] // row
+    return gather_rows(flat[: n * row].view(n, row), offsets // row)
+
+
 def gather_rows_bag(table: torch.Tensor, bags) -> torch.Tensor:
     """Fused EmbeddingBag(sum) over an (N, D) table: ``out[b] =
     sum_l table[bags[b, l]]`` for (B, L) bags padded with -1 (the only

@@ -4,9 +4,11 @@ in the JAX package's launcher) and ``extract``.
 ``lm`` — the continuous-batching LM engine over the paged KV cache, on
 the architecture's smoke configuration with random weights (seed 0);
 each decode round's GQA attention runs through kernel B8, MLA's
-(DeepSeek-V3) in plain PyTorch over its latent pages:
+(DeepSeek-V3) in plain PyTorch over its latent pages; BERT4Rec's
+without the causal mask, with learned positions:
 
     python -m repro_torch.launch.serve --arch deepseek-v3-671b
+    python -m repro_torch.launch.serve --arch bert4rec --max-new-tokens 4
 
 ``extract`` — the polytope extraction service under a Zipfian request
 mix (the production pattern: a few hot crops dominate traffic), serving
@@ -59,7 +61,9 @@ class LMRun:
 def run_lm(args) -> LMRun:
     """Serve ``--requests`` random prompts of 4-23 tokens, each for
     ``--max-new-tokens`` tokens, through ``ServeEngine`` on the smoke
-    configuration of ``--arch``."""
+    configuration of ``--arch``.  With learned positions (BERT4Rec) a
+    prompt is at most as long as the position table leaves room for; a
+    request that still does not fit exits with the engine's message."""
     from repro_torch.configs import get_config
     from repro_torch.models.transformer import TransformerConfig, init_params
     from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
@@ -75,13 +79,19 @@ def run_lm(args) -> LMRun:
         max_batch=4, max_seq=128, page_size=16, n_pages=256),
         device=args.device)
 
+    longest = 23
+    if cfg.learned_pos:
+        longest = max(4, min(longest, cfg.max_seq - args.max_new_tokens))
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     for _ in range(args.requests):
-        engine.submit(Request(
-            prompt=rng.integers(0, cfg.vocab, rng.integers(4, 24)
-                                ).astype(np.int32),
-            max_new_tokens=args.max_new_tokens))
+        try:
+            engine.submit(Request(
+                prompt=rng.integers(0, cfg.vocab, rng.integers(4, longest + 1)
+                                    ).astype(np.int32),
+                max_new_tokens=args.max_new_tokens))
+        except ValueError as err:
+            raise SystemExit(str(err)) from None
     done = engine.run()
     dt = time.perf_counter() - t0
     n_tok = sum(len(r.out_tokens) for r in done)

@@ -2,6 +2,9 @@
 norms, feed-forward, rotary embeddings and embeddings as functions on
 parameter dicts.
 
+No model of either package calls ``layernorm``; it is ported with the
+rest of the JAX ``layers`` module's serving functions.
+
 The weight keeps the JAX layout ``w (d_in, d_out)`` beside the bias
 ``b``, so a layer computes ``x @ w + b`` exactly as the JAX package
 writes it, and a carried parameter tree loads without transposes.  The
@@ -93,6 +96,24 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def layernorm_init(d: int, *, device: torch.device, dtype: torch.dtype,
+                   **_) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """Layer norm in float32 (the biased variance), scaled and shifted,
+    cast back to ``x``'s dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()
+            + params["bias"].float()).to(x.dtype)
 
 
 def glu_ffn_init(d_model: int, d_ff: int, **kw) -> dict:

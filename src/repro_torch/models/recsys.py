@@ -1,4 +1,5 @@
-"""RecSys serving models: the EmbeddingBag, DLRM (RM-2) and DeepFM.
+"""RecSys serving models: the EmbeddingBag, DLRM (RM-2), DeepFM,
+two-tower retrieval and BERT4Rec.
 
 The embedding lookup is the hot path, and it is the paper's algorithm on
 the (row, dim) table datacube: the ids plan the rows, and only those
@@ -6,7 +7,13 @@ bytes are read.  ``EmbeddingBag`` sums each bag of ids with kernel B6
 (``gather_rows_bag``, routed by ``kernels.gather.ops``): one launch per
 call over all tables, viewed as one (T·R, D) table.  On CPU tensors it
 runs B6's plain version, which sums the slots in the same order as the
-kernel.
+kernel.  Two-tower's user and item lookups are kernel B1
+(``gather_rows``, through ``kernels.gather.ops``), whose ids are checked
+on the host once a call: an id outside [0, N) raises ``IndexError``
+(ROADMAP C12), where the JAX package's ``jnp.take`` would return a NaN
+row for N and the last row for -1.  BERT4Rec is the decoder of
+``models.transformer`` run without the causal mask, with learned
+positions; its embedding lookup is ``layers.embed``, as the LMs' is.
 
 Parameters keep the JAX package's layouts (stacked ``(T, R, D)``
 tables, ``w (d_in, d_out)`` dense weights), so ``repro_torch.carry``
@@ -29,7 +36,8 @@ from torch import nn
 from .._device import resolve_device
 from ..kernels._casting import ensure_i32_addressable
 from ..kernels.gather import ops as gather_ops
-from .layers import MLP
+from . import transformer as tf
+from .layers import MLP, embedding_init, unembed
 
 
 class EmbeddingBag(nn.Module):
@@ -169,3 +177,92 @@ class DeepFM(nn.Module):
         fm = 0.5 * (s.square() - v.square().sum(dim=1)).sum(dim=-1)
         deep = self.deep(v.reshape(v.shape[0], -1))[:, 0]
         return self.bias + lin.sum(dim=1) + fm + deep
+
+
+# ---------------------------------------------------------------------------
+# Two-tower retrieval
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class TwoTowerConfig:
+    name: str = "two-tower-retrieval"
+    n_users: int = 1_000_000
+    n_items: int = 1_000_000
+    embed_dim: int = 256
+    tower: tuple[int, ...] = (1024, 512, 256)
+    temperature: float = 0.05
+    dtype: torch.dtype = torch.float32
+
+
+def _l2n(x: torch.Tensor) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                           min=1e-6)
+
+
+class TwoTower(nn.Module):
+    """User and item embedding tables (N, embed_dim), each looked up by
+    B1 and fed through its tower (``MLP`` with biases), L2-normalised;
+    a query scores its candidates by the dot product."""
+
+    def __init__(self, cfg: TwoTowerConfig, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
+        self.cfg = cfg
+        self.user_embed = nn.Parameter(embedding_init(
+            cfg.n_users, cfg.embed_dim, **kw)["table"], requires_grad=False)
+        self.item_embed = nn.Parameter(embedding_init(
+            cfg.n_items, cfg.embed_dim, **kw)["table"], requires_grad=False)
+        self.user_tower = MLP([cfg.embed_dim, *cfg.tower], **kw)
+        self.item_tower = MLP([cfg.embed_dim, *cfg.tower], **kw)
+
+    def user(self, user_ids) -> torch.Tensor:
+        """user ids (B,), numpy or a tensor → (B, tower[-1])."""
+        u = gather_ops.gather_rows(self.user_embed, user_ids)
+        return _l2n(self.user_tower(u.to(self.cfg.dtype)))
+
+    def item(self, item_ids) -> torch.Tensor:
+        """item ids (N,), numpy or a tensor → (N, tower[-1])."""
+        i = gather_ops.gather_rows(self.item_embed, item_ids)
+        return _l2n(self.item_tower(i.to(self.cfg.dtype)))
+
+    def score_candidates(self, user_ids, cand_item_ids) -> torch.Tensor:
+        """(B,) users × (N,) candidates → scores (B, N): the
+        ``retrieval_cand`` shape is one user and 2²⁰ candidates."""
+        return self.user(user_ids) @ self.item(cand_item_ids).T
+
+
+# ---------------------------------------------------------------------------
+# BERT4Rec — bidirectional transformer over item sequences
+# ---------------------------------------------------------------------------
+def bert4rec_config(n_items: int = 50_000, seq_len: int = 200,
+                    dtype: torch.dtype = torch.float32
+                    ) -> tf.TransformerConfig:
+    return tf.TransformerConfig(
+        name="bert4rec", vocab=n_items + 2,     # +mask, +pad tokens
+        d_model=64, n_layers=2, n_heads=2, n_kv_heads=2, d_head=32,
+        d_ff=256, causal=False, learned_pos=True, max_seq=seq_len,
+        dtype=dtype, q_chunk=None)
+
+
+def bert4rec_init(cfg: tf.TransformerConfig, device=None, seed: int = 0
+                  ) -> tf.Params:
+    return tf.init_params(cfg, device=device, seed=seed)
+
+
+MAX_MASKED = 48   # cloze positions kept per sequence (0.2 × 200 + slack)
+
+
+def bert4rec_score(params: tf.Params, cfg: tf.TransformerConfig,
+                   items: torch.Tensor) -> torch.Tensor:
+    """Next-item scores at the last position: items (B, S) → (B, V).
+    Only the final position is unembedded, (B, V) and not (B, S, V).
+    An item id outside [0, V) raises ``IndexError`` (one read back from
+    the card), as a position outside the table does (ROADMAP C12)."""
+    if items.numel():
+        lo, hi = torch.stack(torch.aminmax(items)).tolist()
+        if lo < 0 or hi >= cfg.vocab:
+            raise IndexError(f"{cfg.name}: item ids span [{lo}, {hi}], "
+                             f"outside [0, {cfg.vocab})")
+    h, _ = tf.trunk(params, cfg, items)
+    return unembed(params["embed"], h[:, -1])

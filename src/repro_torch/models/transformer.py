@@ -27,10 +27,16 @@ dropless on the decode paths, as in the JAX package.  The ``mtp``
 subtree is drawn and carried, and serving never reads it; its loss
 (``_mtp_loss``) waits for the training port (ROADMAP A10d).
 
+Learned positions (BERT4Rec, ``learned_pos``): a ``pos_embed.table``
+(max_seq, D) whose row at each token's position is added to its
+embedding, on top of RoPE inside attention, wherever the JAX package
+adds it (``trunk``, ``prefill``, ``decode_step``) and in the paged
+prefill and decode the engine serves through.  A position outside
+[0, max_seq) raises ``IndexError`` before the table is read (ROADMAP
+C12), where the JAX package's ``jnp.take`` would return a NaN row.
+
 Left out, as for NequIP: ``constrain`` (a sharding hint for the pod) and
-``jax.checkpoint`` (recomputation for training).  Not ported yet:
-learned positions (BERT4Rec; ROADMAP A10c): a configuration that asks
-for them raises.
+``jax.checkpoint`` (recomputation for training).
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ class TransformerConfig:
     v_head_dim: int = 128
     rope_theta: float = 10_000.0
     causal: bool = True
-    learned_pos: bool = False               # BERT4Rec (not ported)
+    learned_pos: bool = False               # BERT4Rec-style
+    max_seq: int = 8192                     # for learned positions only
     # ffn
     moe: MoEConfig | None = None
     n_dense_layers: int = 0                 # leading dense layers w/ MoE
@@ -105,14 +112,6 @@ class TransformerConfig:
         return [m for n, m in self.layer_groups() for _ in range(n)]
 
 
-def check_ported(cfg: TransformerConfig) -> None:
-    """Raise for a configuration this module does not run yet."""
-    if cfg.learned_pos:
-        raise NotImplementedError(
-            f"{cfg.name}: learned positions are not ported yet "
-            f"(ROADMAP A10c)")
-
-
 # -- init --------------------------------------------------------------------
 def _layer_init(cfg: TransformerConfig, use_moe: bool, **kw) -> Params:
     acfg = cfg.attn_config()
@@ -142,7 +141,6 @@ def init_params(cfg: TransformerConfig, device=None, seed: int = 0
     card), from a ``torch.Generator`` seeded with ``seed``.  Each tensor
     is drawn in place where it lives, so the weights are never held
     twice.  ``device="meta"`` gives the shapes and allocates nothing."""
-    check_ported(cfg)
     dev = torch.device("meta") if device == "meta" else \
         resolve_device(device)
     gen = None if dev.type == "meta" else \
@@ -154,6 +152,8 @@ def init_params(cfg: TransformerConfig, device=None, seed: int = 0
         "final_norm": rmsnorm_init(d, **kw),
         "layers": [_layer_init(cfg, m, **kw) for m in cfg.layer_uses_moe()],
     }
+    if cfg.learned_pos:
+        params["pos_embed"] = embedding_init(cfg.max_seq, d, **kw)
     if not cfg.tied_embeddings:
         params["head"] = dense_init(d, cfg.vocab, **kw)
     if cfg.mtp:
@@ -183,8 +183,32 @@ def count_params(params: Params) -> int:
 
 
 # -- forward -------------------------------------------------------------
-def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor):
-    return embed(params["embed"], tokens).to(cfg.dtype)
+def check_positions(cfg: TransformerConfig, positions: torch.Tensor,
+                    span: tuple[int, int] | None = None) -> None:
+    """Raise ``IndexError`` unless every position lies in [0, max_seq)
+    of a learned position table (ROADMAP C12).  ``span`` is the (lowest,
+    highest) position where the caller knows it; else it is read from
+    ``positions`` (one read back from the card)."""
+    if not cfg.learned_pos or positions.numel() == 0:
+        return
+    if span is None:
+        span = tuple(torch.stack(torch.aminmax(positions)).tolist())
+    lo, hi = span
+    if lo < 0 or hi >= cfg.max_seq:
+        raise IndexError(f"{cfg.name}: positions span [{lo}, {hi}], "
+                         f"outside the [0, {cfg.max_seq}) of its learned "
+                         f"position table")
+
+
+def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
+           positions: torch.Tensor, span: tuple[int, int] | None = None):
+    """The token embeddings, plus the learned position embeddings where
+    the configuration has them (``check_positions`` first)."""
+    x = embed(params["embed"], tokens).to(cfg.dtype)
+    if cfg.learned_pos:
+        check_positions(cfg, positions, span)
+        x = x + embed(params["pos_embed"], positions).to(cfg.dtype)
+    return x
 
 
 def _ffn_block(cfg: TransformerConfig, use_moe: bool, lp: Params,
@@ -221,11 +245,11 @@ def trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (hidden (B, S, D) after final norm, aux_loss, the
     MoE layers' summed)."""
-    check_ported(cfg)
+    span = None
     if positions is None:
-        positions = _positions(tokens)
+        positions, span = _positions(tokens), (0, tokens.shape[1] - 1)
     acfg, attn = cfg.attn_config(), _forward_attn(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, positions, span)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, use_moe in zip(params["layers"], cfg.layer_uses_moe()):
         h = attn(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), positions,
@@ -260,7 +284,6 @@ def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
     """Dense decode cache, one dict per layer group stacked (L_group, B,
     S_max, ...): ``{"k", "v"}`` (GQA) or ``{"c_kv", "k_rope"}`` (MLA),
     zeros."""
-    check_ported(cfg)
     kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
     shapes = _cache_shapes(cfg, batch, max_seq)
     return [{key: torch.zeros((n, *shape), **kw)
@@ -280,10 +303,9 @@ def _prefill_trunk(params: Params, cfg: TransformerConfig,
     """Run the prompt, hand each layer's cache entries (``{"k", "v"}``
     (B, S, KVH, Dh) or ``{"c_kv", "k_rope"}`` (B, S, ·)) to
     ``store(layer, entries)``, and return the last position's logits."""
-    check_ported(cfg)
     positions = _positions(tokens)
     acfg, attn = cfg.attn_config(), _forward_attn(cfg)
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, positions, (0, tokens.shape[1] - 1))
     for i, (lp, use_moe) in enumerate(zip(params["layers"],
                                           cfg.layer_uses_moe())):
         h, kv = attn(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x),
@@ -316,10 +338,9 @@ def decode_step(params: Params, cfg: TransformerConfig, caches: list,
     """One decode step over the dense cache.  token (B,), position (B,)
     → logits (B, V); the caches are updated in place and returned.  MoE
     layers route dropless."""
-    check_ported(cfg)
     acfg = cfg.attn_config()
     dec = mla_decode if cfg.attn_type == "mla" else gqa_decode
-    x = _embed(params, cfg, token[:, None])
+    x = _embed(params, cfg, token[:, None], position[:, None])
     for lp, lc, use_moe in zip(params["layers"], _layer_caches(cfg, caches),
                                cfg.layer_uses_moe()):
         h, _ = dec(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), lc,
@@ -335,7 +356,6 @@ def init_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
     """The two page pools over all layers in ``cfg.dtype``, zeros: K and
     V, (L, NP, KVH, PS, Dh) each (GQA), or the latent and the rope key,
     (L, NP, PS, kv_rank) and (L, NP, PS, rope_dim) (MLA)."""
-    check_ported(cfg)
     kw = dict(dtype=cfg.dtype, device=resolve_device(device))
     if cfg.attn_type == "mla":
         return (torch.zeros((cfg.n_layers, n_pages, page_size,
@@ -381,11 +401,11 @@ def decode_paged(params: Params, cfg: TransformerConfig,
     logits (B, V).  Each layer writes the new cache row into its pools
     in place; GQA then launches B8 once over all B sequences, MLA runs
     its absorbed decode over the gathered latent pages.  MoE layers
-    route dropless."""
-    check_ported(cfg)
+    route dropless.  With learned positions, ``position`` is read back
+    once to check it (``check_positions``)."""
     acfg = cfg.attn_config()
     dec = mla_decode_paged if cfg.attn_type == "mla" else gqa_decode_paged
-    x = _embed(params, cfg, token[:, None])
+    x = _embed(params, cfg, token[:, None], position[:, None])
     for i, (lp, use_moe) in enumerate(zip(params["layers"],
                                           cfg.layer_uses_moe())):
         h = dec(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), k_pool[i],

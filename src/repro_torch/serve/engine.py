@@ -8,7 +8,9 @@ sequences are live and the free pages now could hold its prompt plus
 ``max_new_tokens``.  That reserves nothing, so live sequences can still
 exhaust the pool (``MemoryError``, ROADMAP C4); a request that no pool of
 ``n_pages`` could ever hold raises at ``submit`` instead of waiting
-forever.
+forever.  So does a request longer than the engine's ``max_seq`` (C5)
+or than a learned position table (BERT4Rec, C12), whose rows past it
+the JAX engine would read as NaN.
 
 The cache of every sequence lives in the page pools that
 ``transformer.init_paged_cache`` gives, in ``cfg.dtype`` on the engine's
@@ -87,6 +89,10 @@ class ServeEngine:
         if total > self.ecfg.max_seq:
             raise ValueError(f"request {req.rid}: {total} tokens exceed "
                              f"max_seq {self.ecfg.max_seq}")
+        if self.cfg.learned_pos and total > self.cfg.max_seq:
+            raise ValueError(f"request {req.rid}: {total} tokens exceed "
+                             f"the {self.cfg.max_seq} learned positions "
+                             f"of {self.cfg.name}")
         need = self._pages(total)
         if need > self.ecfg.n_pages:
             raise MemoryError(f"request {req.rid} needs {need} pages; the "

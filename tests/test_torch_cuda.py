@@ -1213,3 +1213,142 @@ def test_mla_on_the_card(cuda_device, q_lora_rank):
     want = attn.mla_decode_paged(params, cfg, *[a.clone() for a in args])
     got = attn.mla_decode_paged(on, cfg, *[a.to(cuda_device) for a in args])
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+
+
+# -- two-tower retrieval and BERT4Rec (B1 on the candidate gather) ------------
+
+def test_gather_rows_wide_rows_repeated_ids(cuda_device):
+    """B1 at two-tower's row width (D = 256 float32, 1 KB rows), M =
+    4,096 with every id repeated, the first and the last row among them."""
+    gen = torch.Generator().manual_seed(7)
+    table = torch.randn(3000, 256, generator=gen).to(cuda_device)
+    idx = torch.randint(0, 3000, (2048,), generator=gen, dtype=torch.int32)
+    idx[:2] = torch.tensor([0, 2999])
+    idx = torch.cat([idx, idx.flip(0)]).to(cuda_device)
+    before = LAUNCHES["gather_rows"]
+    got = gops.gather_rows(table, idx)
+    assert LAUNCHES["gather_rows"] == before + 1
+    assert _bytes_equal(got, gref.gather_rows(table, idx))
+
+
+def _to_card(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_card(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_card(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def test_two_tower_on_the_card(cuda_device):
+    """A narrow two-tower model (embed 32, towers 64-32) on the card
+    against the same weights on the CPU, TF32 off: the scores within
+    1e-5 absolute (cuBLAS and the CPU order their float32 products
+    their own way; the scores are dot products of unit vectors).  Each
+    tower's lookup is one B1 launch, and ids past a table raise before
+    any launch (ROADMAP C12)."""
+    from repro_torch.models.recsys import TwoTower, TwoTowerConfig
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = TwoTowerConfig(name="narrow", n_users=300, n_items=5000,
+                         embed_dim=32, tower=(64, 32))
+    host = TwoTower(cfg, device="cpu", seed=3)
+    card = TwoTower(cfg, device="cpu", seed=3).to(cuda_device)
+    rng = np.random.default_rng(8)
+    users = rng.integers(0, cfg.n_users, 4).astype(np.int32)
+    items = rng.integers(0, cfg.n_items, 4096).astype(np.int32)
+    before = LAUNCHES["gather_rows"]
+    with torch.no_grad():
+        got = card.score_candidates(users, torch.from_numpy(items).to(
+            cuda_device))
+        want = host.score_candidates(users, items)
+    assert LAUNCHES["gather_rows"] == before + 2
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    for bad in (-1, cfg.n_items):
+        ids = torch.tensor([0, bad], dtype=torch.int32, device=cuda_device)
+        with pytest.raises(IndexError):
+            card.item(ids)
+    assert LAUNCHES["gather_rows"] == before + 2
+
+
+def _narrow_bert4rec():
+    from repro_torch.models.recsys import bert4rec_config
+
+    return dataclasses.replace(bert4rec_config(n_items=3000, seq_len=48),
+                               name="bert4rec-narrow", n_layers=3)
+
+
+def test_bert4rec_on_the_card(cuda_device):
+    """A 3-layer BERT4Rec (d 64, 2 heads of 32, 48 positions) on the card
+    against the same weights on the CPU, TF32 off: the last position's
+    logits within 1e-5 absolute.  Positions and item ids past their
+    tables raise before any launch (ROADMAP C12)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.recsys import bert4rec_score
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = _narrow_bert4rec()
+    params = tf.init_params(cfg, device="cpu", seed=4)
+    on = _to_card(params, cuda_device)
+    items = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, (16, cfg.max_seq)))
+    with torch.no_grad():
+        got = bert4rec_score(on, cfg, items.to(cuda_device))
+        want = bert4rec_score(params, cfg, items)
+    assert got.shape == (16, cfg.vocab)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=1e-5)
+    longer = torch.zeros((1, cfg.max_seq + 1), dtype=torch.long,
+                         device=cuda_device)
+    with pytest.raises(IndexError, match="learned position table"):
+        tf.trunk(on, cfg, longer)
+    with pytest.raises(IndexError, match="item ids"):
+        bert4rec_score(on, cfg, longer[:, :4] + cfg.vocab)
+
+
+def test_bert4rec_engine_on_the_card_equals_plain_attention(cuda_device,
+                                                           monkeypatch):
+    """BERT4Rec's engine on the card: each decode round one B8 launch a
+    layer on the CUDA-core kernel (float32, G = 1, Dh = 32), the tokens
+    equal to a run with B8's plain version in its place; a request past
+    the 48 positions is refused (ROADMAP C12)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.engine import EngineConfig, Request, ServeEngine
+
+    cfg = _narrow_bert4rec()
+    params = tf.init_params(cfg, device=cuda_device, seed=5)
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32)
+               for n in (7, 30, 19, 40)]
+
+    def serve():
+        eng = ServeEngine(params, cfg, EngineConfig(
+            max_batch=3, max_seq=64, page_size=8, n_pages=32),
+            device=cuda_device)
+        for rid, p in enumerate(prompts):
+            eng.submit(Request(prompt=p, rid=rid, max_new_tokens=8))
+        with pytest.raises(ValueError, match="48 learned positions"):
+            eng.submit(Request(prompt=prompts[-1], max_new_tokens=9))
+        return [(r.rid, r.out_tokens) for r in eng.run()]
+
+    name = _b8_kernel(cfg.dtype, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    assert name == "paged_decode_attention_simt"
+    before = dict(LAUNCHES)
+    got = serve()
+    launched = LAUNCHES[name] - before[name]
+    assert launched > 0 and launched % cfg.n_layers == 0
+    monkeypatch.setattr(pak, "paged_decode_attention",
+                        lambda *a, **kw: paref.paged_decode_attention(*a))
+    assert serve() == got
+    assert LAUNCHES[name] - before[name] == launched
+
+
+@pytest.mark.parametrize("n_split", (None, 1, 3))
+def test_paged_decode_attention_bert4rec_shape(cuda_device, n_split):
+    """B8 in float32 at BERT4Rec's shape: G = 1 (2 heads over 2 KV
+    heads), Dh = 32, on the CUDA-core kernel, within 2e-5."""
+    case = _attn_case(4, 2, 2, 32, 16, 13, torch.float32, seed=32,
+                      lens=[200, 64, 1, 181])
+    want = paref.paged_decode_attention(*case)
+    got = _b8_launched(lambda: pak.paged_decode_attention(
+        *_on(cuda_device, *case), n_split=n_split),
+        "paged_decode_attention_simt")
+    _assert_b8_close(got, want, torch.float32)

@@ -586,15 +586,12 @@ class TestParams:
         dict(mtp=True),
         dict(learned_pos=True)), ids=("mla", "moe", "mtp", "learned_pos"))
     def test_unported_paths_raise(self, change):
-        """Only learned positions are still to port (ROADMAP A10c): MLA,
-        MoE and MTP configurations build and run one forward."""
+        """Nothing is left unported: MLA, MoE, MTP and learned-position
+        (ROADMAP A10c) configurations build and run one forward."""
         cfg = dataclasses.replace(glm4_9b._smoke(), **change)
-        if cfg.learned_pos:
-            with pytest.raises(NotImplementedError, match="ROADMAP A10c"):
-                port_tf.init_params(cfg, device="cpu")
-            return
         params = port_tf.init_params(cfg, device="cpu", seed=1)
         assert ("mtp" in params) == cfg.mtp
+        assert ("pos_embed" in params) == cfg.learned_pos
         logits, aux = port_tf.forward(params, cfg, torch.from_numpy(
             _tokens(cfg.vocab, (2, 7), 0)))
         assert logits.shape == (2, 7, cfg.vocab)
@@ -867,4 +864,13 @@ class TestLauncher:
                            "--arch", "nequip"])
         with pytest.raises(SystemExit, match="unknown arch"):
             launcher.main(["--mode", "lm", "--device", "cpu",
+                           "--arch", "no-such-arch"])
+        # BERT4Rec serves (ROADMAP A10c), but its smoke model's 16
+        # learned positions hold no 4-token prompt and 16 new tokens
+        # (ROADMAP C12).
+        with pytest.raises(SystemExit, match="learned positions"):
+            launcher.main(["--mode", "lm", "--device", "cpu",
                            "--arch", "bert4rec"])
+        launcher.main(["--mode", "lm", "--device", "cpu",
+                       "--arch", "bert4rec", "--requests", "2",
+                       "--max-new-tokens", "3"])

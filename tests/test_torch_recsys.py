@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from repro.configs import ARCH_IDS as REF_ARCH_IDS  # noqa: E402
 from repro.configs import deepfm as ref_deepfm_cfg  # noqa: E402
 from repro.configs import dlrm_rm2 as ref_dlrm_cfg  # noqa: E402
 from repro.configs.common import RECSYS_SHAPES as REF_SHAPES  # noqa: E402
@@ -386,12 +387,14 @@ class TestConfigs:
                                   smoke=which == "_smoke") == ours
 
     def test_shapes_and_registry(self):
+        """The port registers the JAX package's ten architectures."""
         assert port_common.RECSYS_SHAPES == REF_SHAPES
-        assert configs.ARCH_IDS == ("deepseek-v3-671b", "arctic-480b",
-                                    "dlrm-rm2", "deepfm", "nequip",
-                                    "glm4-9b", "granite-3-8b", "yi-34b")
+        assert len(configs.ARCH_IDS) == 10
+        assert set(configs.ARCH_IDS) == set(REF_ARCH_IDS)
+        for arch in configs.ARCH_IDS:
+            assert configs.get_config(arch, smoke=True).name.startswith(arch)
         with pytest.raises(KeyError):
-            configs.get_config("bert4rec")
+            configs.get_config("no-such-arch")
 
     def test_published_table_bytes(self):
         dlrm = configs.get_config("dlrm-rm2")
