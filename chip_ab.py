@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""B3, B5, B6, the batched crop planner and the extraction read of one
-source tree of the port, timed on one card, for a comparison of two
+"""B1, B3, B5, B6, the batched crop planner and the extraction read of
+one source tree of the port, timed on one card, for a comparison of two
 trees within one call.
 
     python3 chip_ab.py [--src DIR]
@@ -41,6 +41,13 @@ are ``chip_smoke.py``'s, for both trees:
   call with ``device="cpu"``: the median host-clock time of 30 calls,
   each ending in a synchronize, and the device time of one call by
   kernel and copy;
+* ``b1``: B1 through ``ops.gather_rows`` (an entry point both trees
+  have) at the plain extract's read (the all-levels plan's 174,640
+  offsets into the F320 payload, as numpy) and at two-tower's
+  ``retrieval_cand`` lookup (``chip_smoke.b1_candidate_case``: 2^20 ids
+  on the card into 10^6 rows of 1 KB), each checked against the payload
+  read on the host, timed as ``read`` is, with B1's kernel alone under
+  ``b1_kernel_ms``;
 * ``bfs``: B5 (``slice_batch``) at phase 5's layer
   (``chip_smoke.bfs_layer``, packed on the card), checked against its
   plain version, timed the same way.
@@ -224,6 +231,52 @@ def read(dev, iwc, requests, flat_np) -> dict:
     return out
 
 
+def b1(dev, iwc, requests, flat_np) -> dict:
+    """B1 through ``ops.gather_rows``: the plain extract's read (the
+    all-levels plan's offsets as numpy, into the payload as a (n, 1)
+    table) and two-tower's ``retrieval_cand`` lookup (1 KB rows, M = 2^20,
+    the ids on the card; ``chip_smoke.b1_candidate_case``), each checked
+    against the payload read on the host; the host-clock median and the
+    device time by kernel and copy, with B1's own kernel under
+    ``b1_kernel_ms``."""
+    import torch
+
+    from repro_torch.carry import payload_to_tensor
+    from repro_torch.core import Slicer
+    from repro_torch.kernels.gather import ops as gops
+
+    def timed(fn) -> dict:
+        row = host_and_device(fn)
+        row["b1_kernel_ms"] = sum(k["ms"] * round(k["per_call"])
+                                  for k in row["kernels"]
+                                  if "gather_rows_kernel" in k["name"])
+        return row
+
+    flat = payload_to_tensor(flat_np, dev)
+    plan = Slicer(iwc.cube).extract_plan(requests["germany_all_levels"])[0]
+
+    def extract():
+        return gops.gather_rows(flat[:, None], plan.offsets)
+
+    assert chip_smoke.bytes_equal(extract()[:, 0].cpu(), torch.from_numpy(
+        flat_np[plan.offsets])), "plain extract read"
+    out = {"plain_extract": {**timed(extract),
+                             "shape": {"M": int(plan.n_points), "D": 1}}}
+    del flat
+    table, idx = chip_smoke.b1_candidate_case(dev, SEED)
+
+    def lookup():
+        return gops.gather_rows(table, idx)
+
+    assert chip_smoke.bytes_equal(lookup().cpu(),
+                                  table.cpu()[idx.cpu().long()]), "1 KB rows"
+    out["retrieval_cand"] = {**timed(lookup),
+                             "shape": {"M": idx.numel(), "D": 256}}
+    del table, idx
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", type=Path, default=HERE / "src")
@@ -253,6 +306,7 @@ def main(argv=None) -> int:
                      "batched": batched(dev, iwc, requests, flat_np),
                      "bfs": bfs(dev, iwc, requests),
                      "read": read(dev, iwc, requests, flat_np),
+                     "b1": b1(dev, iwc, requests, flat_np),
                      "b3": b3(dev), "b6": b6(dev)})
     return 0
 

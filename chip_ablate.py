@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Where the batched crop planner's kernel spends its time: its device
-time at phase 6's crops, on variants of ``csrc/batched_plan.cu`` that
-each change or remove one step.
+"""Where a kernel spends its time: its device time on variants of its
+source that each change or remove one step.
 
-    python3 chip_ablate.py
+    python3 chip_ablate.py [--kernel planner|b1]
+
+``planner`` (the default) times the batched crop planner at phase 6's
+crops on variants of ``csrc/batched_plan.cu``; ``b1`` times B1 on
+variants of ``csrc/gather.cu`` (below).
 
 Each variant is a copy of this checkout's ``src`` under
-``build/ablation/<name>/`` with textual edits to the kernel's source
+``build/ablation/<kernel>/<name>/`` with textual edits to the kernel's source
 (``VARIANTS``; an edit that does not match exactly once stops the
 script), timed in a process of its own, so that each imports its own
 ``repro_torch`` and builds its own kernels:
@@ -32,6 +35,23 @@ values are another draw, which the timing does not see).  Each variant
 prints one JSON line with the device time (``chip_smoke.kernel_breakdown``)
 of the extract and of the lattice alone, three readings each; ``base``
 runs first and last.
+
+B1's variants (``B1_VARIANTS``) tune its constants (``ROWS_*`` in
+``csrc/gather.cu``):
+
+* ``threads_128``, ``threads_512``: 128 or 512 threads a block (256);
+* ``cap_8``: the grid capped at 8 blocks an SM (32), so that warps
+  stride over more tiles.
+
+Each times B1 (``kernel.gather_rows`` with ``ROWS_PER_GROUP`` of the
+case's group set to 1, 2, 4 and 8 in turn) by
+device time, each call byte-equal to the plain version, at the plain
+extract's read (Germany over all levels on phase 2's F320 cube: M =
+174,640 offsets into the 1.94 GB float64 payload), at two-tower's
+``retrieval_cand`` lookup (``chip_smoke.b1_candidate_case``) and at phase
+12's row-width sweep (``chip_smoke.b1_sweep_cases``); ``base`` also
+times ``index_select`` on the same inputs.  The tables hold random
+values drawn on the card: the timing does not see them.
 """
 
 from __future__ import annotations
@@ -56,6 +76,16 @@ _COL_STEP = "c_start = (long long)((cut.lo - a1[0]) / (a1[1] - a1[0]));"
 _ROW_SEARCH = "const int64_t start = warp_lower_bound(a0, len0, lo0 - eps);"
 _ROW_STEP = ("const int64_t start = "
              "(int64_t)((lo0 - a0[0]) / (a0[1] - a0[0]));")
+B1_KERNEL = Path("repro_torch/csrc/gather.cu")
+B1_VARIANTS = {
+    "base": [],
+    "threads_128": [("constexpr int ROWS_THREADS = 256;",
+                     "constexpr int ROWS_THREADS = 128;")],
+    "threads_512": [("constexpr int ROWS_THREADS = 256;",
+                     "constexpr int ROWS_THREADS = 512;")],
+    "cap_8": [("constexpr int ROWS_BLOCKS_PER_SM = 32;",
+               "constexpr int ROWS_BLOCKS_PER_SM = 8;")],
+}
 VARIANTS = {
     "base": [],
     "warps_4": [("constexpr int WARPS = 8;", "constexpr int WARPS = 4;")],
@@ -69,18 +99,19 @@ VARIANTS = {
 }
 
 
-def make_tree(name: str) -> Path:
+def make_tree(kernel: str, name: str) -> Path:
     """A copy of this checkout's ``src`` with the variant's edits."""
-    src = HERE / "build" / "ablation" / name / "src"
+    path, variants = TARGETS[kernel]
+    src = HERE / "build" / "ablation" / kernel / name / "src"
     shutil.rmtree(src, ignore_errors=True)
     shutil.copytree(HERE / "src" / "repro_torch",
                     src / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    text = (src / KERNEL).read_text()
-    for old, new in VARIANTS[name]:
+    text = (src / path).read_text()
+    for old, new in variants[name]:
         assert text.count(old) == 1, f"{name}: {old!r} not found once"
         text = text.replace(old, new)
-    (src / KERNEL).write_text(text)
+    (src / path).write_text(text)
     return src
 
 
@@ -117,8 +148,69 @@ def time_tree(name: str, src: Path) -> dict:
     return row
 
 
+def b1_cases(dev):
+    """B1's inputs: (label, table, ids) at the plain extract's read, at
+    two-tower's ``retrieval_cand`` lookup and at each width of phase
+    12's sweep, one at a time."""
+    import torch
+
+    from repro_torch.core import Slicer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    iwc, requests = chip_smoke.weather_setup()
+    plan = Slicer(iwc.cube).extract_plan(requests["germany_all_levels"])[0]
+    flat = torch.randn(iwc.cube.n_elements, generator=gen, device=dev,
+                       dtype=torch.float64)
+    yield ("plain extract, D = 1 float64", flat[:, None],
+           torch.from_numpy(plan.offsets.astype("int32")).to(dev))
+    del flat
+    yield ("two-tower retrieval_cand, 1 KB rows",
+           *chip_smoke.b1_candidate_case(dev, SEED))
+    torch.cuda.empty_cache()
+    yield from chip_smoke.b1_sweep_cases(dev, SEED)
+
+
+def time_b1(name: str, src: Path) -> dict:
+    """One tree's B1 at each case of ``b1_cases``, at 1, 2, 4 and 8 rows
+    a group."""
+    sys.path.insert(0, str(src.resolve()))
+    import torch
+
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    assert Path(gk.__file__).resolve().is_relative_to(src.resolve())
+    dev = torch.device("cuda")
+    gk.MIN_WARPS = 0                    # R as set, at every M
+    rows = []
+    for label, table, idx in b1_cases(dev):
+        vec, group, _ = gk.rows_layout(table.shape[1], table.element_size(),
+                                       idx.numel(), table.data_ptr(), 0)
+        want = gref.gather_rows(table, idx)
+        row = {"case": label, "vec_bytes": vec, "group": group,
+               "bound_ms": chip_smoke.b1_bound(table, idx)["bound_ms"],
+               "device_ms": {}}
+        for r in (1, 2, 4, 8):
+            gk.ROWS_PER_GROUP[group] = r
+            assert chip_smoke.bytes_equal(gk.gather_rows(table, idx),
+                                          want), (label, r)
+            row["device_ms"][r] = chip_smoke.kernel_breakdown(
+                lambda: gk.gather_rows(table, idx))["device_ms"]
+        if name == "base":
+            row["index_select_device_ms"] = chip_smoke.kernel_breakdown(
+                lambda: torch.index_select(table, 0, idx))["device_ms"]
+        del want
+        rows.append(row)
+    return {"variant": name, "cases": rows}
+
+
+TARGETS = {"planner": (KERNEL, VARIANTS), "b1": (B1_KERNEL, B1_VARIANTS)}
+TIMERS = {"planner": time_tree, "b1": time_b1}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", choices=sorted(TARGETS), default="planner")
     ap.add_argument("--time", nargs=2, metavar=("NAME", "SRC"),
                     help=argparse.SUPPRESS)   # one variant, in its process
     args = ap.parse_args(argv)
@@ -128,15 +220,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_ablate: no CUDA device is available", file=sys.stderr)
         return 1
+    timer = TIMERS[args.kernel]
     if args.time:
-        chip_smoke.emit(time_tree(args.time[0], Path(args.time[1])))
+        chip_smoke.emit(timer(args.time[0], Path(args.time[1])))
         return 0
     print(chip_smoke.card_line(), flush=True)
     rc = 0
-    for name in [*VARIANTS, "base"]:
-        src = make_tree(name)
-        rc |= subprocess.run([sys.executable, __file__, "--time", name,
-                              str(src)], cwd=HERE).returncode
+    for name in [*TARGETS[args.kernel][1], "base"]:
+        src = make_tree(args.kernel, name)
+        rc |= subprocess.run([sys.executable, __file__, "--kernel",
+                              args.kernel, "--time", name, str(src)],
+                             cwd=HERE).returncode
     return rc
 
 

@@ -9,9 +9,10 @@ It builds the CUDA kernels from ``src/repro_torch/csrc`` into ``build/``
 and then, printing one JSON line per phase:
 
 1. build     — compiles the kernels; prints the build time, the card, and
-               the registers and spills (``-Xptxas -v``) of B8's
-               tensor-core kernel, B3, B6's kernels, the batched crop
-               planner and B5;
+               the registers and spills (``-Xptxas -v``) of B1's 20
+               instantiations (5 pack widths × 1, 2, 4, 8 rows a
+               group; none may spill), B8's tensor-core kernel, B3, B6's
+               kernels, the batched crop planner and B5;
 2. extract   — the main path at ECMWF's regular Gaussian F320 grid
                (640 × 1280) × ERA5's 37 pressure levels × 8 datetimes,
                float64 (1.94 GB on the card):
@@ -190,8 +191,15 @@ and then, printing one JSON line per phase:
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B1 at
                the plain extract's read, with two-tower's candidate and
-               p99 item lookups timed in phase 8b as variants; B2 at the
-               all-levels request,
+               p99 item lookups timed in phase 8b as variants, and a
+               row-width sweep as variants: float32 rows of 8, 32, 64,
+               128, 256, 512, 1000, 1024 and 4096 bytes and 1024 one
+               element off
+               16-byte alignment, 512 MB of output each, each byte-equal
+               to the plain version, with its layout, B1's and
+               ``index_select``'s device times and the bound; B1 and
+               ``index_select`` are both timed by device time too; B2 at
+               the all-levels request,
                the batched crop planner at phase 6's extract and its
                lattice, B4 on phase 6's cuts, B5 at phase 5's layer;
                B1, the planner, B4 and B5 also by device time,
@@ -384,7 +392,8 @@ def max_abs_err(a, b) -> float:
 
 class Timer:
     """Mean device time of ``fn`` over ``iters`` launches, each timed by
-    its own pair of CUDA events after an L2 flush of ``flush_bytes``.
+    its own pair of CUDA events after an L2 flush of ``flush_bytes``
+    (the last call's times stay in ``last``).
     The flush must outlast the host's work of launching ``fn`` (else the
     card idles between the events): 256 MB takes ~80 µs."""
 
@@ -410,7 +419,8 @@ class Timer:
             e.record()
             pairs.append((s, e))
         torch.cuda.synchronize()
-        return sum(s.elapsed_time(e) for s, e in pairs) / iters
+        self.last = [s.elapsed_time(e) for s, e in pairs]
+        return sum(self.last) / iters
 
 
 def ptxas_usage(source: str) -> dict:
@@ -946,25 +956,125 @@ def latency(ms: list, bound: dict) -> dict:
 
 
 def b1_timing(timer, table, idx, what: str) -> dict:
-    """B1, its plain version and ``torch.index_select`` on the same rows;
-    the bound reads each index and its row once and writes the row
-    once."""
+    """B1, its plain version and ``torch.index_select`` on the same rows
+    (CUDA events after an L2 flush; B1's launches also by their median,
+    ``ms_p50``, which one stalled launch does not move), and the device
+    time of B1 and of ``index_select`` by the same clock
+    (``kernel_breakdown``: B1's under ``device_ms``, the library's under
+    ``library_device_ms``); the layout B1 took; the bound reads each
+    index and its row once and writes the row once."""
+    import numpy as np
     import torch
 
     from repro_torch.kernels.gather import kernel as gk
     from repro_torch.kernels.gather import ref as gref
 
-    m = idx.numel()
-    n_bytes = m * (4 + 2 * table.shape[1] * table.element_size())
+    library = kernel_breakdown(lambda: torch.index_select(table, 0, idx))
+    ms = timer(lambda: gk.gather_rows(table, idx))
     return {
-        "ms": timer(lambda: gk.gather_rows(table, idx)),
+        "ms": ms, "ms_p50": float(np.median(timer.last)),
         "plain_ms": timer(lambda: gref.gather_rows(table, idx)),
-        "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        **b1_bound(table, idx),
         "library_ms": timer(lambda: torch.index_select(table, 0, idx)),
         **kernel_breakdown(lambda: gk.gather_rows(table, idx)),
-        "shape": {"what": what, "M": m, "D": int(table.shape[1]),
-                  "N": int(table.shape[0]), "bytes": n_bytes,
-                  "dtype": str(table.dtype).removeprefix("torch.")}}
+        "library_device_ms": library["device_ms"],
+        "library_kernels": library["kernels"],
+        "layout": b1_layout(table, idx),
+        "shape": {"what": what, **b1_shape(table, idx)}}
+
+
+def b1_bound(table, idx) -> dict:
+    """B1's bound: each id read once, each row read once and written
+    once, over the memory rate."""
+    n_bytes = idx.numel() * (4 + 2 * table.shape[1] * table.element_size())
+    return {"bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": n_bytes}
+
+
+def b1_shape(table, idx) -> dict:
+    return {"M": idx.numel(), "D": int(table.shape[1]),
+            "N": int(table.shape[0]),
+            "row_bytes": int(table.shape[1]) * table.element_size(),
+            "dtype": str(table.dtype).removeprefix("torch."),
+            "table_offset_bytes": table.data_ptr() % 16}
+
+
+def b1_layout(table, idx) -> dict:
+    """The layout ``rows_layout`` gives B1 on this table, for an output
+    on a 16-byte boundary (as ``torch.empty`` allocates it)."""
+    from repro_torch.kernels.gather import kernel as gk
+
+    vec, group, rows = gk.rows_layout(table.shape[1], table.element_size(),
+                                      idx.numel(), table.data_ptr(), 0)
+    return {"vec_bytes": vec, "group": group, "rows_per_group": rows}
+
+
+def b1_candidate_case(dev, seed: int) -> tuple:
+    """Two-tower's ``retrieval_cand`` lookup as B1 sees it, drawn on the
+    card: (a 10^6 x 256 float32 table of random normals, 2^20 int32 ids:
+    a seeded permutation of the rows padded with draws from it)."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n, m = 10 ** 6, 1 << 20
+    table = torch.randn(n, 256, generator=gen, device=dev)
+    perm = torch.randperm(n, generator=gen, device=dev)
+    pad = perm[torch.randint(0, n, (m - n,), generator=gen, device=dev)]
+    return table, torch.cat([perm, pad]).int()
+
+
+# Phase 12's row-width sweep of B1: (row bytes, float32 elements, the
+# table's offset in elements from a 16-byte boundary); each entry's
+# output, and its table, is B1_SWEEP_BYTES.
+B1_SWEEP = ((8, 2, 0), (32, 8, 0), (64, 16, 0), (128, 32, 0),
+            (256, 64, 0), (512, 128, 0), (1000, 250, 0), (1024, 256, 0),
+            (4096, 1024, 0), (1024, 256, 1))
+B1_SWEEP_BYTES = 512 << 20
+
+
+def b1_sweep_cases(dev, seed: int):
+    """B1's row-width sweep, one case at a time: (label, table, ids), a
+    float32 table of B1_SWEEP_BYTES (random normal; a view one element in
+    where the case says so) and as many seeded random ids into it, drawn
+    on the card.  Each case is freed before the next is made."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for row_bytes, d, shift in B1_SWEEP:
+        n = B1_SWEEP_BYTES // row_bytes
+        flat = torch.randn(n * d + shift, generator=gen, device=dev)
+        table = flat[shift:].view(n, d)
+        idx = torch.randint(0, n, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        yield f"{row_bytes} B" + (f", {shift} element off" if shift else ""), \
+            table, idx
+        del flat, table, idx
+        torch.cuda.empty_cache()
+
+
+def b1_sweep(dev, seed: int) -> list:
+    """Phase 12's row-width sweep: at each case of ``b1_sweep_cases``, B1
+    byte-equal to its plain version, the layout it took, its device time
+    and ``index_select``'s (``kernel_breakdown``), and the bound."""
+    import torch
+
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    out = []
+    for label, table, idx in b1_sweep_cases(dev, seed):
+        assert bytes_equal(gk.gather_rows(table, idx),
+                           gref.gather_rows(table, idx)), \
+            f"gather_rows != plain version (sweep, {label})"
+        out.append({
+            "what": f"sweep, {label}", **b1_shape(table, idx),
+            "layout": b1_layout(table, idx),
+            "device_ms": kernel_breakdown(
+                lambda: gk.gather_rows(table, idx))["device_ms"],
+            "library_device_ms": kernel_breakdown(
+                lambda: torch.index_select(table, 0, idx))["device_ms"],
+            **b1_bound(table, idx), "equal": True})
+    return out
 
 
 def tower_f64(table, mlp, ids):
@@ -2851,11 +2961,21 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(len(PTXAS_SOURCES)) as pool:
         ptxas = dict(zip(PTXAS_SOURCES, pool.map(ptxas_usage,
                                                  PTXAS_SOURCES)))
+    # B1's instantiations (a pack width and rows a group each) must not
+    # spill.
+    b1_ptxas = {k: v for k, v in ptxas["gather"].items()
+                if k.startswith("gather_rows_kernel")}
+    assert len(b1_ptxas) == 20, sorted(b1_ptxas)
+    spilled = [k for k, v in b1_ptxas.items()
+               if v.get("spill_stores") or v.get("spill_loads")]
+    assert not spilled, f"B1 spills: {spilled}"
     emit({"phase": "build", "seconds": build_s,
           "nvcc_seconds": _build.last_build_s, "card": card,
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "b8_tensor_core_ptxas": ptxas["paged_attn_tc"],
-          "b3_ptxas": ptxas["plan_runs_2d"], "b6_ptxas": ptxas["gather"],
+          "b1_ptxas": b1_ptxas, "b3_ptxas": ptxas["plan_runs_2d"],
+          "b6_ptxas": {k: v for k, v in ptxas["gather"].items()
+                       if k.startswith("gather_rows_bag")},
           "batched_plan_ptxas": ptxas["batched_plan"],
           "b5_ptxas": ptxas["slice_batch"]})
 
@@ -3261,7 +3381,7 @@ def main(argv=None) -> int:
         "max_abs_err": errs["gather_rows"],
         **b1_timing(timer, table1, idx1, "plain extract, Germany, all "
                                          "levels"),
-        "variants": b1_variants})
+        "variants": b1_variants + b1_sweep(dev, args.seed)})
 
     # B2: the all-levels request's runs: each point read and written once
     # plus each run's start, length and output offset.

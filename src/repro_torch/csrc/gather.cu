@@ -4,7 +4,7 @@
 // kernel B6 (gather_rows_bag).
 //
 // Replaces the Pallas kernels of the JAX package's
-// kernels/gather/kernel.py: gather_rows (_gather_kernel, the
+// kernels/gather/kernel.py: gather_rows (line 43; _gather_kernel, the
 // pallas_call at line 71: one scalar-prefetched row DMA per grid step),
 // gather_rows_bag (_bag_kernel, the pallas_call at line 123: a (B, L)
 // grid, one row DMA per bag slot, summed into the bag's output row over
@@ -24,8 +24,50 @@
 // is one launch's latency, so the designs cut launches and dependent
 // loads first.
 //
-// Design.  gather_rows maps thread -> element (i, c) of the (M, D)
-// output.  gather_plan_runs copies a plan's runs straight into its N
+// Design.  gather_rows (B1) moves a row as packs of VEC bytes, the
+// largest power of two up to 16 that divides the row's bytes and both
+// base addresses, chosen on the host (kernels/gather/kernel.py's
+// rows_layout; the C entry refuses any other layout).  A row of P packs
+// gets a group of g lanes of one warp, the smallest power of two up to
+// 32 that covers P (rows.cuh's group_for); lane i of the group moves
+// packs i, i + g, ..., so no division is left in the loop, and a row
+// wider than 32 packs is looped over by its group.  Each group takes R
+// rows (R = 1, 2, 4 or 8, a template parameter; for g = 1, one thread
+// takes R rows, the plain extract's 8-byte float64 rows) and issues the
+// loads of all R before its first store.  A warp loads its tile's ids
+// (32 / g * R rows) once, up to 32 a coalesced load, and passes each to
+// its group by __shfl_sync.  The table is read through the read-only
+// path.  Measured on an NVIDIA H100 80GB HBM3 at 700 W by device time
+// (chip_ablate.py --kernel b1): at two-tower's 1 KB rows, M = 2^20
+// (bound 0.642 ms), R = 1, 2, 4, 8 took 0.746, 0.740, 0.737, 0.736 ms
+// and index_select 0.725; at the plain extract's read (D = 1 float64, M
+// = 174,640; bound 0.00104) 0.0026, 0.0023, 0.0026, 0.0035 ms, where
+// index_select took 0.0047 (at 8 rows a thread that call has only 682
+// warps).  So R goes by the group (kernel.py's ROWS_PER_GROUP): 2 for a
+// lane a row, 8 for 2 lanes, 4 for 4, 2 for 8, 4 for 16 and 32 lanes,
+// the best or within 1% of it at each width of chip_smoke.py's sweep,
+// which holds a width for every group (64 B rows, 4 lanes: R = 4 took
+// 0.4717 ms, the others 0.4753-0.4857; 256 B, 16 lanes: 0.3696 against
+// 0.3704-0.3846), but 1000-byte rows: R goes by the group alone, and
+// their 8-byte packs take 32 lanes at R = 4, 3-4% behind R = 1
+// (0.4519-0.4531 against 0.4354-0.4365, index_select 0.4975-0.4978);
+// R is halved while a call would have fewer than 16 warps an SM
+// (kernel.py's MIN_WARPS): at two-tower's M = 512, R = 4 gave 128 warps
+// and took 0.00271 ms, where index_select took 0.00166 (chip_smoke.py,
+// phase 12).  128 or 512 threads a block were within 1% of
+// 256, a grid capped at 8 blocks an SM 1-4% slower than 32; at 1 KB
+// rows, R = 4, streaming stores (__stcs) took 0.7347 ms and plain loads
+// 0.7383 against 0.7366 (the same call), so the stores are plain and
+// the loads stay on the read-only path.  A second design, Hopper's
+// 1-D bulk copy (a warp a block whose lane 0 kept a ring of 16 rows in
+// shared memory, filled by cp.async.bulk loads completed on mbarriers
+// and drained by cp.async.bulk stores), took 0.763-0.764 ms at 1 KB
+// rows, 0.373-0.388 ms at 512 B-4 KB rows (512 MB of output) and 1.37
+// ms at 32 B rows, slower than this kernel at every width, and was
+// deleted.  B1 stays 1.5% behind index_select at 1 KB rows (87% of the
+// bound); at 8-byte rows both read a whole 32-byte sector a row (2.33-
+// 2.41 ms against the 0.40 ms of the bytes asked for).
+// gather_plan_runs copies a plan's runs straight into its N
 // points, with no lattice and no second gather: the TPU needed a fixed
 // 128-element DMA block, the H100 does not.  Its inputs are the runs'
 // starts and lengths and the exclusive prefix of the lengths (the
@@ -91,21 +133,91 @@
 // refuses the rows of the other, so the two cannot disagree unseen.
 static constexpr int64_t kNarrowRowBytes = 128;
 
-template <typename W>
-__global__ void gather_rows_kernel(const W* __restrict__ table, int64_t d,
-                                   const int32_t* __restrict__ idx,
-                                   int64_t m, W* __restrict__ out) {
-    const int64_t total = m * d;
-    const int64_t step = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-         e < total; e += step) {
-        const int64_t i = e / d;
-        const int64_t c = e - i * d;
-        out[e] = table[(int64_t)idx[i] * d + c];
+constexpr unsigned FULL = 0xffffffffu;
+// B1's threads a block and its grid's cap in blocks an SM (past it the
+// warps stride over the tiles): measured on an H100, see the note at the
+// top.
+constexpr int ROWS_THREADS = 256;
+constexpr int ROWS_BLOCKS_PER_SM = 32;
+
+// One pack of B1: K words of W, VEC = K * sizeof(W) bytes (W is uint32_t
+// where K > 1), read through the read-only path: the table does not
+// change during the call.
+template <typename W, int K>
+__device__ __forceinline__ Pack<W, K> load_pack(const Pack<W, K>* p) {
+    Pack<W, K> r;
+    if constexpr (K == 4) {
+        const uint4 w = __ldg(reinterpret_cast<const uint4*>(p));
+        r.v[0] = w.x;
+        r.v[1] = w.y;
+        r.v[2] = w.z;
+        r.v[3] = w.w;
+    } else if constexpr (K == 2) {
+        const uint2 w = __ldg(reinterpret_cast<const uint2*>(p));
+        r.v[0] = w.x;
+        r.v[1] = w.y;
+    } else {
+        r.v[0] = __ldg(reinterpret_cast<const W*>(p));
     }
+    return r;
 }
 
-constexpr unsigned FULL = 0xffffffffu;
+// out (m, packs) = table (n, packs)[idx], a row of `packs` packs.  A
+// group of `group` lanes (a power of two, 1-32) takes R rows of its
+// warp's tile of 32 / group * R rows: the warp loads the tile's ids, up
+// to 32 a coalesced load, and group q's row k is tile row q + k * (32 /
+// group), its id passed from the lane that loaded it.  Lane i of the
+// group moves packs i, i + group, ... of each of its R rows, all R loads
+// before the first store.
+template <typename W, int K, int R>
+__global__ void __launch_bounds__(ROWS_THREADS)
+gather_rows_kernel(const Pack<W, K>* __restrict__ table, int64_t packs,
+                   const int32_t* __restrict__ idx, int64_t m, int group,
+                   Pack<W, K>* __restrict__ out) {
+    using P = Pack<W, K>;
+    const int lane = threadIdx.x & 31;
+    const int lig = lane & (group - 1);           // lane within the group
+    const int groups = 32 / group;                // groups a warp
+    const int q = lane / group;                   // this lane's group
+    const int tile = groups * R;                  // rows a warp a step
+    const int64_t n_tiles = (m + tile - 1) / tile;
+    const int64_t warps = (int64_t)gridDim.x * (ROWS_THREADS / 32);
+    for (int64_t t = (int64_t)blockIdx.x * (ROWS_THREADS / 32) +
+                     (threadIdx.x >> 5);
+         t < n_tiles; t += warps) {               // the whole warp
+        const int64_t first = t * tile;
+        // Slot s of lane i holds the id of tile row 32 s + i.
+        int32_t held[R];
+#pragma unroll
+        for (int s = 0; s < R; ++s) {
+            const int j = 32 * s + lane;
+            held[s] = j < tile && first + j < m ? idx[first + j] : 0;
+        }
+        // This group's rows: their first packs in the table and in the
+        // output (-1 for a row past m).
+        int64_t src[R], dst[R];
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+            const int j = q + k * groups;
+            int32_t h = held[0];
+#pragma unroll
+            for (int s = 1; s < R; ++s)
+                if ((j >> 5) == s) h = held[s];
+            const int32_t id = __shfl_sync(FULL, h, j & 31);
+            src[k] = (int64_t)id * packs;
+            dst[k] = first + j < m ? (first + j) * packs : -1;
+        }
+        for (int64_t c = lig; c < packs; c += group) {
+            P v[R];
+#pragma unroll
+            for (int k = 0; k < R; ++k)
+                if (dst[k] >= 0) v[k] = load_pack(table + src[k] + c);
+#pragma unroll
+            for (int k = 0; k < R; ++k)
+                if (dst[k] >= 0) out[dst[k] + c] = v[k];
+        }
+    }
+}
 // Output elements a warp of gather_plan_runs copies (its window), and
 // the elements a lane issues before its stores.  A run's overlap with a
 // window of LONG_RUN elements or more is copied by the whole warp in
@@ -432,16 +544,36 @@ gather_rows_bag_tiled_kernel(const T* __restrict__ table, int64_t d,
     }
 }
 
-template <typename W>
-static void launch_rows(const void* table, int64_t d, const void* idx,
-                        int64_t m, void* out, cudaStream_t s) {
-    const int threads = 256;
-    const int64_t want = (m * d + threads - 1) / threads;
-    const int64_t cap = 132 * 64;  // grid-stride past 64 blocks per SM
+template <typename W, int K, int R>
+static void launch_rows(const void* table, int64_t packs, const void* idx,
+                        int64_t m, int group, void* out, cudaStream_t s) {
+    const int64_t tile = 32 / group * R;
+    const int64_t warps = (m + tile - 1) / tile;
+    const int64_t want = (warps + ROWS_THREADS / 32 - 1) / (ROWS_THREADS / 32);
+    const int64_t cap = 132 * ROWS_BLOCKS_PER_SM;
     const unsigned blocks = (unsigned)(want < cap ? want : cap);
-    gather_rows_kernel<W><<<blocks, threads, 0, s>>>(
-        static_cast<const W*>(table), d, static_cast<const int32_t*>(idx), m,
-        static_cast<W*>(out));
+    gather_rows_kernel<W, K, R><<<blocks, ROWS_THREADS, 0, s>>>(
+        static_cast<const Pack<W, K>*>(table), packs,
+        static_cast<const int32_t*>(idx), m, group,
+        static_cast<Pack<W, K>*>(out));
+}
+
+template <typename W, int K>
+static int launch_rows_r(const void* table, int64_t packs, const void* idx,
+                         int64_t m, int group, int rows_per_group, void* out,
+                         cudaStream_t s) {
+    switch (rows_per_group) {
+        case 1: launch_rows<W, K, 1>(table, packs, idx, m, group, out, s);
+                break;
+        case 2: launch_rows<W, K, 2>(table, packs, idx, m, group, out, s);
+                break;
+        case 4: launch_rows<W, K, 4>(table, packs, idx, m, group, out, s);
+                break;
+        case 8: launch_rows<W, K, 8>(table, packs, idx, m, group, out, s);
+                break;
+        default: return (int)cudaErrorInvalidValue;
+    }
+    return polytope_launch_status();
 }
 
 template <typename W>
@@ -521,21 +653,52 @@ static void launch_narrow(const void* table, int64_t d, const void* bags,
         launch_tiled<T, VEC, 1, MAXP>(table, d, bags, b, l, out, s);
 }
 
+// The widest pack B1 may move a row in: the largest power of two, up to
+// 16 bytes, that divides the row's bytes and both addresses
+// (kernels/gather/kernel.py's rows_layout holds the same rule).
+static int widest_pack(int64_t row_bytes, const void* table,
+                       const void* out) {
+    int vec = 16;
+    while (vec > 1 && (row_bytes % vec != 0 || !aligned(table, vec) ||
+                       !aligned(out, vec)))
+        vec >>= 1;
+    return vec;
+}
+
 // out (m, d) = table (n, d)[idx (m,)]; elem_bytes is the dtype's width.
+// The layout is the wrapper's (rows_layout): rows in packs of vec_bytes,
+// a group of `group` lanes a row, rows_per_group rows a group.  A layout
+// other than the rule's (the widest pack, group_for of the row's packs,
+// 1, 2, 4 or 8 rows) is refused, so the two sides cannot disagree unseen.
 extern "C" int polytope_gather_rows(int device, const void* table, int64_t d,
                                     const void* idx, int64_t m,
-                                    int elem_bytes, void* out, void* stream) {
+                                    int elem_bytes, int vec_bytes, int group,
+                                    int rows_per_group, void* out,
+                                    void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
+    if (elem_bytes != 1 && elem_bytes != 2 && elem_bytes != 4 &&
+        elem_bytes != 8)
+        return (int)cudaErrorInvalidValue;
+    const int64_t row_bytes = d * elem_bytes;
+    if (vec_bytes != widest_pack(row_bytes, table, out))
+        return (int)cudaErrorInvalidValue;
+    const int64_t packs = row_bytes / vec_bytes;
+    if (group != group_for(packs)) return (int)cudaErrorInvalidValue;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (elem_bytes) {
-        case 1: launch_rows<uint8_t>(table, d, idx, m, out, s); break;
-        case 2: launch_rows<uint16_t>(table, d, idx, m, out, s); break;
-        case 4: launch_rows<uint32_t>(table, d, idx, m, out, s); break;
-        case 8: launch_rows<uint64_t>(table, d, idx, m, out, s); break;
-        default: return (int)cudaErrorInvalidValue;
+    const int r = rows_per_group;
+    switch (vec_bytes) {
+        case 16: return launch_rows_r<uint32_t, 4>(table, packs, idx, m,
+                                                   group, r, out, s);
+        case 8: return launch_rows_r<uint32_t, 2>(table, packs, idx, m,
+                                                  group, r, out, s);
+        case 4: return launch_rows_r<uint32_t, 1>(table, packs, idx, m,
+                                                  group, r, out, s);
+        case 2: return launch_rows_r<uint16_t, 1>(table, packs, idx, m,
+                                                  group, r, out, s);
+        default: return launch_rows_r<uint8_t, 1>(table, packs, idx, m,
+                                                  group, r, out, s);
     }
-    return polytope_launch_status();
 }
 
 // out (n_points,): run r's lengths[r] elements from flat[starts[r]] at

@@ -44,7 +44,8 @@ SIGNATURES = {
                                      _L, _L, _I, _I, _P, _I, _P, _P, _P, _P],
     },
     "gather": {
-        "polytope_gather_rows": [_I, _P, _L, _P, _L, _I, _P, _P],
+        "polytope_gather_rows": [_I, _P, _L, _P, _L, _I, _I, _I, _I, _P,
+                                 _P],
         "polytope_gather_plan_runs": [_I, _P, _P, _P, _P, _L, _L, _I, _P,
                                       _P],
         "polytope_gather_union_slices": [_I, _P, _P, _P, _L, _I, _P, _P],

@@ -5,7 +5,9 @@ kernels read exactly those elements of the payload on the card, never
 the rest of the datacube — the bounding-box baseline would stream the
 whole enclosing block.
 
-* ``gather_rows`` (B1) — (N, D) table × (M,) int32 indices → (M, D).
+* ``gather_rows`` (B1) — (N, D) table × (M,) int32 indices → (M, D), a
+  row moved in the widest packs its bytes and addresses allow, by a
+  group of lanes chosen on the host (``rows_layout``).
 * ``gather_plan_runs`` (B2) — a plan's coalesced runs copied straight
   into its N points, in one launch: no chunk lattice, no second gather.
 * ``gather_union_slices`` — a serving window's union read and every
@@ -29,8 +31,47 @@ from .. import _build
 from .._build import LAUNCHES
 
 
+# Rows a group of B1 takes at once, by the group's lanes (measured on an
+# H100 at a row width of each group: the note at the top of
+# csrc/gather.cu), halved while a call would give fewer than MIN_WARPS
+# warps (16 an SM): a small call is bound by its chains of dependent
+# loads, not by the loads in flight.
+ROWS_PER_GROUP = {1: 2, 2: 8, 4: 4, 8: 2, 16: 4, 32: 4}
+MIN_WARPS = 132 * 16
+
+
+def group_for(packs: int) -> int:
+    """The smallest power of two, up to 32, that covers ``packs`` packs
+    (``csrc/rows.cuh``'s ``group_for``)."""
+    group = 1
+    while group < 32 and group < packs:
+        group <<= 1
+    return group
+
+
+def rows_layout(d: int, elem_bytes: int, m: int, table_ptr: int,
+                out_ptr: int) -> tuple[int, int, int]:
+    """B1's layout for ``m`` rows of ``d`` elements of ``elem_bytes`` bytes
+    at the table and output addresses given: ``(vec_bytes, group,
+    rows_per_group)``.  A row moves in packs of ``vec_bytes``, the largest
+    power of two up to 16 that divides the row's bytes and both
+    addresses; ``group`` lanes take a row (``group_for`` of its packs),
+    ``rows_per_group`` rows at once.  ``polytope_gather_rows`` refuses
+    another pack or group, and rows a group other than 1, 2, 4 or 8."""
+    row_bytes = d * elem_bytes
+    vec = 16
+    while vec > 1 and (row_bytes % vec or table_ptr % vec or out_ptr % vec):
+        vec >>= 1
+    group = group_for(row_bytes // vec)
+    rows = ROWS_PER_GROUP[group]
+    while rows > 1 and -(-m * group // (32 * rows)) < MIN_WARPS:
+        rows //= 2
+    return vec, group, rows
+
+
 def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
-    """``table[indices]`` on the card.
+    """``table[indices]`` on the card, in ``rows_layout``'s layout (the
+    kernel refuses any other, and this raises).
 
     table   — (N, D) CUDA tensor of any dtype of width 1, 2, 4 or 8 bytes
     indices — (M,) int32 CUDA tensor, each in [0, N)
@@ -44,11 +85,14 @@ def gather_rows(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     out = torch.empty((m, d), dtype=table.dtype, device=dev)
     if m == 0 or d == 0:
         return out
+    layout = rows_layout(d, table.element_size(), m, table.data_ptr(),
+                         out.data_ptr())
     lib = _build.library("gather")
     status = lib.polytope_gather_rows(
         dev.index or 0, table.data_ptr(), d, indices.data_ptr(), m,
-        table.element_size(), out.data_ptr(), _build.stream_of(dev))
-    _build.check(lib, status, "gather_rows")
+        table.element_size(), *layout, out.data_ptr(),
+        _build.stream_of(dev))
+    _build.check(lib, status, f"gather_rows (layout {layout})")
     LAUNCHES["gather_rows"] += 1
     return out
 

@@ -117,6 +117,105 @@ def test_gather_rows(cuda_device, dtype, d):
                         gref.gather_rows(table, idx))
 
 
+B1_DTYPES = (torch.uint8, torch.int16, torch.float32, torch.float64)
+B1_WIDTHS = (1, 2, 3, 7, 16, 64, 250, 256, 1024)
+
+
+def _b1_ids(gen, n, m):
+    """m ids into n rows, repeats among them, the first and the last row
+    included."""
+    idx = torch.randint(0, n, (m,), generator=gen, dtype=torch.int32)
+    idx[0] = n - 1
+    if m > 1:
+        idx[-1] = 0
+        idx[m // 2] = idx[0]
+    return idx
+
+
+@pytest.mark.parametrize("dtype", B1_DTYPES)
+@pytest.mark.parametrize("d", B1_WIDTHS)
+def test_gather_rows_every_layout(cuda_device, dtype, d):
+    """B1 at 1-, 2-, 4- and 8-byte elements and rows of 1-1024 of them,
+    on a table and on a view of it one element off 16-byte alignment
+    (through ``ops.gather_plan_rows``), M of 1, 31, 33 and one that is no
+    multiple of any group's rows: one launch a call, byte-equal to its
+    plain version and to the rows read on the host."""
+    gen = torch.Generator().manual_seed(d)
+    n = 97
+    big = (torch.randn(n * d + 1, generator=gen) * 100).to(dtype)
+    for m in (1, 31, 33, 8 * 32 + 5):
+        idx = _b1_ids(gen, n, m)
+        for shift in (0, 1):
+            flat_cpu = big[shift:shift + n * d]
+            flat = big.to(cuda_device)[shift:shift + n * d]
+            table = flat.view(n, d)
+            want = flat_cpu.view(n, d)[idx.long()]
+            before = LAUNCHES["gather_rows"]
+            got = gops.gather_plan_rows(flat, idx.numpy() * d, d)
+            assert LAUNCHES["gather_rows"] == before + 1
+            assert _bytes_equal(got.cpu(), want), (m, shift)
+            assert _bytes_equal(got, gref.gather_rows(table,
+                                                      idx.to(cuda_device)))
+
+
+@pytest.mark.parametrize("d", (1, 3, 250, 256))
+def test_gather_rows_into_a_misaligned_output(cuda_device, d):
+    """The C entry with an output one element off 16-byte alignment and
+    the layout ``rows_layout`` gives for it: byte-equal to the plain
+    version, the bytes around the output untouched."""
+    from repro_torch.kernels import _build
+
+    gen = torch.Generator().manual_seed(11)
+    table = torch.randn(300, d, generator=gen).to(cuda_device)
+    idx = _b1_ids(gen, 300, 333).to(cuda_device)
+    big = torch.full((333 * d + 2,), -7.0, device=cuda_device)
+    out = big[1:1 + 333 * d]
+    layout = gk.rows_layout(d, 4, 333, table.data_ptr(), out.data_ptr())
+    assert layout[0] == 4
+    lib = _build.library("gather")
+    status = lib.polytope_gather_rows(
+        cuda_device.index or 0, table.data_ptr(), d, idx.data_ptr(), 333, 4,
+        *layout, out.data_ptr(), _build.stream_of(cuda_device))
+    _build.check(lib, status, "gather_rows")
+    assert _bytes_equal(out.view(333, d), gref.gather_rows(table, idx))
+    assert float(big[0]) == float(big[-1]) == -7.0
+
+
+def test_gather_rows_output_past_2_31_elements(cuda_device):
+    """An output of 2^31 + 6,144 uint8 elements (2.1 GB; D = 2048, M =
+    2^20 + 3): its last rows land past 2^31 and must not wrap."""
+    gen = torch.Generator().manual_seed(12)
+    n, d, m = 4096, 2048, (1 << 20) + 3
+    table = torch.randint(0, 256, (n, d), generator=gen,
+                          dtype=torch.uint8).to(cuda_device)
+    idx = _b1_ids(gen, n, m).to(cuda_device)
+    before = LAUNCHES["gather_rows"]
+    got = gk.gather_rows(table, idx)
+    assert LAUNCHES["gather_rows"] == before + 1
+    assert got.numel() > 2 ** 31
+    assert _bytes_equal(got[-4:], table[idx[-4:].long()])
+    assert _bytes_equal(got, gref.gather_rows(table, idx))
+
+
+def test_gather_rows_refuses_another_layout(cuda_device, monkeypatch):
+    """A layout other than the rule's is refused by the C entry and the
+    wrapper raises, with no launch counted: a pack wider than the table's
+    alignment, one narrower than the widest, a group other than the
+    rule's, and rows a group outside 1, 2, 4, 8."""
+    big = torch.zeros(65 * 256 + 1, device=cuda_device)
+    idx = torch.zeros(5, dtype=torch.int32, device=cuda_device)
+    aligned = big[:64 * 256].view(64, 256)
+    shifted = big[1:1 + 64 * 256].view(64, 256)
+    assert gk.gather_rows(aligned, idx).shape == (5, 256)
+    before = LAUNCHES["gather_rows"]
+    for table, layout in ((shifted, (16, 32, 4)), (aligned, (8, 32, 4)),
+                          (aligned, (16, 16, 4)), (aligned, (16, 32, 3))):
+        monkeypatch.setattr(gk, "rows_layout", lambda *a: layout)
+        with pytest.raises(RuntimeError, match="gather_rows"):
+            gk.gather_rows(table, idx)
+    assert LAUNCHES["gather_rows"] == before
+
+
 def _edge_runs(n, seed):
     """Runs that are empty, of length 1, ending at the payload's last
     element, longer than 128, adjacent, at odd offsets (so that source
