@@ -115,6 +115,30 @@ and then, printing one JSON line per phase:
                tokens equal to a run with B8's plain version.
                ``serve_bulk`` is cut for both (its outputs: 275 GB and
                1.1 TB);
+8c. recsys_train — DLRM-RM2, DeepFM and two-tower trained at published
+               width on the card, one at a time, seeded random weights,
+               the configurations' AdamW, ``train_batch`` = 65,536 rows
+               a step drawn step by step from ``ClickStream`` /
+               ``InteractionStream``, TF32 off: ``make_train_step``
+               under ``Supervisor`` for 1 untimed and 8 timed steps,
+               each step's tables looked up by B6 (DLRM: one wide
+               launch; DeepFM: two tiled launches) or B1 (two-tower: two
+               launches), their backward plain PyTorch (``index_add_``
+               into a dense zero table), no restart.  The first step is
+               held (a) byte for byte against the same step with the
+               plain B6 or B1 in deterministic mode (loss, gradients,
+               parameters, moments, metrics) and (b) against a float64
+               recompute (``first_step_f64``) within ``TRAIN_F64``, two
+               planted faults outside it; the last step's kernel calls
+               against the plain version.  DeepFM's state (6.9 GB) is
+               checkpointed and restored byte for byte.  It prints the
+               step's p50 and max, samples/s, the bound (the dense
+               AdamW sweep's bytes, the GEMMs' operations), a profiled
+               step (kernels by group, idle share), the peak memory and
+               each step's loss, then runs ``python -m
+               repro_torch.launch.train --arch dlrm-rm2 --steps 20`` at
+               smoke width (exit 0).  ``chip_train.py --seeds 0 1 2``
+               runs it alone;
 9. gnn       — NequIP at its published width (5 layers, 32 channels,
                l_max = 2; seeded random weights carried from a numpy
                tree with ``carry.nequip_from_params``) on three graph
@@ -191,7 +215,8 @@ and then, printing one JSON line per phase:
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B1 at
                the plain extract's read, with two-tower's candidate and
-               p99 item lookups timed in phase 8b as variants, and a
+               p99 item lookups timed in phase 8b and its training
+               lookups (with their plain backward) in 8c as variants, and a
                row-width sweep as variants: float32 rows of 8, 32, 64,
                128, 256, 512, 1000, 1024 and 4096 bytes and 1024 one
                element off
@@ -209,8 +234,9 @@ and then, printing one JSON line per phase:
                Germany's; B6's at
                the DLRM ``serve_bulk`` shape, timed in phase 8 while the
                tables are on the card, with DeepFM's D = 10 and D = 1
-               bulk calls, the padded L = 8 bags and each model's
-               retrieval_cand calls (B = 1,048,576) as variants, each
+               bulk calls, the padded L = 8 bags, each model's
+               retrieval_cand calls (B = 1,048,576) and phase 8c's
+               training calls (with their plain backward) as variants, each
                with the sector floor beside its bound and the kernel it
                took; B7's at
                the minibatch's l = 2 sum, timed in phase 9 (the walk over
@@ -221,8 +247,8 @@ and then, printing one JSON line per phase:
 
 The launch counters are reset just before each path (phases 2-3, the
 plain extract, 5, 6, 7, each model of 8, two-tower, BERT4Rec and
-BERT4Rec's engine in 8b, each shape of 9, the engine and the launcher of
-10, each model of 11)
+BERT4Rec's engine in 8b, each model's supervised steps in 8c, each shape
+of 9, the engine and the launcher of 10, each model of 11)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call (and phase 11's
@@ -282,6 +308,27 @@ BERT_ENGINE = dict(max_batch=4, max_seq=208, page_size=16, n_pages=64)
 BERT_REQUESTS = 4
 BERT_PROMPT = (64, 180)
 BERT_NEW = (8, 16)
+# The recsys_train phase: DLRM-RM2, DeepFM and two-tower at published
+# width and train_batch rows, 1 untimed and TRAIN_STEPS timed steps each.
+TRAIN_STEPS = 8
+TRAIN_UNTOUCHED = 4096         # untouched table rows checked a table
+TT_F64_CHUNK = 4096            # rows of the float64 in-batch logits at once
+# The first step (card float32, TF32 off, deterministic mode) against
+# its float64 recompute: the loss relative to itself and the gradients
+# (the largest difference over the largest float64 element: grad_gap)
+# against first_step_f64; the update p1 - p0 and the moments m1, v1 (per
+# tensor, relative to its largest float64 value) and sampled untouched
+# rows' p1 (float32 ulps) against AdamW written out in float64 on the
+# card's gradients (adamw_first_step).  Over seeds 0-2 (H100,
+# chip_train.py) the gaps reached loss 1.03e-7, grad 1.93e-4 (two-tower),
+# update 0.0222 (DeepFM's width-1 table: p up to ~5, whose float32 ulp
+# is 5% of the 1e-5 step), moments 1.84e-7, untouched 0.5000002 ulps.
+# The planted faults gave grad 0.0023-0.98 and update 1.97-2.0 (the
+# gradient into the next row), update 1.0-1.01 and untouched 1.75 ulps
+# (the learning rate one step ahead).  The bounds are twice the gaps'
+# largest readings.
+TRAIN_F64 = {"loss": 2.1e-7, "grad": 3.9e-4, "update": 0.045,
+             "moments": 3.7e-7, "untouched_ulps": 1.0}
 # NequIP's graph shapes (GNN_SHAPES of the configuration), in the order
 # the gnn phase serves them, each with one untimed and 8 timed forwards.
 GNN_RUNS = ("molecule", "full_graph_sm", "minibatch_lg")
@@ -1430,6 +1477,651 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
            "launches": path_launches["retrieval_bert4rec"],
            "seconds": time.perf_counter() - start}
     return row, []
+
+
+def recsys_train(dev, seed: int, card: str, check,
+                 path_launches: dict) -> tuple[list, list]:
+    """Phase recsys_train: DLRM-RM2, DeepFM and two-tower trained at their
+    published widths on the card, one at a time, with TF32 off; then the
+    training launcher at smoke width.  Fails on a failed check.  Returns
+    (B6's, B1's) timings at the training shapes (kernels-line
+    variants)."""
+    import torch
+
+    matmul = tf32_off("recsys_train")
+    b6, b1 = [], []
+    for arch_id, cfg in train_models():
+        row, timed = train_recsys_model(dev, seed, arch_id, cfg, check,
+                                        path_launches)
+        emit({"phase": "recsys_train", **row, "matmul": matmul,
+              "card": card})
+        assert not row["failed"], f"{row['model']}: {row['failed']}"
+        (b1 if arch_id == "two-tower-retrieval" else b6).extend(timed)
+        gc.collect()
+        torch.cuda.empty_cache()        # the model is gone: free it
+    emit({"phase": "recsys_train", **train_launcher(), "card": card})
+    return b6, b1
+
+
+def same_bytes(a, b) -> bool:
+    """``bytes_equal`` for tensors of any rank (0-d too) that may require
+    a gradient."""
+    return bytes_equal(a.detach().reshape(-1), b.detach().reshape(-1))
+
+
+def train_models() -> list:
+    """(arch id, published configuration) of the recsys_train phase."""
+    from repro_torch.configs import deepfm, dlrm_rm2, two_tower_retrieval
+
+    return [("dlrm-rm2", dlrm_rm2._cfg()), ("deepfm", deepfm._cfg()),
+            ("two-tower-retrieval", two_tower_retrieval._cfg())]
+
+
+def train_batches(kind: str, cfg, n: int, seed: int) -> list:
+    """Steps 0 .. n-1 of the model's stream at ``train_batch`` rows, as
+    numpy dicts: ``ClickStream.batch`` (DLRM: dense, bags, labels;
+    DeepFM: bags, labels) or ``InteractionStream.pairs`` (two-tower)."""
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.dataplane.recsys import ClickStream, InteractionStream
+
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    if kind == "twotower":
+        stream = InteractionStream(n_users=cfg.n_users, n_items=cfg.n_items,
+                                   seed=seed)
+        return [stream.pairs(step, b) for step in range(n)]
+    stream = ClickStream(n_sparse=cfg.n_sparse, rows=cfg.rows, seed=seed,
+                         **({"n_dense": cfg.n_dense, "bag_size": cfg.bag_size}
+                            if kind == "dlrm" else {}))
+    keep = ("dense", "bags", "labels") if kind == "dlrm" else ("bags",
+                                                               "labels")
+    return [{k: v for k, v in stream.batch(step, b).items() if k in keep}
+            for step in range(n)]
+
+
+def train_bound(kind: str, model, params: dict, b: int) -> dict:
+    """The least time of a training step: the dense AdamW sweep's bytes
+    (each parameter's p, g, m and v read and p, m and v written, the
+    gradient's zero-fill and the norm's read: 9 float32 passes) against
+    the MLPs', the interaction's and the logits' operations forward and
+    backward (3 × the forward's)."""
+    def macs(mlp):
+        return sum(layer.w.numel() for layer in mlp.layers)
+
+    cfg = model.cfg
+    if kind == "dlrm":
+        fwd = 2 * b * (macs(model.bot) + macs(model.top)) \
+            + 2 * b * (cfg.n_sparse + 1) ** 2 * cfg.embed_dim
+    elif kind == "deepfm":
+        fwd = 2 * b * macs(model.deep) + 4 * b * cfg.n_sparse * cfg.embed_dim
+    else:
+        fwd = 2 * b * (macs(model.user_tower) + macs(model.item_tower)) \
+            + 2 * b * b * cfg.tower[-1]
+    n_bytes = 9 * sum(p.numel() * p.element_size() for p in params.values())
+    return model_bound(3 * fwd, n_bytes)
+
+
+def touched_rows(kind: str, batch: dict) -> dict:
+    """{table path: (the distinct ids each table reads, as the index
+    tuple of its (T, R, D) or (N, D) parameter; per table the sorted ids;
+    the batch's ids renumbered into them)}."""
+    import numpy as np
+
+    if kind == "twotower":
+        out = {}
+        for path, key in (("user_embed/table", "user_ids"),
+                          ("item_embed/table", "item_ids")):
+            u, local = np.unique(batch[key], return_inverse=True)
+            out[path] = ((u,), [u], local.astype(np.int32))
+        return out
+    bags = batch["bags"]
+    ids = [np.unique(col[col >= 0]) for col in bags.transpose(1, 0, 2)]
+    local = np.full_like(bags, -1)
+    for t, u in enumerate(ids):
+        col = bags[:, t]
+        local[:, t] = np.where(col >= 0, np.searchsorted(u, col), -1)
+    index = (np.concatenate([np.full(len(u), t) for t, u in enumerate(ids)]),
+             np.concatenate(ids))
+    paths = ("bags/tables",) if kind == "dlrm" else ("bags/tables",
+                                                     "linear/tables")
+    return {path: (index, ids, local) for path in paths}
+
+
+def first_step_f64(kind: str, model, p0: dict, batch: dict, rows: dict,
+                   opt, dev) -> dict:
+    """The first training step's loss and gradients recomputed in
+    float64 on the card, independently of the port's train step: every
+    dense parameter's gradient and those of the rows the batch reads
+    (each table cut to those rows, in the order of ``rows``' index
+    tuples).  B6 and B1 run their plain versions."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.carry import model_params
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    f64 = torch.float64
+    cfg = model.cfg
+    if kind == "twotower":
+        (uu,), _, lu = rows["user_embed/table"]
+        (ui,), _, li = rows["item_embed/table"]
+        cfg64 = dataclasses.replace(cfg, dtype=f64, n_users=len(uu),
+                                    n_items=len(ui))
+        cut = {"user_embed/table": uu, "item_embed/table": ui}
+    else:
+        _, ids, local = next(iter(rows.values()))
+        cfg64 = dataclasses.replace(cfg, dtype=f64,
+                                    rows=max(1, max(map(len, ids))))
+    host = type(model)(cfg64, device=dev, seed=0)
+    own = model_params(host)
+    with torch.no_grad():
+        for path, p in own.items():
+            if path in rows and kind != "twotower":
+                p.zero_()
+                for t, u in enumerate(ids):
+                    rr = torch.from_numpy(u).to(dev)
+                    p[t, :len(u)] = p0[path][t, rr].double()
+            elif path in rows:
+                p.copy_(p0[path][torch.from_numpy(cut[path]).to(dev)])
+            else:
+                p.copy_(p0[path].double())
+    with swapped(gk, "gather_rows_bag", gref.gather_rows_bag), \
+            swapped(gk, "gather_rows", gref.gather_rows), \
+            torch.enable_grad():
+        if kind == "twotower":
+            loss = two_tower_loss_backward(
+                host, torch.from_numpy(lu).to(dev),
+                torch.from_numpy(li).to(dev),
+                torch.from_numpy(batch["item_logq"]).to(dev, f64))
+        else:
+            bags = torch.from_numpy(local).to(dev)
+            x = host(torch.from_numpy(batch["dense"]).to(dev, f64), bags) \
+                if kind == "dlrm" else host(bags)
+            y = torch.from_numpy(batch["labels"]).to(dev, f64)
+            # The losses' binary cross-entropy, in float64 throughout.
+            loss = torch.mean(torch.clamp(x, min=0) - x * y
+                              + torch.log1p(torch.exp(-x.abs())))
+            loss.backward()
+    grads = {path: p.grad for path, p in own.items()}
+    out = {"loss": float(loss.detach()), "grads": {}}
+    for path, g in grads.items():
+        if path in rows and kind != "twotower":
+            # The cut table's rows, in the order of the index tuple.
+            g = torch.cat([g[t, :len(u)] for t, u in enumerate(ids)])
+        out["grads"][path] = g
+    return out
+
+
+def adamw_first_step(opt, p0: dict, grads: dict, ndims: dict) -> dict:
+    """AdamW's first step written out in float64, independently of the
+    port's optimizer, on the tensors given (a parameter's touched rows,
+    or all of it): the clip by the global norm of ``grads`` (every
+    nonzero gradient), the learning rate of step 1, the bias corrections,
+    decay on tensors of two or more dimensions (``ndims``).  Returns
+    {"p1", "m1", "v1"} keyed as ``grads``, and ``"lr"``."""
+    import math
+
+    import torch
+
+    norm = math.sqrt(sum(float((g * g).sum()) for g in grads.values()))
+    scale = min(1.0, opt.grad_clip / max(norm, 1e-6))
+    warm = min(1.0, 1 / max(opt.warmup_steps, 1))
+    prog = min(max((1 - opt.warmup_steps)
+                   / max(opt.total_steps - opt.warmup_steps, 1), 0.0), 1.0)
+    lr = opt.lr * warm * (opt.min_lr_ratio + (1 - opt.min_lr_ratio)
+                          * 0.5 * (1 + math.cos(math.pi * prog)))
+    out = {"p1": {}, "m1": {}, "v1": {}, "lr": lr, "norm": norm}
+    for path, g in grads.items():
+        g = g * scale
+        p = p0[path]
+        m = (1 - opt.b1) * g
+        v = (1 - opt.b2) * g * g
+        delta = (m / (1 - opt.b1)) / (torch.sqrt(v / (1 - opt.b2))
+                                      + opt.eps)
+        if ndims[path] >= 2:
+            delta = delta + opt.weight_decay * p
+        out["p1"][path], out["m1"][path], out["v1"][path] = \
+            p - lr * delta, m, v
+    return out
+
+
+def two_tower_loss_backward(host, users, items, logq) -> "torch.Tensor":
+    """Two-tower's in-batch softmax loss in float64 and its backward into
+    ``host``'s parameters, the (B, B) logits never whole: TT_F64_CHUNK
+    rows of them at a time give the loss and the gradients of the
+    normalised towers' outputs, which then flow back through the
+    towers."""
+    import torch
+
+    u = host.user(users)
+    i = host.item(items)
+    temp = host.cfg.temperature
+    n = u.shape[0]
+    du = torch.zeros_like(u)
+    di = torch.zeros_like(i)
+    total = 0.0
+    with torch.no_grad():
+        for lo in range(0, n, TT_F64_CHUNK):
+            hi = min(n, lo + TT_F64_CHUNK)
+            logits = u[lo:hi] @ i.T / temp - logq[None, :]
+            lse = torch.logsumexp(logits, dim=1)
+            diag = torch.arange(lo, hi, device=u.device)
+            total += float((lse - logits[diag - lo, diag]).sum())
+            g = torch.exp(logits - lse[:, None])
+            g[diag - lo, diag] -= 1.0
+            g /= n
+            du[lo:hi] = g @ i / temp
+            di += g.T @ u[lo:hi] / temp
+    torch.autograd.backward([u, i], [du, di])
+    return torch.tensor(total / n, dtype=torch.float64)
+
+
+def first_step_gaps(state: dict, loss, ref: dict, rows: dict, p0: dict,
+                    untouched: dict) -> dict:
+    """The first step's result in ``state`` against ``ref`` (the float64
+    loss, and AdamW written out in float64 on the card's gradients): the
+    loss (relative); the update p1 - p0 and the moments m1, v1 at the
+    touched rows and every dense parameter (per tensor the largest
+    difference over the largest float64 value, the worst tensor); the
+    sampled untouched rows' p1 in float32 ulps of the float64 p1."""
+    import torch
+
+    def rel(got, want):
+        scale = float(want.abs().max())
+        return float((got.double() - want).abs().max()) / scale \
+            if scale else float(got.abs().max())
+
+    def at(t, path):
+        if path in rows:
+            return t[tuple(torch.from_numpy(a).to(t.device)
+                           for a in rows[path][0])]
+        return t
+
+    params, opt = state["params"], state["opt"]
+    gaps = {"loss": abs(float(loss) - ref["loss"]) / abs(ref["loss"]),
+            "update": 0.0, "moments": 0.0, "untouched_ulps": 0.0}
+    for path in params:
+        p0_at = at(p0[path], path).double()
+        gaps["update"] = max(gaps["update"], rel(
+            at(params[path].detach(), path).double() - p0_at,
+            ref["p1"][path] - p0_at))
+        for k in ("m", "v"):
+            gaps["moments"] = max(gaps["moments"], rel(
+                at(opt[k][path], path), ref[f"{k}1"][path]))
+    for path, (index, want) in untouched.items():
+        a = want.abs().float()
+        ulp = (torch.nextafter(a, torch.full_like(a, float("inf")))
+               - a).double()
+        gaps["untouched_ulps"] = max(gaps["untouched_ulps"], float(
+            ((params[path].detach()[index].double() - want).abs()
+             / ulp).max()))
+    return gaps
+
+
+def grad_gap(grads: dict, rows: dict, want: dict) -> float:
+    """The largest difference of any gradient element (a table's at the
+    touched rows) from the float64 one, over the largest float64 element
+    of any tensor.  Not per tensor: a tensor whose gradient is a sum that
+    nearly cancels (a tower's last bias) has float32 noise far above its
+    own largest element."""
+    import torch
+
+    worst = 0.0
+    for path, w in want.items():
+        g = grads[path]
+        if path in rows:
+            g = g[tuple(torch.from_numpy(a).to(g.device)
+                        for a in rows[path][0])]
+        worst = max(worst, float((g.double() - w).abs().max()))
+    return worst / max(float(w.abs().max()) for w in want.values())
+
+
+def untouched_sample(kind: str, params: dict, rows: dict, p0: dict, ref,
+                     opt, seed: int, dev) -> dict:
+    """{table path: (an index tuple of TRAIN_UNTOUCHED rows no id of the
+    batch reads, drawn with ``seed``; their float64 p1 = p0 - lr·wd·p0,
+    the AdamW step of a zero gradient)}."""
+    import numpy as np
+    import torch
+
+    # Not default_rng(seed): the data streams draw their ids from it, so
+    # its first draws are the batch's own rows.
+    rng = np.random.default_rng([seed, TRAIN_UNTOUCHED])
+    out = {}
+    for path, (index, _, _) in rows.items():
+        shape = params[path].shape[:-1]
+        flat = np.ravel_multi_index(index, shape)
+        draw = np.empty(0, np.int64)
+        while draw.size < TRAIN_UNTOUCHED:
+            more = rng.integers(0, int(np.prod(shape)), 2 * TRAIN_UNTOUCHED)
+            draw = np.concatenate([draw, more[~np.isin(more, flat)]])
+        draw = draw[:TRAIN_UNTOUCHED]
+        sel = tuple(torch.from_numpy(a).to(dev)
+                    for a in np.unravel_index(draw, shape))
+        p = p0[path][sel].double()
+        out[path] = (sel, p - ref["lr"] * opt.weight_decay * p)
+    return out
+
+
+def train_recsys_model(dev, seed: int, arch_id: str, cfg, check,
+                       path_launches: dict) -> tuple:
+    """One model of phase recsys_train at published width and
+    ``train_batch`` rows: the first step checked in deterministic mode,
+    (a) byte for byte against the same step with B6 or B1 swapped for its
+    plain version (loss, every gradient, parameters, moments, metrics)
+    and (b) within ``TRAIN_F64`` of its float64 recompute (the loss and
+    gradients of ``first_step_f64``; the update and moments of
+    ``adamw_first_step`` on the card's gradients), with two planted
+    faults outside the bounds; then, from the
+    same initial state, 1 untimed and TRAIN_STEPS timed steps of
+    ``make_train_step`` under ``Supervisor`` with the launch counters
+    reset (B6 once a step for DLRM, twice for DeepFM; B1 twice for
+    two-tower; every call of the path byte-equal to the plain version
+    afterwards), one profiled step, DeepFM's checkpoint written and
+    restored byte for byte, and B6's or B1's timings at the path's
+    shapes with their plain backward (``index_add_``).  Returns (the
+    row, the timings)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.dataplane.pipeline import device_put
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.fault import FaultConfig, Supervisor
+    from repro_torch.train.train_state import value_and_grad
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    setup = train_cfgs.train(arch_id, cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, state, step, kind, opt = (setup[k] for k in (
+        "model", "state", "step", "kind", "opt"))
+    params = state["params"]
+    kname = "gather_rows" if kind == "twotower" else "gather_rows_bag"
+    plain = getattr(gref, kname)
+    per_step = {"dlrm": {"gather_rows_bag": 1},
+                "deepfm": {"gather_rows_bag_tiled": 2},
+                "twotower": {"gather_rows": 2}}[kind]
+    t0 = time.perf_counter()
+    host = train_batches(kind, cfg, 1 + TRAIN_STEPS, seed)
+    batches = [device_put(b, dev) for b in host]
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    p0 = {k: p.detach().clone() for k, p in params.items()}
+    opt_leaves = list(ckpt.flatten_tree(state["opt"]).values())
+
+    def reset_state():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(p0[k])
+            for t in opt_leaves:
+                t.zero_()
+
+    loss_fn = train_cfgs.loss_for(kind, model)
+    failed = []
+    # (a) the first step against itself with the plain version of the
+    # kernel, in deterministic mode: loss and gradients, then the step.
+    with deterministic():
+        loss_k, _, g_k = value_and_grad(loss_fn, params, batches[0])
+        with swapped(gk, kname, plain):
+            loss_r, _, g_r = value_and_grad(loss_fn, params, batches[0])
+        same = {"loss": same_bytes(loss_k, loss_r),
+                "grads": all(same_bytes(g_k[k], g_r[k]) for k in g_k)}
+        del g_r
+        rows = touched_rows(kind, host[0])
+        ref = first_step_f64(kind, model, p0, host[0], rows, opt, dev)
+        g_at, p0_at = {}, {}
+        for path in ref["grads"]:
+            sel = tuple(torch.from_numpy(a).to(dev) for a in rows[path][0]) \
+                if path in rows else ...
+            g_at[path] = g_k[path][sel].double()
+            p0_at[path] = p0[path][sel].double()
+        clean_grad_gap = grad_gap(g_k, rows, ref["grads"])
+        del g_k
+        # The update against AdamW written out in float64 on the card's
+        # own gradients: the first step divides each gradient by its own
+        # size, so one within float32 noise of zero (about eps) may step
+        # either way, and float64 gradients would not tell the update's
+        # arithmetic from that noise.
+        ref.update(adamw_first_step(opt, p0_at, g_at, {
+            path: p.ndim for path, p in params.items()}))
+        del g_at, p0_at
+        untouched = untouched_sample(kind, params, rows, p0, ref, opt, seed,
+                                     dev)
+        _, m_k = step(state, batches[0])
+        gaps = {**first_step_gaps(state, m_k["loss"], ref, rows, p0,
+                                  untouched), "grad": clean_grad_gap}
+        snap = {k: v.detach().to("cpu")
+                for k, v in ckpt.flatten_tree(state).items()}
+        reset_state()
+        with swapped(gk, kname, plain):
+            _, m_r = step(state, batches[0])
+        same["state"] = all(same_bytes(v, snap[k].to(dev))
+                            for k, v in ckpt.flatten_tree(state).items())
+        same["metrics"] = all(same_bytes(m_k[k], m_r[k]) for k in m_k)
+        del snap
+        # Planted faults: the table gradient added into the next row;
+        # the learning rate of the step after.  Each must leave a gap
+        # outside the bounds.
+        back = "gather_rows_backward" if kind == "twotower" \
+            else "gather_rows_bag_backward"
+        real_back, real_sched = getattr(gref, back), optim.schedule
+
+        def next_row(grad_out, ids, n_rows):
+            return real_back(grad_out, torch.where(
+                ids >= 0, (ids + 1) % n_rows, ids), n_rows)
+
+        faults = {}
+        for what, mod, name, fn in (
+                ("gradient into the next row", gref, back, next_row),
+                ("learning rate one step ahead", optim, "schedule",
+                 lambda c, s: real_sched(c, s + 1))):
+            reset_state()
+            with swapped(mod, name, fn):
+                _, _, g_f = value_and_grad(loss_fn, params, batches[0])
+                fault_grad_gap = grad_gap(g_f, rows, ref["grads"])
+                del g_f
+                _, m_f = step(state, batches[0])
+            faults[what] = {**first_step_gaps(state, m_f["loss"], ref, rows,
+                                              p0, untouched),
+                            "grad": fault_grad_gap}
+    failed += [f"plain {k}: not byte-equal" for k, ok in same.items()
+               if not ok]
+    failed += [f"f64 {k}: {v} > {TRAIN_F64[k]}" for k, v in gaps.items()
+               if not v <= TRAIN_F64[k]]
+    failed += [f"fault {what}: within the bounds"
+               for what, g in faults.items()
+               if all(v <= TRAIN_F64[k] for k, v in g.items())]
+
+    # The main path: from the same initial state, 1 + TRAIN_STEPS steps
+    # under the supervisor, the launch counters reset just before.
+    reset_state()
+    del p0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as unused:
+        sup = Supervisor(FaultConfig(ckpt_dir=unused, ckpt_every=1 << 30),
+                         step, lambda i: batches[i])
+        losses = []
+        reset_launches()
+        with recording(gk, kname) as calls:
+            state = sup.run(state, 1 + TRAIN_STEPS,
+                            on_metrics=lambda i, m: losses.append(m["loss"]))
+        launches = path_launches[f"recsys_train_{kind}"] = dict(LAUNCHES)
+    want = {k: n * (1 + TRAIN_STEPS) for k, n in per_step.items()}
+    if {k: n for k, n in launches.items() if n} != want:
+        failed.append(f"launches {launches}, expected {want}")
+    if sup.restarts:
+        failed.append(f"{sup.restarts} restarts")
+    path_peak = torch.cuda.max_memory_allocated() - held
+    phase_peak = torch.cuda.max_memory_allocated() - held_before
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        failed.append(f"losses {losses}")
+    # The last step's calls, checked on their inputs as they are now (the
+    # optimizer has moved the tables since the calls ran).
+    timed_args = [a for a, _ in calls[-sum(per_step.values()):]]
+    del calls
+    with torch.no_grad():
+        for i, a in enumerate(timed_args):
+            check(kname, getattr(gk, kname)(*a), plain(*a),
+                  f"{cfg.name} train_batch call {i}")
+    step_ms = [t * 1e3 for t in sup.monitor.times]
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    bound = train_bound(kind, model, params, b)
+    profiled = device_profile(lambda: step(state, batches[-1]),
+                              top=1 << 16, named=(f"{kname}_ms", kname))
+    profiled["by_group"] = profiled_groups(profiled["top"])
+    # B6 or B1 and the backward's index kernels by name, wherever they
+    # rank (the top 8 are the optimizer's passes and the GEMMs).
+    profiled["named"] = [k for k in profiled["top"] if any(
+        part in k["name"] for part in ("gather_rows", "indexFunc",
+                                       "index_put", "indexing_backward"))]
+    profiled["top"] = profiled["top"][:8]
+
+    row = {"model": cfg.name, "seed": seed, "batch": b, "init_s": init_s,
+           "data_s": data_s,
+           "params": sum(p.numel() for p in params.values()),
+           "state_bytes": sum(t.numel() * t.element_size() for t in
+                              ckpt.flatten_tree(state).values()),
+           "step_ms": step_ms, "step_ms_p50": float(np.median(step_ms[1:])),
+           "step_ms_max": max(step_ms[1:]),
+           "samples_per_s": b / (float(np.median(step_ms[1:])) / 1e3),
+           **bound, "losses": losses, "profiled_step": profiled,
+           "first_step": {"plain_byte_equal": same, "f64_gaps": gaps,
+                          "bounds": TRAIN_F64, "faults": faults,
+                          "grad_norm": float(m_k["grad_norm"]),
+                          "f64_norm": ref["norm"], "lr": float(m_k["lr"]),
+                          "touched_rows": {k: int(len(v[0][-1]))
+                                           for k, v in rows.items()}},
+           "restarts": sup.restarts, "path_peak_bytes": path_peak,
+           "phase_peak_bytes": phase_peak,
+           "launches": launches, "failed": failed}
+    if kind == "deepfm":
+        row["checkpoint"] = checkpoint_round_trip(
+            arch_id, cfg, state, dev, seed, 1 + TRAIN_STEPS)
+        if not row["checkpoint"]["byte_equal"]:
+            failed.append("checkpoint: restored state differs")
+    timer = Timer(dev)
+    timings = []
+    with torch.no_grad():
+        for a in timed_args:
+            t = bag_timing(dev, *a, f"{cfg.name} train_batch") \
+                if kname == "gather_rows_bag" else \
+                b1_timing(timer, *a, f"{cfg.name} train_batch")
+            timings.append({**t, "backward": backward_timing(timer, kname,
+                                                             *a)})
+    row["seconds"] = time.perf_counter() - start
+    return row, timings
+
+
+def profiled_groups(kernels: list) -> dict:
+    """A profiled step's kernels summed by what they are: B6 or B1, the
+    backward's index kernels, the GEMMs, elementwise passes (the
+    optimizer's, and the forward's and backward's), reductions, the
+    rest."""
+    groups = {"gather": 0.0, "index": 0.0, "gemm": 0.0, "elementwise": 0.0,
+              "reduce": 0.0, "other": 0.0}
+    for k in kernels:
+        name = k["name"].lower()
+        key = ("gather" if "gather_rows" in name else
+               "index" if "index" in name or "scatter" in name else
+               "gemm" if any(s in name for s in ("gemm", "nvjet", "cutlass",
+                                                 "xmma")) else
+               "elementwise" if "elementwise" in name else
+               "reduce" if "reduce" in name else "other")
+        groups[key] += k["ms"]
+    return groups
+
+
+def backward_timing(timer, kname: str, table, ids) -> dict:
+    """The plain backward of B6 or B1 at a path call's shape (a dense
+    zero table and ``index_add_`` of a seeded grad_out at the ids): CUDA
+    events and the device time by kernel; the bound writes the table's
+    zeros once and reads and adds each grad_out row once."""
+    import torch
+
+    from repro_torch.kernels.gather import ref as gref
+
+    gen = torch.Generator(device=table.device).manual_seed(0)
+    n, d = table.shape
+    grad_out = torch.randn((ids.shape[0], d), generator=gen,
+                           device=table.device, dtype=table.dtype)
+    if kname == "gather_rows":
+        fn = lambda: gref.gather_rows_backward(grad_out, ids, n)  # noqa: E731
+    else:
+        fn = lambda: gref.gather_rows_bag_backward(  # noqa: E731
+            grad_out, ids, n)
+    size = table.element_size()
+    n_bytes = n * d * size + ids.numel() * (4 + 3 * d * size)
+    return {"ms": timer(fn), "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", **kernel_breakdown(fn, iters=5)}
+
+
+def checkpoint_round_trip(arch_id, cfg, state, dev, seed: int,
+                          step: int) -> dict:
+    """Write ``state`` as a checkpoint (async: the host copy on this
+    thread, the files on another) into a temporary directory under
+    ``build/``, restore it into a fresh state of the same model and
+    compare byte for byte; the directory is removed."""
+    import torch
+
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        thread = ckpt.save_checkpoint(d, step, state, blocking=False)
+        out["snapshot_s"] = time.perf_counter() - t0
+        thread.join()
+        out["write_s"] = time.perf_counter() - t0
+        out["bytes"] = sum(f.stat().st_size for f in Path(d).rglob("*")
+                           if f.is_file())
+        fresh = train_cfgs.train(arch_id, cfg, device=dev, seed=seed + 1)
+        t0 = time.perf_counter()
+        ckpt.restore_checkpoint(d, step, fresh["state"])
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        got = ckpt.flatten_tree(fresh["state"])
+        out["byte_equal"] = all(same_bytes(got[k], v) for k, v in
+                                ckpt.flatten_tree(state).items())
+        out["leaves"] = len(got)
+        del fresh, got
+    return out
+
+
+def train_launcher() -> dict:
+    """``python -m repro_torch.launch.train --arch dlrm-rm2 --steps 20`` at
+    smoke width on the card, its checkpoints in a temporary directory
+    under ``build/``; it must exit 0."""
+    import os
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                "dlrm-rm2", "--steps", "20", "--ckpt-dir", d]
+        t0 = time.perf_counter()
+        out = subprocess.run(argv, capture_output=True, text=True,
+                             timeout=600, cwd=ROOT,
+                             env={**os.environ, "PYTHONPATH": str(
+                                 ROOT / "src")})
+        seconds = time.perf_counter() - t0
+        ckpts = sorted(p.name for p in Path(d).glob("step_*"))
+    assert out.returncode == 0, f"training launcher: exit {out.returncode}" \
+        f"\n{out.stderr[-2000:]}"
+    return {"launcher": argv[2:-2], "exit": out.returncode,
+            "seconds": seconds, "checkpoints": ckpts,
+            "said": out.stdout.splitlines()}
 
 
 def tree_map(fn, tree):
@@ -3345,6 +4037,12 @@ def main(argv=None) -> int:
     b1_variants = recsys_retrieval(dev, args.seed, card, check,
                                    path_launches)
 
+    # -- 8c. recsys_train: DLRM-RM2, DeepFM and two-tower trained (B6, B1)
+    b6_train, b1_train = recsys_train(dev, args.seed, card, check,
+                                      path_launches)
+    b6_timing["variants"] += b6_train
+    b1_variants += b1_train
+
     # -- 9. gnn: NequIP at full width on three graph shapes (B7) --------
     b7_timing = gnn(dev, args.seed, card, check, path_launches)
 
@@ -3542,6 +4240,10 @@ def main(argv=None) -> int:
         "launches_by_kernel": {
             k: launches[k] for k in ("gather_rows_bag",
                                      "gather_rows_bag_tiled")},
+        "launches_by_path": {
+            k: p["gather_rows_bag"] + p["gather_rows_bag_tiled"]
+            for k, p in path_launches.items()
+            if p["gather_rows_bag"] + p["gather_rows_bag_tiled"]},
         "max_abs_err": errs["gather_rows_bag"], **b6_timing})
 
     # B7: minibatch_lg's l = 2 message sum (timed in phase 9), with the

@@ -11,6 +11,15 @@ as the JAX package's initialisers build it, into the port's modules, and
 ``transformer_from_params`` turns such a tree into the decoder's
 parameter dict (BERT4Rec's too, with its ``pos_embed``).
 
+Training state crosses too: ``model_params`` keys a recsys model's
+parameters by the JAX package's tree paths (``"bags/tables"``,
+``"bot/layers/0/w"``, ``"user_embed/table"``), the keys of the port's
+train state (``repro_torch.train``); ``train_state_from_tree`` loads a
+JAX train state ``{"params", "opt"}`` (AdamW's ``m``, ``v``, ``step``
+or Adafactor's ``f``, ``step``; ``ef`` too where present) of numpy
+arrays into a model and a port train state, and ``train_state_to_tree``
+turns a port train state back into that tree.
+
 Datacube spec::
 
     {"kind": "tensor", "axes": [axis, ...], "dtype": "float64"}
@@ -50,6 +59,7 @@ from .core import shapes as _shapes
 from .models import nequip as _nequip
 from .models import recsys as _recsys
 from .models import transformer as _transformer
+from .train.checkpoint import SEP, flatten_tree
 
 _SHAPES = {cls.__name__.lower(): cls for cls in (
     _shapes.Select, _shapes.All, _shapes.Span, _shapes.Point, _shapes.Box,
@@ -146,14 +156,38 @@ def _load_mlp(mlp: torch.nn.Module, tree: dict, what: str) -> None:
         _load(layer.b, p["b"], f"{what}.layers[{i}].b")
 
 
+# The parameters whose JAX path is not their module name with "." → "/".
+_PATHS = {_recsys.TwoTower: {"user_embed": "user_embed/table",
+                             "item_embed": "item_embed/table"}}
+
+
+def model_params(model: torch.nn.Module) -> dict:
+    """A recsys model's parameters keyed by the JAX package's tree paths
+    (``"bags/tables"``, ``"bot/layers/0/w"``, ``"user_embed/table"``):
+    the ``params`` of the port's train state."""
+    renames = _PATHS.get(type(model), {})
+    return {renames.get(name, name.replace(".", SEP)): p
+            for name, p in model.named_parameters()}
+
+
+def _load_params(model: torch.nn.Module, params: dict, what: str) -> None:
+    """Load a JAX parameter tree of numpy arrays into ``model``: every
+    path of the tree must be one of the model's, and the other way
+    round."""
+    flat, own = flatten_tree(params), model_params(model)
+    if set(flat) != set(own):
+        raise ValueError(f"{what}: parameters {sorted(flat)}, the module "
+                         f"has {sorted(own)}")
+    for path, value in flat.items():
+        _load(own[path], value, f"{what}.{path}")
+
+
 def dlrm_from_params(cfg: _recsys.DLRMConfig, params: dict,
                      device=None) -> _recsys.DLRM:
     """A ``DLRM`` holding ``params``: ``{"bags": {"tables"}, "bot":
     {"layers": [{"w", "b"}, ...]}, "top": {...}}`` as numpy arrays."""
     model = _recsys.DLRM(cfg, device=device)
-    _load(model.bags.tables, params["bags"]["tables"], "bags.tables")
-    _load_mlp(model.bot, params["bot"], "bot")
-    _load_mlp(model.top, params["top"], "top")
+    _load_params(model, params, cfg.name)
     return model
 
 
@@ -162,10 +196,7 @@ def deepfm_from_params(cfg: _recsys.DeepFMConfig, params: dict,
     """A ``DeepFM`` holding ``params``: ``{"bags": {"tables"}, "linear":
     {"tables"}, "deep": {"layers": [...]}, "bias"}`` as numpy arrays."""
     model = _recsys.DeepFM(cfg, device=device)
-    _load(model.bags.tables, params["bags"]["tables"], "bags.tables")
-    _load(model.linear.tables, params["linear"]["tables"], "linear.tables")
-    _load_mlp(model.deep, params["deep"], "deep")
-    _load(model.bias, params["bias"], "bias")
+    _load_params(model, params, cfg.name)
     return model
 
 
@@ -175,11 +206,102 @@ def twotower_from_params(cfg: _recsys.TwoTowerConfig, params: dict,
     "item_embed": {"table"}, "user_tower": {"layers": [{"w", "b"}, ...]},
     "item_tower": {...}}`` as numpy arrays."""
     model = _recsys.TwoTower(cfg, device=device)
-    _load(model.user_embed, params["user_embed"]["table"], "user_embed")
-    _load(model.item_embed, params["item_embed"]["table"], "item_embed")
-    _load_mlp(model.user_tower, params["user_tower"], "user_tower")
-    _load_mlp(model.item_tower, params["item_tower"], "item_tower")
+    _load_params(model, params, cfg.name)
     return model
+
+
+def _tensors_like(tree: dict, params: dict, what: str) -> dict:
+    """A params-shaped JAX tree (``m``, ``v``, ``ef``) as tensors keyed by
+    path, on the parameters' devices."""
+    flat = flatten_tree(tree)
+    if set(flat) != set(params):
+        raise ValueError(f"{what}: leaves {sorted(flat)}, the parameters "
+                         f"are {sorted(params)}")
+    out = {}
+    for path, p in params.items():
+        arr = np.asarray(flat[path])
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{what}.{path}: shape {arr.shape}, the "
+                             f"parameter's is {tuple(p.shape)}")
+        out[path] = torch.from_numpy(np.array(arr, order="C")).to(p.device)
+    return out
+
+
+def _factored(tree: dict, params: dict) -> dict:
+    """Adafactor's ``f`` (per parameter ``{"vr", "vc"}`` or ``{"v"}``) as
+    tensors keyed by parameter path."""
+    flat = flatten_tree(tree)
+    out = {path: {} for path in params}
+    for key, value in flat.items():
+        path, _, leaf = key.rpartition(SEP)
+        if path not in out or leaf not in ("vr", "vc", "v"):
+            raise ValueError(f"opt.f: leaf {key!r} is not a moment of a "
+                             f"parameter")
+        out[path][leaf] = torch.from_numpy(
+            np.array(np.asarray(value), order="C")).to(params[path].device)
+    for path, p in params.items():
+        want = ({"vr": p.shape[:-1], "vc": p.shape[:-2] + p.shape[-1:]}
+                if p.ndim >= 2 else {"v": p.shape})
+        got = {k: tuple(t.shape) for k, t in out[path].items()}
+        if got != {k: tuple(v) for k, v in want.items()}:
+            raise ValueError(f"opt.f.{path}: {got}, expected {want}")
+    return out
+
+
+def train_state_from_tree(model: torch.nn.Module, tree: dict) -> dict:
+    """Load a JAX train state of numpy arrays — ``{"params", "opt"}``,
+    and ``"ef"`` where present — into ``model`` and a port train state on
+    its device: ``{"params": model_params(model), "opt": {"m", "v",
+    "step"} or {"f", "step"}}`` (and ``"ef"``)."""
+    _load_params(model, tree["params"], "params")
+    params = model_params(model)
+    device = next(iter(params.values())).device
+    opt = {}
+    for key, value in tree["opt"].items():
+        if key == "step":
+            opt[key] = torch.tensor(np.asarray(value), dtype=torch.int32,
+                                    device=device)
+        elif key in ("m", "v"):
+            opt[key] = _tensors_like(value, params, f"opt.{key}")
+        elif key == "f":
+            opt[key] = _factored(value, params)
+        else:
+            raise ValueError(f"opt: unknown leaf {key!r}")
+    state = {"params": params, "opt": opt}
+    if "ef" in tree:
+        state["ef"] = _tensors_like(tree["ef"], params, "ef")
+    return state
+
+
+def tree_from_paths(flat: dict) -> dict:
+    """{path: leaf} → nested dicts, and lists where a level's keys are
+    0..n-1 (the JAX package's layer lists)."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        *parts, last = path.split(SEP)
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return _lists(root)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    out = {k: _lists(v) for k, v in node.items()}
+    if out and all(k.isdigit() for k in out) and \
+            sorted(map(int, out)) == list(range(len(out))):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def train_state_to_tree(state: dict) -> dict:
+    """A port train state as the JAX package's tree of numpy arrays (host
+    copies): the inverse of ``train_state_from_tree``."""
+    return tree_from_paths({
+        path: leaf.detach().to("cpu", copy=True).numpy()
+        for path, leaf in flatten_tree(state).items()})
 
 
 def _load_keyed(params: torch.nn.ParameterDict, tree: dict,

@@ -3,6 +3,7 @@ deep MLP 400-400-400, FM second-order interaction.  Tables: 39 × 10⁶
 rows of 10 (1.56 GB in float32) and a first-order table of width 1."""
 
 from ..models.recsys import DeepFMConfig
+from ..train.optimizer import OptimizerConfig
 
 ID = "deepfm"
 
@@ -15,3 +16,9 @@ def _cfg() -> DeepFMConfig:
 def _smoke() -> DeepFMConfig:
     return DeepFMConfig(name=ID + "-smoke", n_sparse=6, rows=64,
                         embed_dim=4, mlp_dims=(16, 16))
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
+                           total_steps=300_000)

@@ -4,6 +4,7 @@ interaction.  Tables: 26 × 10⁶ rows (Criteo-scale), 6.66 GB in
 float32."""
 
 from ..models.recsys import DLRMConfig
+from ..train.optimizer import OptimizerConfig
 
 ID = "dlrm-rm2"
 
@@ -18,3 +19,9 @@ def _smoke() -> DLRMConfig:
     return DLRMConfig(name=ID + "-smoke", n_dense=13, n_sparse=4,
                       rows=128, embed_dim=8, bot_mlp=(16, 8),
                       top_mlp=(16, 1), bag_size=1)
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
+                           total_steps=300_000)

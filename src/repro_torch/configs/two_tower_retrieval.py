@@ -4,6 +4,7 @@ candidates (padded to 2²⁰) scored as one matrix product.  Tables: 10⁶
 users and 10⁶ items × 256, 2.05 GB in float32."""
 
 from ..models.recsys import TwoTowerConfig
+from ..train.optimizer import OptimizerConfig
 
 ID = "two-tower-retrieval"
 
@@ -16,3 +17,9 @@ def _cfg() -> TwoTowerConfig:
 def _smoke() -> TwoTowerConfig:
     return TwoTowerConfig(name=ID + "-smoke", n_users=128, n_items=128,
                           embed_dim=16, tower=(32, 16))
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
+                           total_steps=300_000)

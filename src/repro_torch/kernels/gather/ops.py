@@ -7,6 +7,12 @@ raises.  ``use_pallas``/``interpret`` of ``gather_rows`` and
 ``gather_plan_runs`` keep the JAX package's signatures for parity and
 are ignored — on the port the device decides.
 
+``gather_rows`` (B1) and ``gather_rows_bag`` (B6) are differentiable
+with respect to the table: the forward is routed as above, the backward
+is ``ref.gather_rows_backward`` / ``ref.gather_rows_bag_backward``
+(plain PyTorch on every device: the JAX package takes these gradients
+with XLA's scatter-add, not with a Pallas kernel).
+
 The host arrays a launch reads (a plan's runs; a window's union and
 positions) are validated and cast on the host, then reach the card
 through one pinned buffer and one non-blocking copy
@@ -50,12 +56,39 @@ def _index_tensor(indices, device: torch.device, *, what: str,
     return idx.to(device)
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, indices):
+        ctx.save_for_backward(indices)
+        ctx.n_rows = table.shape[0]
+        return _route(table).gather_rows(table, indices)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (indices,) = ctx.saved_tensors
+        return ref.gather_rows_backward(grad_out, indices, ctx.n_rows), None
+
+
+class _GatherRowsBag(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, bags):
+        ctx.save_for_backward(bags)
+        ctx.n_rows = table.shape[0]
+        return _route(table).gather_rows_bag(table, bags)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (bags,) = ctx.saved_tensors
+        return (ref.gather_rows_bag_backward(grad_out, bags, ctx.n_rows),
+                None)
+
+
 def gather_rows(table: torch.Tensor, indices, use_pallas: bool = False,
                 interpret: bool = True) -> torch.Tensor:
     """``table[indices]`` for an (N, D) table; kernel B1 on the card."""
     idx = _index_tensor(indices, table.device, what="gather_rows indices",
                         n_elements=table.shape[0])
-    return _route(table).gather_rows(table, idx)
+    return _GatherRows.apply(table, idx)
 
 
 def gather_plan_rows(flat: torch.Tensor, offsets, row: int,
@@ -76,7 +109,14 @@ def gather_rows_bag(table: torch.Tensor, bags) -> torch.Tensor:
     negative value allowed); kernel B6 on the card."""
     idx = _index_tensor(bags, table.device, what="gather_rows_bag bags",
                         n_elements=table.shape[0], allow_negative_one=True)
-    return _route(table).gather_rows_bag(table, idx)
+    return gather_rows_bag_checked(table, idx)
+
+
+def gather_rows_bag_checked(table: torch.Tensor,
+                            bags: torch.Tensor) -> torch.Tensor:
+    """``gather_rows_bag`` on (B, L) int32 bags already on the table's
+    device and known to lie in [-1, N): no check, no host read."""
+    return _GatherRowsBag.apply(table, bags)
 
 
 def chunk_runs(run_starts: np.ndarray, run_lengths: np.ndarray,

@@ -2,6 +2,13 @@
 
 The CPU path of ``ops`` and the yardstick ``chip_smoke.py`` holds the
 CUDA kernels against on the card.  Same contracts as ``kernel``.
+
+The backward of B1 and B6 (``gather_rows_backward``,
+``gather_rows_bag_backward``) is plain PyTorch on every device, as the
+JAX package takes the gradient of ``jnp.take`` with XLA's scatter-add:
+``grad_out`` added into a dense zero table at the ids with
+``index_add_``, which on the card is deterministic, and adds in the
+CPU's order, under PyTorch's deterministic algorithms (``_rows_added``).
 """
 
 from __future__ import annotations
@@ -36,6 +43,42 @@ def gather_rows_bag(table: torch.Tensor, bags: torch.Tensor) -> torch.Tensor:
     for slot in range(bags.shape[1]):
         out = out + torch.where(valid[:, slot, None], rows[:, slot], zero)
     return out
+
+
+def _rows_added(n_rows: int, ids: torch.Tensor,
+                src: torch.Tensor) -> torch.Tensor:
+    """A dense (n_rows, D) zero table with row ``src[i]`` added at row
+    ``ids[i]`` (int64), the adds of a row in the order of ``i``: so on
+    the CPU, and on the card in deterministic mode, where ``index_add_``
+    sorts the ids stably and walks each row's run, except at D = 1,
+    where a warp reduces the run.  A width-1 table is therefore summed
+    as width 2 beside a zero column, and the first column returned."""
+    d = src.shape[1]
+    if d == 1:
+        src = torch.cat([src, torch.zeros_like(src)], dim=1)
+    grad = src.new_zeros((n_rows, src.shape[1]))
+    return grad.index_add_(0, ids, src)[:, :d]
+
+
+def gather_rows_backward(grad_out: torch.Tensor, indices: torch.Tensor,
+                         n_rows: int) -> torch.Tensor:
+    """The gradient of ``gather_rows`` with respect to its (N, D) table:
+    ``grad[indices[m]] += grad_out[m]``, dense, zero at rows not read."""
+    return _rows_added(n_rows, indices.long(), grad_out)
+
+
+def gather_rows_bag_backward(grad_out: torch.Tensor, bags: torch.Tensor,
+                             n_rows: int) -> torch.Tensor:
+    """The gradient of ``gather_rows_bag`` with respect to its (N, D)
+    table: ``grad[bags[b, l]] += grad_out[b]`` for every slot, dense,
+    zero at rows not read.  A -1 slot is skipped: it adds into a spare
+    row N, past the table's rows, so the ids need no compaction (and no
+    read back from the card)."""
+    n_slots = bags.shape[1]
+    ids = torch.where(bags >= 0, bags, n_rows).reshape(-1).long()
+    src = grad_out if n_slots == 1 else grad_out.repeat_interleave(
+        n_slots, dim=0)
+    return _rows_added(n_rows + 1, ids, src)[:n_rows]
 
 
 def gather_runs(flat: torch.Tensor, chunk_starts: torch.Tensor,

@@ -1,0 +1,100 @@
+"""Training launcher: ``python -m repro_torch.launch.train --arch <id>``
+
+Trains a recsys architecture (``dlrm-rm2``, ``deepfm``,
+``two-tower-retrieval``) end to end on one card: step-addressable data
+→ the train step (B6 or B1 in the forward, their plain backward, AdamW)
+→ the fault-tolerant supervisor → checkpoints in the JAX package's
+format.  As the JAX launcher does, it always runs the smoke
+configuration (``--smoke`` is on by default).  ``--device cpu`` runs
+the plain PyTorch versions of the kernels.  The LM and GNN families and
+BERT4Rec raise ``NotImplementedError``: their training is the next
+slice (ROADMAP §A, A10d-2).
+
+    python -m repro_torch.launch.train --arch dlrm-rm2 --steps 20
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import tempfile
+import time
+
+import numpy as np
+
+from .._device import resolve_device
+from ..configs import ARCH_IDS
+from ..configs import train as train_cfgs
+from ..dataplane.pipeline import device_put
+from ..train.fault import FaultConfig, Supervisor
+
+
+def data_source_for(smoke: dict, device):
+    """Step-addressable synthetic data matching the smoke batch of
+    ``smoke`` (``configs.train.smoke``): the JAX launcher's recsys
+    recipe, fresh numpy draws of each array's shape and dtype seeded by
+    the step, placed on ``device``."""
+    family = smoke["family"]
+    if family != "recsys":
+        raise NotImplementedError(
+            f"{family} training data is not ported yet (ROADMAP §A, "
+            f"A10d-2)")
+    batch_template = smoke["batch"]
+
+    def source(step: int) -> dict:
+        rng = np.random.default_rng(step)
+        out = {}
+        for k, v in batch_template.items():
+            v = np.asarray(v)
+            if v.dtype.kind == "i":
+                hi = max(2, int(v.max()) + 1)
+                out[k] = rng.integers(0, hi, v.shape).astype(v.dtype)
+            else:
+                out[k] = (rng.random(v.shape) < 0.5).astype(v.dtype)
+        return device_put(out, device)
+
+    return source
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=ARCH_IDS, required=True)
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--ckpt-dir", default=os.path.join(
+        tempfile.gettempdir(), "repro_torch_train_ckpt"))
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain "
+                         "versions)")
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Train; returns the supervisor's final state."""
+    args = parse_args(argv)
+    train_cfgs.kind_of(args.arch)       # not ported: raise before any work
+    device = resolve_device(args.device)
+    smoke = train_cfgs.smoke(args.arch, device=device, seed=args.seed)
+    source = data_source_for(smoke, device)
+    sup = Supervisor(
+        FaultConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
+        smoke["step"], source)
+
+    t0 = time.time()
+
+    def on_metrics(step, metrics):
+        if step % args.log_every == 0:
+            loss = float(metrics["loss"])
+            print(f"step {step:5d}  loss {loss:.4f}  "
+                  f"({time.time() - t0:.1f}s)", flush=True)
+
+    state = sup.run(smoke["state"], args.steps, on_metrics=on_metrics)
+    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -165,3 +165,39 @@ def embed(params: dict, ids: torch.Tensor) -> torch.Tensor:
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     """Tied softmax head: ``x @ table.T``."""
     return x @ params["table"].to(x.dtype).T
+
+
+
+class _NLL(torch.autograd.Function):
+    """``logsumexp(logits) - logits[label]`` per row, whose backward
+    writes ``softmax - onehot`` straight into one tensor of the logits'
+    shape: autograd through ``logsumexp`` and ``take_along_dim`` would
+    hold two more (two-tower's in-batch logits at 65,536 rows are
+    17.2 GB each)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels[..., None],
+                                    dim=-1)[..., 0]
+        ctx.save_for_backward(logits, logz, labels)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        logits, logz, labels = ctx.saved_tensors
+        grad = torch.sub(logits, logz[..., None]).exp_()
+        grad.mul_(grad_nll[..., None])
+        grad.scatter_add_(-1, labels[..., None], -grad_nll[..., None])
+        return grad, None
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: "torch.Tensor | None" = None) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under ``logits``
+    (…, V), in float32: ``logsumexp`` minus the label's logit; with
+    ``mask``, the masked sum over the mask's sum (at least 1)."""
+    nll = _NLL.apply(logits.float(), labels.long())
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

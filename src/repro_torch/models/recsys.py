@@ -1,5 +1,5 @@
-"""RecSys serving models: the EmbeddingBag, DLRM (RM-2), DeepFM,
-two-tower retrieval and BERT4Rec.
+"""RecSys models: the EmbeddingBag, DLRM (RM-2), DeepFM, two-tower
+retrieval and BERT4Rec, and the training losses of the first three.
 
 The embedding lookup is the hot path, and it is the paper's algorithm on
 the (row, dim) table datacube: the ids plan the rows, and only those
@@ -15,14 +15,21 @@ row for N and the last row for -1.  BERT4Rec is the decoder of
 ``models.transformer`` run without the causal mask, with learned
 positions; its embedding lookup is ``layers.embed``, as the LMs' is.
 
+Every parameter is trainable.  The gradients of B6 and B1 are plain
+PyTorch (``ops``' autograd Functions): ``grad_out`` added into a dense
+zero table at the ids, as XLA takes the gradient of ``jnp.take`` in the
+JAX package, so an optimizer moves every row of a table every step.
+``dlrm_loss`` and ``deepfm_loss`` are the stable binary cross-entropy
+of the logits, ``twotower_loss`` the in-batch softmax with the logQ
+correction; BERT4Rec's loss is not ported yet (ROADMAP §A).  Serving
+runs under ``torch.no_grad()``.
+
 Parameters keep the JAX package's layouts (stacked ``(T, R, D)``
 tables, ``w (d_in, d_out)`` dense weights), so ``repro_torch.carry``
-loads a JAX parameter tree into these modules unchanged.  Serving only:
-B6 has no backward yet, so the tables do not require gradients, and
-losses and training are not ported.  Matrix products are
-``torch.matmul``/``torch.bmm`` at whatever float32 matmul precision the
-process has set (TF32 off by default): the models inherit those settings
-and never set them.
+loads a JAX parameter tree into these modules unchanged.  Matrix
+products are ``torch.matmul``/``torch.bmm`` at whatever float32 matmul
+precision the process has set (TF32 off by default): the models inherit
+those settings and never set them.
 """
 
 from __future__ import annotations
@@ -37,7 +44,7 @@ from .._device import resolve_device
 from ..kernels._casting import ensure_i32_addressable
 from ..kernels.gather import ops as gather_ops
 from . import transformer as tf
-from .layers import MLP, embedding_init, unembed
+from .layers import MLP, cross_entropy, embedding_init, unembed
 
 
 class EmbeddingBag(nn.Module):
@@ -56,7 +63,7 @@ class EmbeddingBag(nn.Module):
         scale = 1.0 / math.sqrt(dim)
         for t in range(n_tables):
             tables[t].normal_(0.0, scale, generator=generator)
-        self.tables = nn.Parameter(tables, requires_grad=False)
+        self.tables = nn.Parameter(tables)
 
     def forward(self, bags: torch.Tensor,
                 combine: str = "sum") -> torch.Tensor:
@@ -82,7 +89,7 @@ class EmbeddingBag(nn.Module):
                             dtype=torch.int32)[None, :, None] * rows
         flat = torch.where(bags >= 0, bags.int() + base, -1)
         table = self.tables.view(n_tables * rows, dim)
-        out = gather_ops._route(table).gather_rows_bag(
+        out = gather_ops.gather_rows_bag_checked(
             table, flat.view(b * n_tables, n_slots)).view(b, n_tables, dim)
         if combine == "mean":
             count = (bags >= 0).sum(dim=2).clamp(min=1)
@@ -138,6 +145,12 @@ class DLRM(nn.Module):
         return self.top(x)[:, 0]
 
 
+def dlrm_loss(model: DLRM, batch: dict) -> torch.Tensor:
+    """Binary cross-entropy of ``batch``'s labels under the logits of its
+    dense features and bags."""
+    return _bce(model(batch["dense"], batch["bags"]), batch["labels"])
+
+
 # ---------------------------------------------------------------------------
 # DeepFM
 # ---------------------------------------------------------------------------
@@ -179,6 +192,11 @@ class DeepFM(nn.Module):
         return self.bias + lin.sum(dim=1) + fm + deep
 
 
+def deepfm_loss(model: DeepFM, batch: dict) -> torch.Tensor:
+    """Binary cross-entropy of ``batch``'s labels under its bags' logits."""
+    return _bce(model(batch["bags"]), batch["labels"])
+
+
 # ---------------------------------------------------------------------------
 # Two-tower retrieval
 # ---------------------------------------------------------------------------
@@ -210,9 +228,9 @@ class TwoTower(nn.Module):
         kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
         self.cfg = cfg
         self.user_embed = nn.Parameter(embedding_init(
-            cfg.n_users, cfg.embed_dim, **kw)["table"], requires_grad=False)
+            cfg.n_users, cfg.embed_dim, **kw)["table"])
         self.item_embed = nn.Parameter(embedding_init(
-            cfg.n_items, cfg.embed_dim, **kw)["table"], requires_grad=False)
+            cfg.n_items, cfg.embed_dim, **kw)["table"])
         self.user_tower = MLP([cfg.embed_dim, *cfg.tower], **kw)
         self.item_tower = MLP([cfg.embed_dim, *cfg.tower], **kw)
 
@@ -230,6 +248,21 @@ class TwoTower(nn.Module):
         """(B,) users × (N,) candidates → scores (B, N): the
         ``retrieval_cand`` shape is one user and 2²⁰ candidates."""
         return self.user(user_ids) @ self.item(cand_item_ids).T
+
+
+def twotower_loss(model: TwoTower, batch: dict) -> torch.Tensor:
+    """In-batch sampled softmax with the logQ correction [Yi et al. '19]:
+    row b's positive is item b among the batch's items, the (B, B)
+    logits divided by the temperature, minus ``item_logq`` where the
+    batch has it."""
+    u = model.user(batch["user_ids"])                      # (B, D)
+    i = model.item(batch["item_ids"])                      # (B, D)
+    logits = (u @ i.T) / model.cfg.temperature             # (B, B)
+    logq = batch.get("item_logq")
+    if logq is not None:
+        logits = logits - logq[None, :]
+    labels = torch.arange(u.shape[0], device=u.device)
+    return cross_entropy(logits, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -266,3 +299,12 @@ def bert4rec_score(params: tf.Params, cfg: tf.TransformerConfig,
                              f"outside [0, {cfg.vocab})")
     h, _ = tf.trunk(params, cfg, items)
     return unembed(params["embed"], h[:, -1])
+
+
+def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross-entropy from logits in float32, the stable form
+    ``max(x, 0) - x·y + log1p(exp(-|x|))``."""
+    logits = logits.float()
+    labels = labels.float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-torch.abs(logits))))

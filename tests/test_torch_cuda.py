@@ -29,6 +29,7 @@ byte-equal to the CPU's on the same logits, the layers within
 rtol = atol = 2e-5 in float32.
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -849,6 +850,116 @@ def test_dlrm_on_the_card_equals_plain_bag(cuda_device, monkeypatch):
         want = model(dense, bags)
     assert got.is_cuda and got.shape == (256,)
     assert _bytes_equal(got, want)
+
+
+# -- training: B1's and B6's backward, a train step, checkpoints ------------------
+
+@contextlib.contextmanager
+def _deterministic():
+    before = (torch.are_deterministic_algorithms_enabled(),
+              torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before[0], warn_only=before[1])
+
+
+def _grad_on(table, fn, device):
+    """The gradient of sum(fn(table) * w) with respect to ``table`` on
+    ``device``, w seeded."""
+    t = table.to(device).requires_grad_(True)
+    out = fn(t)
+    w = torch.randn(out.shape, generator=torch.Generator().manual_seed(5),
+                    dtype=out.dtype).to(device)
+    (out * w).sum().backward()
+    return t.grad
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+@pytest.mark.parametrize("l", (1, 3))
+@pytest.mark.parametrize("d", (1, 10, 64))
+def test_gather_rows_bag_backward_equals_cpu(cuda_device, d, l, dtype):
+    """B6's backward on the card (B6 in the forward) byte-equal to the
+    plain backward on the CPU, in deterministic mode: repeated ids, -1
+    slots and a bag of padding only."""
+    gen = torch.Generator().manual_seed(d * 10 + l)
+    table = torch.randn(500, d, generator=gen).to(dtype)
+    bags = torch.randint(-1, 40, (4096, l), generator=gen,
+                         dtype=torch.int32)       # 40 hot rows, repeated
+    bags[0] = -1
+    with _deterministic():
+        got = _grad_on(table, lambda t: gops.gather_rows_bag(
+            t, bags.to(cuda_device)), cuda_device)
+    want = _grad_on(table, lambda t: gops.gather_rows_bag(t, bags), "cpu")
+    assert _bytes_equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("d", (1, 256))
+def test_gather_rows_backward_equals_cpu(cuda_device, d):
+    gen = torch.Generator().manual_seed(d)
+    table = torch.randn(300, d, generator=gen)
+    idx = torch.randint(0, 30, (8192,), generator=gen, dtype=torch.int32)
+    with _deterministic():
+        got = _grad_on(table, lambda t: gops.gather_rows(
+            t, idx.to(cuda_device)), cuda_device)
+    want = _grad_on(table, lambda t: gops.gather_rows(t, idx), "cpu")
+    assert _bytes_equal(got.cpu(), want)
+
+
+# A DLRM smoke step on the card against the same step on the CPU: the
+# loss and the updated state within rtol = 1e-5, atol = 1e-6 (cuBLAS and
+# the CPU order float32 sums their own ways; TF32 stays off).
+CARD_STEP = dict(rtol=1e-5, atol=1e-6)
+
+
+def test_dlrm_smoke_step_on_the_card_equals_cpu(cuda_device):
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.dataplane.pipeline import device_put
+    from repro_torch.train.checkpoint import flatten_tree
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    setups = {dev: train_cfgs.smoke("dlrm-rm2", device=dev, seed=2)
+              for dev in ("cpu", cuda_device)}
+    with torch.no_grad():       # the CPU's weights on the card
+        for k, p in setups[cuda_device]["state"]["params"].items():
+            p.copy_(setups["cpu"]["state"]["params"][k])
+    runs = {}
+    for dev, s in setups.items():
+        before = dict(LAUNCHES)
+        state, metrics = s["step"](s["state"], device_put(s["batch"], dev))
+        runs[str(dev)] = (flatten_tree(state), metrics,
+                          LAUNCHES["gather_rows_bag"]
+                          - before["gather_rows_bag"]
+                          + LAUNCHES["gather_rows_bag_tiled"]
+                          - before["gather_rows_bag_tiled"])
+    (want, wm, n_cpu), (got, gm, n_card) = runs["cpu"], runs[str(cuda_device)]
+    assert (n_cpu, n_card) == (0, 1)          # one B6 launch on the card
+    for k in wm:
+        torch.testing.assert_close(gm[k].cpu(), wm[k], **CARD_STEP)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        torch.testing.assert_close(got[k].detach().cpu(), v.detach(),
+                                   **CARD_STEP, msg=k)
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda_device, tmp_path):
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.dataplane.pipeline import device_put
+    from repro_torch.train import checkpoint as ckpt
+
+    s = train_cfgs.smoke("deepfm", device=cuda_device)
+    state, _ = s["step"](s["state"], device_put(s["batch"], cuda_device))
+    thread = ckpt.save_checkpoint(tmp_path, 0, state, blocking=False)
+    snap = {k: v.detach().clone() for k, v in ckpt.flatten_tree(
+        state).items()}
+    state, _ = s["step"](state, device_put(s["batch"], cuda_device))
+    thread.join()
+    fresh = train_cfgs.smoke("deepfm", device=cuda_device, seed=1)["state"]
+    ckpt.restore_checkpoint(tmp_path, 0, fresh)
+    for k, v in ckpt.flatten_tree(fresh).items():
+        assert v.is_cuda and _bytes_equal(v.detach().reshape(-1),
+                                          snap[k].reshape(-1)), k
 
 
 # -- B7 and NequIP ----------------------------------------------------------------
