@@ -139,6 +139,40 @@ and then, printing one JSON line per phase:
                repro_torch.launch.train --arch dlrm-rm2 --steps 20`` at
                smoke width (exit 0).  ``chip_train.py --seeds 0 1 2``
                runs it alone;
+8d. train_more — NequIP, BERT4Rec and GLM-4 trained at published width,
+               TF32 off, one at a time.  NequIP (``_cfg()``) on phase
+               9's ``molecule`` (energies + 100 × forces against drawn
+               force targets: the forces' backward is differentiated
+               again, so B7 runs in the backward of its backward) and
+               ``minibatch_lg`` (node classes), 1 + 8 AdamW steps under
+               ``Supervisor``, B7 in every forward and recomputed layer:
+               the first step byte-equal with the plain B7 in
+               deterministic mode (loss, gradients, forces) and within
+               ``NEQUIP_TRAIN_F64`` of the float64 CPU recompute, two
+               planted faults (the forces' sign, one edge's destination)
+               outside; B7's launches counted in the loss and in the
+               weights' backward, each of the latter checked against the
+               plain version.  BERT4Rec (vocab 2²⁰ × 64, 200 positions)
+               at 4,096 cloze rows a step (``train_batch`` cut from
+               65,536), 1 + 3 steps: the first step's chunked tied
+               cross-entropy within ``CE_F64`` of a float64 recompute on
+               the card (labels shifted by one item outside), its
+               backward's peak beside one (rows · 48, 2²⁰) float32
+               logits tensor.  GLM-4 9B cut to 8 layers, bf16, 8 rows of
+               4,096 tokens a step in 8 microbatches read from a
+               ``TokenCube`` on the card, 1 + 3 steps: one
+               gather_union_slices launch a step and no gather_rows,
+               every step's tokens byte-equal to the corpus's windows,
+               the first microbatch's loss and gradient norm within
+               ``LM_F32`` of float32 (labels unshifted outside).  Each
+               prints the step's p50 and max, samples or tokens/s, the
+               bound, a profiled step and the peak memory.  Then
+               ``python -m repro_torch.launch.train --arch <id> --steps
+               20`` for glm4-9b, nequip, bert4rec and deepseek-v3-671b
+               (exit 0), granite, Yi, Arctic and DeepSeek-V3 through the
+               launcher's parts in-process, and a DeepSeek-V3 checkpoint
+               restored byte for byte.  ``chip_train.py --models nequip
+               bert4rec glm4-9b`` runs it alone;
 9. gnn       — NequIP at its published width (5 layers, 32 channels,
                l_max = 2; seeded random weights carried from a numpy
                tree with ``carry.nequip_from_params``) on three graph
@@ -148,9 +182,11 @@ and then, printing one JSON line per phase:
                one untimed and 8 timed forwards, with TF32 off; every
                message sum and the energy readout is one segment_sum
                (B7) launch, 15 per node-class forward and 16 per energy
-               forward, all reading one segment plan of the destination
-               ids built per forward (one more, of the graph ids, for the
-               energy readout: 1 or 2 ``segment_plan`` builds a forward,
+               forward, and the forces' backward sums the source rows'
+               gradients of layers 2-5 through B7 (12 more), all reading
+               the forward's segment plans of the destination and the
+               source ids (one more, of the graph ids, for the energy
+               readout: 2 or 3 ``segment_plan`` builds a forward,
                counted).  Every B7 call of the path must equal B7's plain
                version byte for byte, and so must the outputs with the
                plain version in B7's place; B7 is also held on the
@@ -247,8 +283,8 @@ and then, printing one JSON line per phase:
 
 The launch counters are reset just before each path (phases 2-3, the
 plain extract, 5, 6, 7, each model of 8, two-tower, BERT4Rec and
-BERT4Rec's engine in 8b, each model's supervised steps in 8c, each shape
-of 9, the engine and the launcher of 10, each model of 11)
+BERT4Rec's engine in 8b, each model's supervised steps in 8c and 8d,
+each shape of 9, the engine and the launcher of 10, each model of 11)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call (and phase 11's
@@ -262,6 +298,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import io
 import json
@@ -408,6 +445,51 @@ MOE_LOGITS_MEAN = 0.0383
 # that bf16 noise flips (margins 0.0003-0.041 over seeds 0-2, twice the
 # largest).  A flip off a near tie fails the phase.
 MOE_FLIP_MARGIN = 0.082
+# The train_more phase: NequIP on two of phase 9's graphs, BERT4Rec and
+# GLM-4 trained at published width, 1 untimed and MORE_STEPS timed steps
+# each, then the launcher at smoke width.
+MORE_GNN = ("molecule", "minibatch_lg")
+MORE_STEPS = {"nequip": 8, "bert4rec": 3, "glm4-9b": 3}
+MINIBATCH_SEEDS = 1024          # minibatch_lg's labelled (seed) nodes
+BERT_TRAIN_ROWS = 4096          # train_batch cut from 65,536
+BERT_MASK_RATE = 0.2            # cloze positions drawn a history
+# GLM-4 cut to 8 of its 40 layers and 8 of train_4k's 256 rows of 4096
+# tokens (one row a microbatch: the configuration's LM_ACCUM of 8 kept),
+# its corpus 32 documents of 8192 tokens on the card.
+LM_TRAIN = dict(layers=8, rows=8, seq=4096, n_docs=32, doc_len=8192)
+MORE_LAUNCHED = ("glm4-9b", "nequip", "bert4rec", "deepseek-v3-671b")
+MORE_IN_PROCESS = ("granite-3-8b", "yi-34b", "arctic-480b",
+                   "deepseek-v3-671b")
+# NequIP's first training step (card float32, TF32 off) against the
+# float64 CPU recompute of the same weights.  The loss, the model's
+# outputs (per-node logits, or per-graph energies) and the forces: phase
+# 9's GNN_F64 (rtol = atol = 1e-4) carried to training, each gap
+# close_ratio's max |card - f64| / (atol + rtol |f64|), at most 1 where
+# np.allclose(card, f64, **GNN_F64) holds.  The gradients, whose
+# elements span many orders of magnitude: grads_gap, the largest
+# difference over the model's largest float64 element (TRAIN_F64's
+# measure and bound).  Over seeds 0-2 (H100, chip_train.py) the gaps
+# reached loss 5.45e-4, outputs 4.48e-3, forces 0.203 and gradients
+# 1.89e-4 (minibatch_lg); one edge's destination shifted gave outputs
+# 2.96-251, the forces' sign flipped forces 53-165.
+NEQUIP_TRAIN_F64 = {"loss": 1.0, "out": 1.0, "forces": 1.0,
+                    "grad": 3.9e-4}
+# BERT4Rec's chunked cross-entropy on the first step's inputs against
+# its float64 recompute on the card (ce_f64): the loss relative to
+# itself, dh, dtable and dtable's label rows, each over its largest
+# float64 element.  Over seeds 0-2 (H100, chip_train.py) the gaps
+# reached loss 1.26e-7, dh 5.11e-6, dtable 5.57e-6; the labels shifted
+# by one item gave loss 2.5e-5-4.9e-5, dh 1.28-1.35, dtable 1.02-1.03.
+# The bounds are twice the gaps' largest readings.
+CE_F64 = {"loss": 2.6e-7, "dh": 1.1e-5, "dtable": 1.2e-5,
+          "dtable_label_rows": 1.2e-5}
+# GLM-4's first microbatch in bf16 against the same microbatch in
+# float32 on the card: the loss and the global gradient norm, each
+# relative to the float32 value.  Over seeds 0-2 (H100, chip_train.py)
+# the gaps reached loss 2.52e-5, gradient norm 4.53e-4; the labels left
+# unshifted gave loss 0.0578-0.0587, gradient norm 0.0537-0.101.  The
+# bounds are twice the gaps' largest readings.
+LM_F32 = {"loss": 5.1e-5, "grad_norm": 9.1e-4}
 
 
 def emit(obj) -> None:
@@ -1822,18 +1904,15 @@ def train_recsys_model(dev, seed: int, arch_id: str, cfg, check,
     restored byte for byte, and B6's or B1's timings at the path's
     shapes with their plain backward (``index_add_``).  Returns (the
     row, the timings)."""
-    import numpy as np
     import torch
 
     from repro_torch.configs import train as train_cfgs
     from repro_torch.configs.common import RECSYS_SHAPES
     from repro_torch.dataplane.pipeline import device_put
-    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.gather import kernel as gk
     from repro_torch.kernels.gather import ref as gref
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train import optimizer as optim
-    from repro_torch.train.fault import FaultConfig, Supervisor
     from repro_torch.train.train_state import value_and_grad
 
     start = time.perf_counter()
@@ -1946,28 +2025,12 @@ def train_recsys_model(dev, seed: int, arch_id: str, cfg, check,
     # under the supervisor, the launch counters reset just before.
     reset_state()
     del p0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as unused:
-        sup = Supervisor(FaultConfig(ckpt_dir=unused, ckpt_every=1 << 30),
-                         step, lambda i: batches[i])
-        losses = []
-        reset_launches()
-        with recording(gk, kname) as calls:
-            state = sup.run(state, 1 + TRAIN_STEPS,
-                            on_metrics=lambda i, m: losses.append(m["loss"]))
-        launches = path_launches[f"recsys_train_{kind}"] = dict(LAUNCHES)
-    want = {k: n * (1 + TRAIN_STEPS) for k, n in per_step.items()}
-    if {k: n for k, n in launches.items() if n} != want:
-        failed.append(f"launches {launches}, expected {want}")
-    if sup.restarts:
-        failed.append(f"{sup.restarts} restarts")
-    path_peak = torch.cuda.max_memory_allocated() - held
+    state, run, calls = supervised_run(
+        step, state, lambda i: batches[i], 1 + TRAIN_STEPS,
+        f"recsys_train_{kind}", path_launches,
+        {k: n * (1 + TRAIN_STEPS) for k, n in per_step.items()}, failed,
+        record=lambda: recording(gk, kname))
     phase_peak = torch.cuda.max_memory_allocated() - held_before
-    losses = [float(x) for x in losses]
-    if not all(np.isfinite(losses)):
-        failed.append(f"losses {losses}")
     # The last step's calls, checked on their inputs as they are now (the
     # optimizer has moved the tables since the calls ran).
     timed_args = [a for a, _ in calls[-sum(per_step.values()):]]
@@ -1976,37 +2039,29 @@ def train_recsys_model(dev, seed: int, arch_id: str, cfg, check,
         for i, a in enumerate(timed_args):
             check(kname, getattr(gk, kname)(*a), plain(*a),
                   f"{cfg.name} train_batch call {i}")
-    step_ms = [t * 1e3 for t in sup.monitor.times]
     b = RECSYS_SHAPES["train_batch"]["batch"]
     bound = train_bound(kind, model, params, b)
-    profiled = device_profile(lambda: step(state, batches[-1]),
-                              top=1 << 16, named=(f"{kname}_ms", kname))
-    profiled["by_group"] = profiled_groups(profiled["top"])
     # B6 or B1 and the backward's index kernels by name, wherever they
     # rank (the top 8 are the optimizer's passes and the GEMMs).
-    profiled["named"] = [k for k in profiled["top"] if any(
-        part in k["name"] for part in ("gather_rows", "indexFunc",
-                                       "index_put", "indexing_backward"))]
-    profiled["top"] = profiled["top"][:8]
+    profiled = profile_step(lambda: step(state, batches[-1]),
+                            ("gather_rows", "indexFunc", "index_put",
+                             "indexing_backward"),
+                            named=(f"{kname}_ms", kname))
 
     row = {"model": cfg.name, "seed": seed, "batch": b, "init_s": init_s,
            "data_s": data_s,
            "params": sum(p.numel() for p in params.values()),
            "state_bytes": sum(t.numel() * t.element_size() for t in
                               ckpt.flatten_tree(state).values()),
-           "step_ms": step_ms, "step_ms_p50": float(np.median(step_ms[1:])),
-           "step_ms_max": max(step_ms[1:]),
-           "samples_per_s": b / (float(np.median(step_ms[1:])) / 1e3),
-           **bound, "losses": losses, "profiled_step": profiled,
+           **run, "samples_per_s": b / (run["step_ms_p50"] / 1e3),
+           **bound, "profiled_step": profiled,
            "first_step": {"plain_byte_equal": same, "f64_gaps": gaps,
                           "bounds": TRAIN_F64, "faults": faults,
                           "grad_norm": float(m_k["grad_norm"]),
                           "f64_norm": ref["norm"], "lr": float(m_k["lr"]),
                           "touched_rows": {k: int(len(v[0][-1]))
                                            for k, v in rows.items()}},
-           "restarts": sup.restarts, "path_peak_bytes": path_peak,
-           "phase_peak_bytes": phase_peak,
-           "launches": launches, "failed": failed}
+           "phase_peak_bytes": phase_peak, "failed": failed}
     if kind == "deepfm":
         row["checkpoint"] = checkpoint_round_trip(
             arch_id, cfg, state, dev, seed, 1 + TRAIN_STEPS)
@@ -2025,16 +2080,76 @@ def train_recsys_model(dev, seed: int, arch_id: str, cfg, check,
     return row, timings
 
 
+def supervised_run(step, state, source, n: int, key: str,
+                   path_launches: dict, want: dict, failed: list,
+                   record=contextlib.nullcontext) -> tuple:
+    """The main path of a training phase: ``n`` steps of ``step`` from
+    ``state`` under ``Supervisor`` (``source(i)`` the i-th batch, no
+    checkpoint), the launch counters reset just before and read into
+    ``path_launches[key]`` just after, with ``record()`` (a recording
+    of kernel calls) around the run.  Appends to ``failed`` the launches
+    that differ from ``want`` (every nonzero count), any restart and any
+    loss that is not finite.  Returns (state, the run's fields of the
+    phase row, what ``record()`` gave)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.train.fault import FaultConfig, Supervisor
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as unused:
+        sup = Supervisor(FaultConfig(ckpt_dir=unused, ckpt_every=1 << 30),
+                         step, source)
+        losses = []
+        reset_launches()
+        with record() as calls:
+            state = sup.run(state, n,
+                            on_metrics=lambda i, m: losses.append(m["loss"]))
+        launches = path_launches[key] = dict(LAUNCHES)
+    if {k: c for k, c in launches.items() if c} != want:
+        failed.append(f"launches {launches}, expected {want}")
+    if sup.restarts:
+        failed.append(f"{sup.restarts} restarts")
+    path_peak = torch.cuda.max_memory_allocated() - held
+    losses = [float(x) for x in losses]
+    if not all(np.isfinite(losses)):
+        failed.append(f"losses {losses}")
+    step_ms = [t * 1e3 for t in sup.monitor.times]
+    return state, {"step_ms": step_ms,
+                   "step_ms_p50": float(np.median(step_ms[1:])),
+                   "step_ms_max": max(step_ms[1:]), "losses": losses,
+                   "restarts": sup.restarts, "path_peak_bytes": path_peak,
+                   "launches": launches}, calls
+
+
+def profile_step(fn, parts: tuple = (), **kw) -> dict:
+    """One more training step under the profiler (``device_profile``,
+    ``kw`` passed on): the top 8 device kernels, every kernel's time by
+    group, and under ``named`` those whose names hold one of ``parts``,
+    wherever they rank."""
+    profiled = device_profile(fn, top=1 << 16, **kw)
+    profiled["by_group"] = profiled_groups(profiled["top"])
+    if parts:
+        profiled["named"] = [k for k in profiled["top"]
+                             if any(part in k["name"] for part in parts)]
+    profiled["top"] = profiled["top"][:8]
+    return profiled
+
+
 def profiled_groups(kernels: list) -> dict:
     """A profiled step's kernels summed by what they are: B6 or B1, the
     backward's index kernels, the GEMMs, elementwise passes (the
     optimizer's, and the forward's and backward's), reductions, the
     rest."""
-    groups = {"gather": 0.0, "index": 0.0, "gemm": 0.0, "elementwise": 0.0,
-              "reduce": 0.0, "other": 0.0}
+    groups = {"gather": 0.0, "segment": 0.0, "index": 0.0, "gemm": 0.0,
+              "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
     for k in kernels:
         name = k["name"].lower()
-        key = ("gather" if "gather_rows" in name else
+        key = ("gather" if "gather_rows" in name or "union" in name else
+               "segment" if "segment_sum" in name else
                "index" if "index" in name or "scatter" in name else
                "gemm" if any(s in name for s in ("gemm", "nvjet", "cutlass",
                                                  "xmma")) else
@@ -2124,6 +2239,743 @@ def train_launcher() -> dict:
             "said": out.stdout.splitlines()}
 
 
+def train_more(dev, seed: int, card: str, check,
+               path_launches: dict) -> tuple[list, list]:
+    """Phase train_more: NequIP (``molecule``, ``minibatch_lg``),
+    BERT4Rec and GLM-4 trained at published width on the card, one at a
+    time, TF32 off; then the launcher at smoke width for the LM, GNN and
+    BERT4Rec families.  Fails on a failed check.  Returns (B7's timings
+    at the training shapes, the union read's at the LM batch: kernels-
+    line variants)."""
+    import torch
+
+    matmul = tf32_off("train_more")
+    b7, union = [], []
+    for shape in MORE_GNN:
+        row, timed = train_nequip_shape(dev, seed, shape, check,
+                                        path_launches)
+        emit({"phase": "train_more", **row, "matmul": matmul, "card": card})
+        assert not row["failed"], f"{row['model']}: {row['failed']}"
+        b7.extend(timed)
+        gc.collect()
+        torch.cuda.empty_cache()
+    row = train_bert4rec(dev, seed, path_launches)
+    emit({"phase": "train_more", **row, "matmul": matmul, "card": card})
+    assert not row["failed"], f"{row['model']}: {row['failed']}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    row, timed = train_glm4(dev, seed, check, path_launches)
+    emit({"phase": "train_more", **row, "matmul": matmul, "card": card})
+    assert not row["failed"], f"{row['model']}: {row['failed']}"
+    union.extend(timed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "train_more", **train_more_launchers(dev, seed),
+          "card": card})
+    return b7, union
+
+
+def rel_gap(got, want) -> float:
+    """max |got - want| over max |want|, in float64 (0 where both are
+    0)."""
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    diff = float((got - want).abs().max()) if want.numel() else 0.0
+    return diff / scale if scale else diff
+
+
+def grads_gap(got: dict, want: dict) -> float:
+    """The largest difference of any gradient element over the largest
+    float64 gradient element of the model (``grad_gap``'s measure)."""
+    scale = max(float(w.detach().abs().max()) for w in want.values())
+    return max(float((got[k].detach().double().cpu()
+                      - w.detach().double().cpu()).abs().max())
+               for k, w in want.items()) / scale
+
+
+def close_ratio(got, want, tol: dict = GNN_F64) -> float:
+    """max |got - want| / (atol + rtol |want|) in float64 over every
+    element: at most 1 where ``np.allclose(got, want, **tol)`` holds."""
+    got = got.detach().double().cpu()
+    want = want.detach().double().cpu()
+    if not want.numel():
+        return 0.0
+    return float(((got - want).abs()
+                  / (tol["atol"] + tol["rtol"] * want.abs())).max())
+
+
+def nequip_step_flops(cfg, n: int, e: int, forces: bool) -> int:
+    """Operations of a NequIP training step: the forward's radial MLP,
+    tensor products, channel mixes, self-interactions and gates, the
+    embedding and the readout (F), and the least backward: 2F for a
+    node-class loss, and for energy + forces the forces' backward (2F)
+    and then the backward of both (2 × 3F): 3F or 9F."""
+    c, paths = cfg.channels, cfg.paths
+    per_layer = 2 * e * (cfg.n_rbf * cfg.radial_hidden
+                         + cfg.radial_hidden * len(paths) * c)
+    for li, lf, lo in paths:
+        per_layer += 2 * e * c * (2 * li + 1) * (2 * lo + 1) \
+            + 2 * e * (2 * li + 1) * (2 * lf + 1) * (2 * lo + 1)
+    for l in cfg.ls:
+        k = sum(1 for p in paths if p[2] == l)
+        per_layer += 2 * e * (2 * l + 1) * k * c * c \
+            + 2 * n * (2 * l + 1) * c * c + (2 * n * c * c if l else 0)
+    fwd = cfg.n_layers * per_layer + 2 * n * (cfg.d_feat * c + c * c
+                                              + c * cfg.n_out)
+    return (9 if forces else 3) * fwd
+
+
+def nequip_train_batch(shape: str, seed: int) -> dict:
+    """Phase 9's graph of ``shape`` as a training batch (numpy): for
+    ``molecule`` with drawn force targets (normal, 0.1, from ``seed``)
+    beside the data plane's energies."""
+    import numpy as np
+
+    host = dict(gnn_batch(shape))
+    if shape == "molecule":
+        host["forces"] = np.random.default_rng(seed).normal(
+            0.0, 0.1, host["positions"].shape).astype(np.float32)
+    return host
+
+
+def nequip_batch_on(host: dict, device, dtype) -> dict:
+    """``host`` as tensors on ``device``: floats in ``dtype``, ids as
+    they are, ``n_graphs`` as a number."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for k, v in host.items():
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(v)
+            out[k] = t.to(device, dtype) if t.is_floating_point() \
+                else t.to(device)
+        elif v is not None:
+            out[k] = v
+    return out
+
+
+def train_nequip_shape(dev, seed: int, shape: str, check,
+                       path_launches: dict) -> tuple:
+    """NequIP at published width trained on phase 9's graph of ``shape``
+    (``molecule``: energies + 100 × forces, the forces differentiated
+    through; ``minibatch_lg``: node classes), the configuration's AdamW.
+    The first step is held (a) in deterministic mode byte for byte
+    against the same step with B7 swapped for its plain version (the
+    loss, every gradient, the forces) and (b) against the float64 CPU
+    recompute of the same weights within ``NEQUIP_TRAIN_F64``, with
+    planted faults (the forces' sign; one edge's destination shifted)
+    outside; B7's launches are counted in the loss's forward and in the
+    weights' backward (the backward of the forces' backward), whose
+    every B7 call is checked against the plain version and whose
+    largest sum is timed.  Then 1 + ``MORE_STEPS["nequip"]`` steps under
+    ``Supervisor`` with the counters reset, one profiled step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.configs import nequip as nequip_cfg
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.configs.common import GNN_SHAPES
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.kernels.segment import kernel as segk
+    from repro_torch.kernels.segment import ref as segref
+    from repro_torch.models import nequip as nq
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.train_state import value_and_grad
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    info, cfg = GNN_SHAPES[shape], nequip_cfg.for_shape(shape)
+    forces = cfg.readout == "energy"
+    host = nequip_train_batch(shape, seed)
+    batch = nequip_batch_on(host, dev, torch.float32)
+    setup = train_cfgs.train("nequip", cfg, device=dev, seed=seed)
+    model, state, step = setup["model"], setup["state"], setup["step"]
+    params = state["params"]
+    loss_fn = train_cfgs.loss_for("nequip", model)
+    p0 = {k: p.detach().clone() for k, p in params.items()}
+    opt_leaves = list(ckpt.flatten_tree(state["opt"]).values())
+
+    def reset_state():
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(p0[k])
+            for t in opt_leaves:
+                t.zero_()
+
+    def outputs_of(m, b):
+        """{"out": the model's outputs} and, for energies, the forces."""
+        args = (b["node_feat"], b["positions"], b["edge_index"], None,
+                b.get("graph_ids"), b.get("n_graphs", 1))
+        if forces:
+            e, f = nq.nequip_energy_forces(m, *args)
+            return {"out": e, "forces": f}
+        with torch.no_grad():
+            return {"out": m(*args)}
+
+    failed = []
+    # (a) B7 against its plain version, and the launches by stage.
+    with deterministic():
+        n0 = LAUNCHES["segment_sum"]
+        with torch.enable_grad():
+            for p in params.values():
+                p.requires_grad_(True)
+            loss_k = nq.nequip_loss(model, batch)
+            n1 = LAUNCHES["segment_sum"]
+            with recording(segk, "segment_sum", results=True) as second:
+                g_k = dict(zip(params, torch.autograd.grad(
+                    loss_k, list(params.values()), allow_unused=True)))
+        n2 = LAUNCHES["segment_sum"]
+        stages = {"loss": n1 - n0, "weights_backward": n2 - n1}
+        with swapped(segk, "segment_sum", segref.segment_sum):
+            loss_r, _, g_r = value_and_grad(loss_fn, params, batch)
+            o_r = outputs_of(model, batch)
+        o_k = outputs_of(model, batch)
+    same = {"loss": same_bytes(loss_k, loss_r),
+            "grads": all(g_k[k] is None and not bool(g_r[k].any())
+                         or g_k[k] is not None and same_bytes(g_k[k], g_r[k])
+                         for k in g_r),
+            **{k: same_bytes(o_k[k], o_r[k]) for k in o_k}}
+    del g_r
+    with torch.no_grad():
+        for i, (a, kw, out) in enumerate(second):
+            check("segment_sum", out, segref.segment_sum(*a, **kw),
+                  f"train {shape} weights' backward call {i}")
+    # (b) the float64 CPU recompute of the same weights and batch.
+    t0 = time.perf_counter()
+    host_model = nq.NequIP(dataclasses.replace(cfg, dtype=torch.float64),
+                           device="cpu")
+    host_model.load_state_dict({k: v.detach().double().cpu() for k, v in
+                                model.state_dict().items()})
+    hb = nequip_batch_on(host, "cpu", torch.float64)
+    hparams = carry.model_params(host_model)
+    loss64, _, g64 = value_and_grad(train_cfgs.loss_for("nequip",
+                                                        host_model),
+                                    hparams, hb)
+    o64 = outputs_of(host_model, hb)
+    host_s = time.perf_counter() - t0
+    g_k = {k: torch.zeros_like(params[k]) if g is None else g
+           for k, g in g_k.items()}
+
+    def gaps_of(loss, grads, outs):
+        return {"loss": close_ratio(loss, loss64),
+                "grad": grads_gap(grads, g64),
+                **{k: close_ratio(outs[k], o64[k]) for k in o64}}
+
+    gaps = gaps_of(loss_k, g_k, o_k)
+    del g_k
+    # Planted faults: the forces' sign flipped in the loss; one real
+    # edge's destination moved to the next node (a labelled node's edge
+    # for node classes).
+    faults = {}
+    real_forces = nq.nequip_energy_forces
+
+    def flipped(*a, **kw):
+        e, f = real_forces(*a, **kw)
+        return e, -f
+
+    # The edge: of the real ones whose old and new destinations both lie
+    # within half the cutoff of its source, the shortest (the largest
+    # radial basis), so that its message moves.
+    ei, pos = host["edge_index"], host["positions"]
+    nxt = (ei[1] + 1) % info["n_nodes"]
+    near = (ei[0] >= 0) & (ei[1] >= 0)
+    for dst in (ei[1], nxt):
+        gap = pos[np.maximum(ei[0], 0)] - pos[np.maximum(dst, 0)]
+        near &= np.linalg.norm(gap, axis=-1) < cfg.cutoff / 2
+    if not forces:
+        near &= host["label_mask"][np.maximum(ei[1], 0)] > 0
+    length = np.linalg.norm(pos[np.maximum(ei[0], 0)]
+                            - pos[np.maximum(ei[1], 0)], axis=-1)
+    edge = int(np.flatnonzero(near)[np.argmin(length[near])])
+    shifted = ei.copy()
+    shifted[1, edge] = nxt[edge]
+    bad_edge = {**batch, "edge_index": torch.from_numpy(shifted).to(dev)}
+    plants = [("one edge's destination shifted", None, bad_edge)]
+    if forces:
+        plants.append(("forces' sign flipped", flipped, batch))
+    for what, fn, b in plants:
+        ctx = swapped(nq, "nequip_energy_forces", fn) if fn else \
+            contextlib.nullcontext()
+        with ctx:
+            loss_f, _, g_f = value_and_grad(loss_fn, params, b)
+            o_f = outputs_of(model, b)
+        faults[what] = gaps_of(loss_f, g_f, o_f)
+        del g_f
+    failed += [f"plain {k}: not byte-equal" for k, ok in same.items()
+               if not ok]
+    failed += [f"f64 {k}: {v} > {NEQUIP_TRAIN_F64[k]}"
+               for k, v in gaps.items() if not v <= NEQUIP_TRAIN_F64[k]]
+    failed += [f"fault {what}: within the bounds"
+               for what, g in faults.items()
+               if all(v <= NEQUIP_TRAIN_F64[k] for k, v in g.items())]
+    if forces and not stages["weights_backward"]:
+        failed.append("no B7 launch in the double backward")
+    # B7 at the largest sum of the weights' backward.
+    (m2, plan2, s2), _, _ = max(second, key=lambda c: c[0][0].numel())
+    timed = [segment_timing(dev, m2, plan2.ids, s2,
+                            f"train {shape}: the weights' backward")]
+    del second, host_model, hparams, g64, hb
+
+    # The main path: 1 + steps under the supervisor, counters reset.
+    steps = MORE_STEPS["nequip"]
+    reset_state()
+    del p0
+    # Plans a step: the destination ids, the source ids (the gathers)
+    # and, for energies, the graph ids.
+    per_step = {"segment_sum": stages["loss"] + stages["weights_backward"],
+                "segment_plan": 2 + forces}
+    state, run, _ = supervised_run(
+        step, state, lambda i: batch, 1 + steps, f"train_nequip_{shape}",
+        path_launches, {k: n * (1 + steps) for k, n in per_step.items()},
+        failed)
+    p50 = run["step_ms_p50"]
+    flops = nequip_step_flops(cfg, info["n_nodes"], info["n_edges"], forces)
+    n_bytes = 9 * sum(p.numel() * p.element_size() for p in params.values())
+    profiled = profile_step(lambda: step(state, batch))
+    row = {"model": f"nequip {shape}", "seed": seed,
+           "nodes": info["n_nodes"], "edges": info["n_edges"],
+           "readout": cfg.readout, "forces": forces,
+           "params": sum(p.numel() for p in params.values()), **run,
+           "samples": "graphs" if forces else "seed nodes",
+           "samples_per_s": (info.get("n_graphs") or MINIBATCH_SEEDS)
+           / (p50 / 1e3),
+           "edges_per_s": info["n_edges"] / (p50 / 1e3),
+           **model_bound(flops, n_bytes), "profiled_step": profiled,
+           "b7_launches_per_step": stages,
+           "first_step": {"plain_byte_equal": same, "f64_gaps": gaps,
+                          "bounds": NEQUIP_TRAIN_F64, "faults": faults,
+                          "host_f64_s": host_s},
+           "phase_peak_bytes": torch.cuda.max_memory_allocated()
+           - held_before, "failed": failed,
+           "seconds": time.perf_counter() - start}
+    return row, timed
+
+
+def bert4rec_train_batches(cfg, n: int, rows: int, seed: int) -> list:
+    """``n`` cloze batches of ``rows`` histories of ``cfg.max_seq`` items
+    (numpy): items uniform over the catalogue, each position masked with
+    probability ``BERT_MASK_RATE`` (its input the mask token, V - 2, its
+    label the item), the mask as weights."""
+    import numpy as np
+
+    out = []
+    for i in range(n):
+        rng = np.random.default_rng(seed * 1000 + i)
+        items = rng.integers(0, cfg.vocab - 2, (rows, cfg.max_seq)).astype(
+            np.int32)
+        mask = rng.random((rows, cfg.max_seq)) < BERT_MASK_RATE
+        out.append({"items": np.where(mask, cfg.vocab - 2, items).astype(
+                        np.int32),
+                    "labels": items, "mask": mask.astype(np.float32)})
+    return out
+
+
+def ce_f64(h, table, labels, weights, chunk: int):
+    """The chunked tied cross-entropy recomputed in float64 and
+    differentiated by autograd, each chunk's step under
+    ``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``
+    inside its scan): (loss, dh, dtable), all float64."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+
+    d = h.shape[-1]
+    h64 = h.detach().double().reshape(-1, d).requires_grad_(True)
+    t64 = table.detach().double().requires_grad_(True)
+    lab = labels.reshape(-1).long()
+    w = weights.reshape(-1).double()
+    v = t64.shape[0]
+
+    def chunk_step(m, s, gold, tb, start):
+        logits = h64 @ tb.T
+        col = torch.arange(start, start + tb.shape[0], device=h.device)
+        m2 = torch.maximum(m, logits.max(dim=-1).values)
+        s2 = s * torch.exp(m - m2) + torch.exp(logits - m2[:, None]).sum(-1)
+        hit = col[None, :] == lab[:, None]
+        return m2, s2, gold + torch.where(hit, logits, 0.0).sum(-1)
+
+    rows = h64.shape[0]
+    m = torch.full((rows,), -torch.inf, dtype=torch.float64, device=h.device)
+    s = torch.zeros((rows,), dtype=torch.float64, device=h.device)
+    gold = torch.zeros_like(s)
+    with torch.enable_grad():
+        for start in range(0, v, chunk):
+            m, s, gold = checkpoint(chunk_step, m, s, gold,
+                                    t64[start:start + chunk], start,
+                                    use_reentrant=False)
+        nll = m + torch.log(s) - gold
+        loss = torch.sum(nll * w) / torch.clamp(w.sum(), min=1.0)
+        dh, dt = torch.autograd.grad(loss, (h64, t64))
+    return loss.detach(), dh.reshape(h.shape), dt
+
+
+def train_bert4rec(dev, seed: int, path_launches: dict) -> dict:
+    """BERT4Rec at published width (vocab 2²⁰ × 64, 2 layers, 200 learned
+    positions) trained with its AdamW on ``BERT_TRAIN_ROWS`` rows a step:
+    the first step's chunked cross-entropy (its inputs recorded from the
+    step) held within ``CE_F64`` of ``ce_f64`` on the card (the loss,
+    ``dh``, ``dtable`` and its label rows), labels shifted by one item
+    outside; its backward's peak memory beside one (rows · 48, 2²⁰)
+    float32 logits tensor; then 1 + ``MORE_STEPS["bert4rec"]`` steps
+    under ``Supervisor``, one profiled step."""
+    import torch
+
+    from repro_torch.configs import bert4rec as bert_cfg
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.dataplane.pipeline import device_put
+    from repro_torch.models import layers
+    from repro_torch.models import recsys as rs
+    from repro_torch.train.train_state import value_and_grad
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    cfg, rows = bert_cfg._cfg(), BERT_TRAIN_ROWS
+    steps = MORE_STEPS["bert4rec"]
+    setup = train_cfgs.train("bert4rec", cfg, device=dev, seed=seed)
+    state, step = setup["state"], setup["step"]
+    params = state["params"]
+    host = bert4rec_train_batches(cfg, 1 + steps, rows, seed)
+    batches = [device_put(b, dev) for b in host]
+    loss_fn = train_cfgs.loss_for("bert4rec", params, cfg)
+    failed = []
+    # The first step's cross-entropy, its inputs recorded from the loss.
+    with recording(rs, "cross_entropy_tied_chunked") as ce_calls:
+        loss0, _, g0 = value_and_grad(loss_fn, params, batches[0])
+    del g0
+    (h_m, table, lab, w), kw = ce_calls[0]
+    chunk = kw["chunk"]
+    h = h_m.detach().requires_grad_(True)
+    t = table.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    ce = layers.cross_entropy_tied_chunked(h, t, lab, w, chunk=chunk)
+    fwd_peak = torch.cuda.max_memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    dh, dt = torch.autograd.grad(ce, (h, t))
+    bwd_peak = torch.cuda.max_memory_allocated() - held
+    t0 = time.perf_counter()
+    loss64, dh64, dt64 = ce_f64(h, t, lab, w, chunk)
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    label_rows = torch.unique(lab[w > 0]).long()
+
+    def gaps_of(loss, dh_, dt_):
+        return {"loss": abs(float(loss.detach()) - float(loss64))
+                / abs(float(loss64)), "dh": rel_gap(dh_, dh64),
+                "dtable": rel_gap(dt_, dt64),
+                "dtable_label_rows": rel_gap(dt_[label_rows],
+                                             dt64[label_rows])}
+
+    gaps = gaps_of(ce, dh, dt)
+    same_loss = same_bytes(ce, loss0)
+    del dh, dt
+    # Planted fault: the labels shifted by one item.
+    lab_f = (lab + 1) % (cfg.vocab - 2)
+    ce_f = layers.cross_entropy_tied_chunked(h, t, lab_f, w, chunk=chunk)
+    faults = {"labels shifted by one item": gaps_of(
+        ce_f, *torch.autograd.grad(ce_f, (h, t)))}
+    del ce_f, dh64, dt64, h, t
+    if not same_loss:
+        failed.append("the recorded CE's loss != the step's")
+    failed += [f"f64 {k}: {v} > {CE_F64[k]}" for k, v in gaps.items()
+               if not v <= CE_F64[k]]
+    failed += [f"fault {what}: within the bounds"
+               for what, g in faults.items()
+               if all(v <= CE_F64[k] for k, v in g.items())]
+    logits_bytes = h_m.shape[0] * h_m.shape[1] * cfg.vocab * 4
+    del ce_calls, h_m, table, lab, w
+
+    # The path has no kernel: no launch is expected.
+    state, run, _ = supervised_run(
+        step, state, lambda i: batches[i], 1 + steps, "train_bert4rec",
+        path_launches, {}, failed)
+    masked = min(rs.MAX_MASKED, cfg.max_seq)
+    ce_flops = 4 * 2 * rows * masked * cfg.d_model * cfg.vocab
+    flops = 3 * decoder_flops(cfg, rows, cfg.max_seq) + ce_flops
+    n_bytes = 9 * sum(p.numel() * p.element_size() for p in params.values())
+    profiled = profile_step(lambda: step(state, batches[-1]))
+    return {"model": cfg.name, "seed": seed, "batch": rows,
+            "cut": "train_batch 65,536 -> " + str(rows),
+            "params": sum(p.numel() for p in params.values()), **run,
+            "samples_per_s": rows / (run["step_ms_p50"] / 1e3),
+            **model_bound(flops, n_bytes), "ce_flops": ce_flops,
+            "profiled_step": profiled,
+            "first_step": {"f64_gaps": gaps, "bounds": CE_F64,
+                           "faults": faults, "f64_s": f64_s,
+                           "ce_rows": rows * masked, "chunk": chunk,
+                           "ce_forward_peak_bytes": fwd_peak,
+                           "ce_backward_peak_bytes": bwd_peak,
+                           "one_logits_tensor_bytes": logits_bytes},
+            "phase_peak_bytes": torch.cuda.max_memory_allocated()
+            - held_before, "failed": failed,
+           "seconds": time.perf_counter() - start}
+
+
+def train_glm4(dev, seed: int, check, path_launches: dict) -> tuple:
+    """GLM-4 9B at published width cut to ``LM_TRAIN["layers"]`` layers,
+    bf16, AdamW, ``LM_TRAIN["rows"]`` rows of ``LM_TRAIN["seq"]`` tokens a
+    step in ``LM_ACCUM`` microbatches, read from a ``TokenCube``
+    on the card.  The first microbatch's loss and gradient norm are held
+    within ``LM_F32`` of the same microbatch in float32 on the card, with
+    labels left unshifted outside; then 1 + ``MORE_STEPS["glm4-9b"]``
+    steps under ``Supervisor``: every step's tokens byte-equal to the
+    corpus's windows, one ``gather_union_slices`` launch a step and no
+    ``gather_rows``, each union read byte-equal to its plain version;
+    one profiled step.  Returns (the row, the union read's timing at the
+    step's batch)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.configs import glm4_9b
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.configs.common import LM_ACCUM
+    from repro_torch.dataplane.tokens import TokenCube
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.attention import _sdpa
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import optimizer as optim
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step,
+                                               value_and_grad)
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    held_before = torch.cuda.memory_allocated()
+    lt = LM_TRAIN
+    cfg = dataclasses.replace(glm4_9b._cfg(), n_layers=lt["layers"])
+    rows, seq, accum = lt["rows"], lt["seq"], LM_ACCUM
+    steps = MORE_STEPS["glm4-9b"]
+    t0 = time.perf_counter()
+    tc = TokenCube(vocab=cfg.vocab, n_docs=lt["n_docs"],
+                   doc_len=lt["doc_len"], seed=seed, device=dev)
+    tc.payload()
+    corpus_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    params = carry.decoder_params(tf.init_params(cfg, device=dev, seed=seed),
+                                  cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    loss_fn = train_cfgs.loss_for("lm", params, cfg)
+    failed = []
+
+    # The first microbatch in bf16 and in float32, and with the labels
+    # left unshifted (the planted fault).
+    first = tc.batch(0, rows, seq)
+    mb = {k: v[:1].contiguous() for k, v in first.items()}
+    loss_bf, _, g = value_and_grad(loss_fn, params, mb)
+    norm_bf = optim.global_norm(g)
+    del g
+    loss_nf, _, g = value_and_grad(loss_fn, params, {
+        "tokens": mb["tokens"], "labels": mb["tokens"]})
+    norm_nf = optim.global_norm(g)
+    del g
+    t0 = time.perf_counter()
+    params32 = {k: v.detach().float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    loss32, _, g = value_and_grad(train_cfgs.loss_for("lm", params32, cfg32),
+                                  params32, mb)
+    norm32 = optim.global_norm(g)
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - t0
+    del g, params32
+
+    def gaps_of(loss, norm):
+        return {"loss": abs(float(loss) - float(loss32)) / float(loss32),
+                "grad_norm": abs(float(norm) - float(norm32))
+                / float(norm32)}
+
+    gaps = gaps_of(loss_bf, norm_bf)
+    faults = {"labels not shifted": gaps_of(loss_nf, norm_nf)}
+    failed += [f"f32 {k}: {v} > {LM_F32[k]}" for k, v in gaps.items()
+               if not v <= LM_F32[k]]
+    failed += [f"fault {what}: within the bounds"
+               for what, g_ in faults.items()
+               if all(v <= LM_F32[k] for k, v in g_.items())]
+    torch.cuda.empty_cache()
+
+    # The main path: the train state, then 1 + steps under the supervisor
+    # with each batch read from the corpus on the card.
+    opt = glm4_9b._opt()
+    state = init_train_state(params, opt)
+    step = make_train_step(loss_fn, opt, accum_steps=accum)
+    read = []
+
+    def source(i):
+        bt = tc.batch(i, rows, seq)
+        read.append((i, bt))
+        return bt
+
+    state, run, calls = supervised_run(
+        step, state, source, 1 + steps, "train_glm4", path_launches,
+        {"gather_union_slices": 1 + steps}, failed,
+        record=lambda: recording(gk, "gather_union_slices", results=True))
+    state_bytes = sum(t.numel() * t.element_size() for t in
+                      ckpt.flatten_tree(state).values())
+    # Every step's tokens against the corpus's windows.
+    flat = tc.materialize()
+    windows_equal = True
+    for i, bt in read:
+        docs, starts = tc.windows(i, rows, seq)
+        toks = np.stack([flat[d * lt["doc_len"] + s0:
+                              d * lt["doc_len"] + s0 + seq + 1]
+                         for d, s0 in zip(docs, starts)])
+        windows_equal &= bt["tokens"].cpu().numpy().tobytes() == \
+            toks[:, :-1].tobytes()
+        windows_equal &= bt["labels"].cpu().numpy().tobytes() == \
+            toks[:, 1:].tobytes()
+    if not windows_equal:
+        failed.append("a step's tokens differ from the corpus's windows")
+    with torch.no_grad():
+        for j, (a, kw, out) in enumerate(calls):
+            check("gather_union_slices", out,
+                  gref.gather_union_slices(*a, **kw),
+                  f"train glm4 batch {j}")
+    n_params = sum(p.numel() for p in params.values())
+    tokens = rows * seq
+    # The least time of a step: the matrix products (6 × the parameters
+    # × the tokens, the tied head included) and the causal attention's
+    # scores and V products (forward and backward, 3 × 4 · S²/2 · H · Dh
+    # a row a layer), all on bf16 operands, at the bf16 peak; against
+    # the AdamW sweep's bytes (bf16 p and g, float32 m and v).
+    bf16_flops = 6 * n_params * tokens
+    attn_flops = 3 * 4 * seq * seq // 2 * cfg.n_heads * cfg.d_head \
+        * cfg.n_layers * rows
+    attn_bound_ms = attn_flops / BF16_FLOPS * 1e3
+    t_ops = (bf16_flops + attn_flops) / BF16_FLOPS * 1e3
+    n_bytes = n_params * (2 + 2 + 2 + 4 * 4)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    profiled = profile_step(lambda: step(state, read[-1][1]))
+    timer = Timer(dev)
+    # The reading against the attention's bound: _sdpa as the trunk runs
+    # it (float32 scores over the whole S² grid, in q chunks), forward
+    # and backward of one layer's row, CUDA events, times the layers and
+    # rows of a step (the recomputation's second forward left out).
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = [torch.randn((1, seq, h, cfg.d_head), generator=gen, device=dev,
+                       dtype=cfg.dtype, requires_grad=True)
+           for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    pos = torch.arange(seq, device=dev)[None]
+    d_out = torch.randn_like(qkv[0])
+    sdpa_ms = timer(lambda: torch.autograd.grad(
+        _sdpa(*qkv, pos, pos, True, cfg.q_chunk), qkv, d_out),
+        iters=5, warmup=1) * cfg.n_layers * rows
+    del qkv, d_out
+    a, kw, _ = calls[-1]
+    n_union, n_pos = a[1].numel(), a[2].numel()
+    u_bytes = n_union * (4 + 4) + n_pos * (4 + 4)
+    offsets = a[1].long()[a[2].long()]
+    timed = [{"what": "train glm4: one step's batch", "ms": timer(
+        lambda: gk.gather_union_slices(*a, **kw)),
+        "plain_ms": timer(lambda: gref.gather_union_slices(*a, **kw)),
+        "bound_ms": u_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": timer(lambda: torch.index_select(a[0], 0, offsets)),
+        "launches": run["launches"]["gather_union_slices"],
+        "shape": {"U": n_union, "P": n_pos, "dtype": "int32"}}]
+    del calls
+    row = {"model": f"{cfg.name} ({cfg.n_layers} layers)", "seed": seed,
+           "batch": rows, "seq": seq, "accum_steps": accum,
+           "cut": f"layers 40 -> {cfg.n_layers}, rows 256 -> {rows}",
+           "params": n_params, "corpus_s": corpus_s, "init_s": init_s,
+           **run, "tokens_per_s": tokens / (run["step_ms_p50"] / 1e3),
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "bf16_flops": bf16_flops, "attention_flops": attn_flops,
+           "attention_bound_ms": attn_bound_ms,
+           "sdpa_f32_ms_per_step": sdpa_ms,
+           "bytes": n_bytes, "profiled_step": profiled,
+           "first_microbatch": {"f32_gaps": gaps, "bounds": LM_F32,
+                                "faults": faults, "f32_s": f32_s,
+                                "loss_bf16": float(loss_bf),
+                                "loss_f32": float(loss32),
+                                "grad_norm_bf16": float(norm_bf),
+                                "grad_norm_f32": float(norm32)},
+           "windows_byte_equal": windows_equal, "state_bytes": state_bytes,
+           "phase_peak_bytes": torch.cuda.max_memory_allocated()
+           - held_before, "failed": failed,
+           "seconds": time.perf_counter() - start}
+    return row, timed
+
+
+def train_more_launchers(dev, seed: int) -> dict:
+    """The launcher at smoke width on the card: ``python -m
+    repro_torch.launch.train --arch <id> --steps 20`` for
+    ``MORE_LAUNCHED`` (each must exit 0, its checkpoints in a temporary
+    directory under ``build/``), the other LMs' smoke training through
+    the launcher's parts in-process (``MORE_IN_PROCESS``: the set-up, the
+    data source and the supervisor, 20 steps, no restart), and a
+    DeepSeek-V3 checkpoint written by such a run restored into a fresh
+    state byte for byte."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import FaultConfig, Supervisor
+
+    out = {"launched": {}, "in_process": {}}
+    for arch in MORE_LAUNCHED:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            argv = [sys.executable, "-m", "repro_torch.launch.train",
+                    "--arch", arch, "--steps", "20", "--ckpt-dir", d]
+            t0 = time.perf_counter()
+            res = subprocess.run(argv, capture_output=True, text=True,
+                                 timeout=600, cwd=ROOT,
+                                 env={**os.environ, "PYTHONPATH": str(
+                                     ROOT / "src")})
+            seconds = time.perf_counter() - t0
+            ckpts = sorted(p.name for p in Path(d).glob("step_*"))
+        assert res.returncode == 0, f"launcher {arch}: exit " \
+            f"{res.returncode}\n{res.stderr[-2000:]}"
+        assert "restart" not in res.stderr, f"launcher {arch}: restarted"
+        out["launched"][arch] = {"exit": res.returncode, "seconds": seconds,
+                                 "checkpoints": ckpts,
+                                 "said": res.stdout.splitlines()[-3:]}
+    for arch in MORE_IN_PROCESS:
+        smoke = train_cfgs.smoke(arch, device=dev, seed=seed)
+        source = launch_train.data_source_for(smoke, dev)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+            sup = Supervisor(FaultConfig(ckpt_dir=d, ckpt_every=20),
+                             smoke["step"], source)
+            losses = []
+            t0 = time.perf_counter()
+            state = sup.run(smoke["state"], 20, on_metrics=lambda i, m:
+                            losses.append(float(m["loss"])))
+            seconds = time.perf_counter() - t0
+            assert not sup.restarts, f"{arch}: {sup.restarts} restarts"
+            assert all(np.isfinite(losses)), f"{arch}: losses {losses}"
+            row = {"seconds": seconds, "losses": losses[::5]}
+            if arch == "deepseek-v3-671b":
+                last = ckpt.latest_step(d)
+                fresh = train_cfgs.smoke(arch, device=dev,
+                                         seed=seed + 1)["state"]
+                ckpt.restore_checkpoint(d, last, fresh)
+                got = ckpt.flatten_tree(fresh)
+                row["checkpoint"] = {
+                    "step": last, "leaves": len(got),
+                    "byte_equal": all(same_bytes(got[k], v) for k, v in
+                                      ckpt.flatten_tree(state).items())}
+                assert row["checkpoint"]["byte_equal"], \
+                    f"{arch}: restored checkpoint differs"
+            out["in_process"][arch] = row
+        del smoke, state
+        torch.cuda.empty_cache()
+    return out
+
 def tree_map(fn, tree):
     """``fn`` on every tensor of a nested dict/list tree."""
     if isinstance(tree, dict):
@@ -2133,10 +2985,13 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+@functools.lru_cache(maxsize=None)
 def gnn_batch(shape: str) -> dict:
     """The input of ``shape`` from the port's data plane: 128 padded
     molecules, the Cora-sized full graph, or one sampled Reddit-sized
-    minibatch (average degree cut from 492 to 50: see PERF.md §4)."""
+    minibatch (average degree cut from 492 to 50: see PERF.md §4).  Built
+    once and shared by the phases that read it: callers copy, never
+    write into it."""
     from repro_torch.dataplane import graph
 
     if shape == "molecule":
@@ -2198,7 +3053,9 @@ def gnn(dev, seed: int, card: str, check, path_launches: dict) -> dict:
         row, calls = serve_gnn_shape(dev, seed, shape, check, path_launches)
         emit({"phase": "gnn", **row, "matmul": matmul, "card": card})
         if shape == "molecule":
-            (m, plan, n_seg), _, _ = calls[-1]   # the energy readout
+            # The energy readout: the one sum of (N, 1) messages.
+            (m, plan, n_seg), _, _ = [c for c in calls
+                                      if c[0][0].shape[1] == 1][-1]
             timed["readout"] = segment_timing(dev, m, plan.ids, n_seg,
                                               "molecule energy readout")
         elif shape == "minibatch_lg":
@@ -2277,14 +3134,18 @@ def serve_gnn_shape(dev, seed: int, shape: str, check, path_launches: dict):
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
     launches = path_launches[f"gnn_{shape}"] = dict(LAUNCHES)
-    per_forward = cfg.n_layers * len(cfg.ls) + energy
+    # The forces' backward: the source gathers of every layer after the
+    # first (whose rows do not depend on the positions) sum through B7.
+    per_forward = cfg.n_layers * len(cfg.ls) + energy + \
+        energy * (cfg.n_layers - 1) * len(cfg.ls)
     assert launches["segment_sum"] == (1 + GNN_FORWARDS) * per_forward, \
         f"{shape}: B7 launched {launches['segment_sum']} times"
     assert len(calls) == launches["segment_sum"]
-    # One segment plan a forward (the destination ids), one more for the
-    # energy readout (the graph ids), where the CSR was built per call.
+    # Two segment plans a forward (the destination and the source ids),
+    # one more for the energy readout (the graph ids), where the CSR was
+    # built per call.
     plans_per_forward = launches["segment_plan"] / (1 + GNN_FORWARDS)
-    assert plans_per_forward == 1 + energy, \
+    assert plans_per_forward == 2 + energy, \
         f"{shape}: {launches['segment_plan']} segment plans built"
     # Every B7 call of the path against the plain version.
     with torch.no_grad():
@@ -4043,8 +4904,14 @@ def main(argv=None) -> int:
     b6_timing["variants"] += b6_train
     b1_variants += b1_train
 
+    # -- 8d. train_more: NequIP, BERT4Rec and GLM-4 trained (B7, the
+    # union read), and the launcher for the LM, GNN and BERT4Rec families
+    b7_train, union_train = train_more(dev, args.seed, card, check,
+                                       path_launches)
+
     # -- 9. gnn: NequIP at full width on three graph shapes (B7) --------
     b7_timing = gnn(dev, args.seed, card, check, path_launches)
+    b7_timing["variants"] += b7_train
 
     # -- 10. lm_serve: GLM-4 9B at full width behind the engine (B8) ---
     b8_timing_entry = lm_serve(dev, args.seed, card, path_launches)
@@ -4117,7 +4984,7 @@ def main(argv=None) -> int:
         "plain_ms": timer(lambda: gref.gather_union_slices(*u_args)),
         "bound_ms": u_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": timer(lambda: torch.index_select(flat, 0, offsets3)),
-        "shape": {"U": n_union, "P": n_pos}})
+        "shape": {"U": n_union, "P": n_pos}, "variants": union_train})
 
     # B3: the all-levels request's jobs, float64; the device time of each
     # kernel and memset of a call there and at Germany's call (the first

@@ -11,10 +11,13 @@ as the JAX package's initialisers build it, into the port's modules, and
 ``transformer_from_params`` turns such a tree into the decoder's
 parameter dict (BERT4Rec's too, with its ``pos_embed``).
 
-Training state crosses too: ``model_params`` keys a recsys model's
-parameters by the JAX package's tree paths (``"bags/tables"``,
+Training state crosses too: ``model_params`` keys a recsys model's or
+NequIP's parameters by the JAX package's tree paths (``"bags/tables"``,
 ``"bot/layers/0/w"``, ``"user_embed/table"``), the keys of the port's
-train state (``repro_torch.train``); ``train_state_from_tree`` loads a
+train state (``repro_torch.train``), and ``decoder_params`` does the
+same for a decoder (the LMs, BERT4Rec), its layers stacked by group as
+the JAX tree holds them (``"groups/0/attn/wq"``); ``decoder_tree`` is
+its inverse.  ``train_state_from_tree`` loads a
 JAX train state ``{"params", "opt"}`` (AdamW's ``m``, ``v``, ``step``
 or Adafactor's ``f``, ``step``; ``ef`` too where present) of numpy
 arrays into a model and a port train state, and ``train_state_to_tree``
@@ -161,16 +164,47 @@ _PATHS = {_recsys.TwoTower: {"user_embed": "user_embed/table",
                              "item_embed": "item_embed/table"}}
 
 
-def model_params(model: torch.nn.Module) -> dict:
-    """A recsys model's parameters keyed by the JAX package's tree paths
-    (``"bags/tables"``, ``"bot/layers/0/w"``, ``"user_embed/table"``):
-    the ``params`` of the port's train state."""
+def _jax_path(model: torch.nn.Module, name: str) -> str:
     renames = _PATHS.get(type(model), {})
-    return {renames.get(name, name.replace(".", SEP)): p
+    if name in renames:
+        return renames[name]
+    parts = name.split(".")
+    if isinstance(model, _nequip.NequIP):
+        # NequIP's "self" is the attribute self_interaction.
+        parts = ["self" if p == "self_interaction" else p for p in parts]
+    return SEP.join(parts)
+
+
+def model_params(model) -> dict:
+    """A model's parameters keyed by the JAX package's tree paths
+    (``"bags/tables"``, ``"bot/layers/0/w"``, ``"user_embed/table"``,
+    NequIP's ``"layers/0/self/0"``): the ``params`` of the port's train
+    state.  A decoder's parameters are already such a dict
+    (``decoder_params``), returned as it is."""
+    if isinstance(model, dict):
+        return model
+    return {_jax_path(model, name): p
             for name, p in model.named_parameters()}
 
 
-def _load_params(model: torch.nn.Module, params: dict, what: str) -> None:
+def decoder_params(params: dict, cfg: _transformer.TransformerConfig
+                   ) -> dict:
+    """A decoder's nested parameters (``transformer.init_params``) as a
+    train state's flat dict, keyed by the JAX package's tree paths with
+    each group's layers stacked (``"groups/0/attn/wq"`` (L_group, ...),
+    ``transformer.stack_groups``).  ``decoder_tree`` gives the nested
+    parameters back, as views of these tensors."""
+    return flatten_tree(_transformer.stack_groups(params, cfg))
+
+
+def decoder_tree(flat: dict, cfg: _transformer.TransformerConfig) -> dict:
+    """The inverse of ``decoder_params``: the nested parameters a decoder
+    runs on, each layer's tensors views of the flat dict's stacked ones
+    (so gradients reach those)."""
+    return _transformer.unstack_groups(tree_from_paths(flat), cfg)
+
+
+def _load_params(model, params: dict, what: str) -> None:
     """Load a JAX parameter tree of numpy arrays into ``model``: every
     path of the tree must be one of the model's, and the other way
     round."""
@@ -248,11 +282,12 @@ def _factored(tree: dict, params: dict) -> dict:
     return out
 
 
-def train_state_from_tree(model: torch.nn.Module, tree: dict) -> dict:
+def train_state_from_tree(model, tree: dict) -> dict:
     """Load a JAX train state of numpy arrays — ``{"params", "opt"}``,
-    and ``"ef"`` where present — into ``model`` and a port train state on
-    its device: ``{"params": model_params(model), "opt": {"m", "v",
-    "step"} or {"f", "step"}}`` (and ``"ef"``)."""
+    and ``"ef"`` where present — into ``model`` (a module, or a
+    decoder's flat parameters: ``decoder_params``) and a port train
+    state on its device: ``{"params": model_params(model), "opt": {"m",
+    "v", "step"} or {"f", "step"}}`` (and ``"ef"``)."""
     _load_params(model, tree["params"], "params")
     params = model_params(model)
     device = next(iter(params.values())).device

@@ -6,6 +6,7 @@ import torch
 
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
+from ..train.optimizer import OptimizerConfig
 
 ID = "arctic-480b"
 
@@ -28,3 +29,9 @@ def _smoke() -> TransformerConfig:
                       capacity_factor=2.0),
         dense_residual=True, dense_d_ff=96,
         dtype=torch.float32, q_chunk=None)
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adafactor", lr=3e-4, warmup_steps=2000,
+                           total_steps=100_000)

@@ -11,6 +11,7 @@ so the port's configuration has no such field."""
 import dataclasses
 
 from ..models.recsys import bert4rec_config
+from ..train.optimizer import OptimizerConfig
 
 ID = "bert4rec"
 
@@ -24,3 +25,9 @@ def _smoke():
     return dataclasses.replace(c, name=ID + "-smoke", d_model=32,
                                n_layers=2, d_ff=64, n_heads=2,
                                n_kv_heads=2, d_head=16)
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
+                           total_steps=300_000)

@@ -9,6 +9,8 @@ LM_SHAPES = {
     "long_500k": dict(seq=524288, batch=1, kind="decode"),
 }
 
+LM_ACCUM = 8   # gradient-accumulation microbatches of the train shape
+
 RECSYS_SHAPES = {
     "train_batch": dict(batch=65_536, kind="train"),
     "serve_p99": dict(batch=512, kind="serve"),

@@ -6,6 +6,7 @@ import torch
 
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
+from ..train.optimizer import OptimizerConfig
 
 ID = "deepseek-v3-671b"
 
@@ -33,3 +34,9 @@ def _smoke() -> TransformerConfig:
                       n_shared=1, capacity_factor=2.0),
         n_dense_layers=1, dense_d_ff=128, mtp=True,
         dtype=torch.float32, q_chunk=None)
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adafactor", lr=2.2e-4, warmup_steps=2000,
+                           total_steps=100_000)

@@ -4,6 +4,7 @@ d_ff 13696, vocab 151552, RoPE."""
 import torch
 
 from ..models.transformer import TransformerConfig
+from ..train.optimizer import OptimizerConfig
 
 ID = "glm4-9b"
 
@@ -20,3 +21,9 @@ def _smoke() -> TransformerConfig:
         name=ID + "-smoke", vocab=256, d_model=64, n_layers=2, n_heads=4,
         n_kv_heads=2, d_head=16, d_ff=128, dtype=torch.float32,
         q_chunk=None)
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adamw", lr=3e-4, warmup_steps=2000,
+                           total_steps=100_000)

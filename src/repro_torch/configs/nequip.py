@@ -6,6 +6,7 @@ width, the output width and the readout of each."""
 import dataclasses
 
 from ..models.nequip import NequIPConfig
+from ..train.optimizer import OptimizerConfig
 from .common import GNN_SHAPES
 
 ID = "nequip"
@@ -28,3 +29,9 @@ def for_shape(shape: str, smoke: bool = False) -> NequIPConfig:
     return dataclasses.replace(_smoke() if smoke else _cfg(),
                                d_feat=info["d_feat"], n_out=info["n_out"],
                                readout=info["readout"])
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
+                           total_steps=50_000)

@@ -4,6 +4,7 @@ d_ff 20480, vocab 64000 — llama-architecture."""
 import torch
 
 from ..models.transformer import TransformerConfig
+from ..train.optimizer import OptimizerConfig
 
 ID = "yi-34b"
 
@@ -20,3 +21,9 @@ def _smoke() -> TransformerConfig:
         name=ID + "-smoke", vocab=256, d_model=56, n_layers=2, n_heads=7,
         n_kv_heads=1, d_head=8, d_ff=160, dtype=torch.float32,
         q_chunk=None)
+
+
+def _opt() -> OptimizerConfig:
+    """The training optimizer, as the JAX module's ``get()`` sets it."""
+    return OptimizerConfig(kind="adamw", lr=1.5e-4, warmup_steps=2000,
+                           total_steps=100_000)

@@ -8,10 +8,16 @@ and are ignored.  The JAX package's ``VMEM_SEGMENT_LIMIT`` dispatch
 (the one-hot kernel only while the (S, D) accumulator fits in a TPU
 core's VMEM) has no counterpart: B7 runs at every S·D.
 
-``segment_sum`` is differentiable with respect to the messages: its
-backward gathers ``grad_out[ids]`` (0 for a ``-1`` id) in plain
-PyTorch, as the JAX package takes that gradient with XLA's own gather
-and not with a Pallas kernel.
+``segment_sum`` is differentiable any number of times with respect to
+the messages.  Its backward is ``_SegmentGather``, the gather
+``grad_out[ids]`` (0 for a ``-1`` id) in plain PyTorch, as the JAX
+package takes that gradient with XLA's own gather and not with a Pallas
+kernel.  The gather's own backward is ``segment_sum`` over the same ids
+or plan, kept in the autograd context: the backward of a backward (the
+training of forces, ``-∂E/∂positions``) is B7 again on the card, in its
+fixed order, with no new host read, no new sort and no atomics.
+``segment_gather`` is that gather as an entry point of its own, for a
+model that reads node rows at edge ids (its backward is B7).
 
 Plan once, then read: ``segment_plan(ids, n)`` validates the ids (one
 host read of their min and max) and groups them by segment (a sort and
@@ -63,17 +69,37 @@ def segment_plan(segment_ids, num_segments: int) -> SegmentPlan:
 
 
 class _SegmentSum(torch.autograd.Function):
+    """``segment_sum`` of the messages; its backward is ``_SegmentGather``
+    over the same ids or plan."""
+
     @staticmethod
     def forward(ctx, messages, ids_or_plan, num_segments):
-        ctx.save_for_backward(ids_or_plan.ids if isinstance(
-            ids_or_plan, SegmentPlan) else ids_or_plan)
+        ctx.ids_or_plan, ctx.num_segments = ids_or_plan, num_segments
         return _route(messages).segment_sum(messages, ids_or_plan,
                                             num_segments)
 
     @staticmethod
     def backward(ctx, grad_out):
-        (segment_ids,) = ctx.saved_tensors
-        return ref.segment_sum_backward(grad_out, segment_ids), None, None
+        return _SegmentGather.apply(grad_out, ctx.ids_or_plan,
+                                    ctx.num_segments), None, None
+
+
+class _SegmentGather(torch.autograd.Function):
+    """``grad_out[ids]`` for each edge, 0 for a ``-1`` id (the plain
+    ``ref.segment_sum_backward``); its backward is ``segment_sum`` over
+    the same ids or plan."""
+
+    @staticmethod
+    def forward(ctx, grad_out, ids_or_plan, num_segments):
+        ctx.ids_or_plan, ctx.num_segments = ids_or_plan, num_segments
+        ids = ids_or_plan.ids if isinstance(ids_or_plan, SegmentPlan) \
+            else ids_or_plan
+        return ref.segment_sum_backward(grad_out, ids)
+
+    @staticmethod
+    def backward(ctx, grad_rows):
+        return _SegmentSum.apply(grad_rows.contiguous(), ctx.ids_or_plan,
+                                 ctx.num_segments), None, None
 
 
 def segment_sum(messages: torch.Tensor, segment_ids, num_segments: int,
@@ -94,6 +120,19 @@ def segment_sum(messages: torch.Tensor, segment_ids, num_segments: int,
     return _SegmentSum.apply(
         messages, _checked_ids(segment_ids, num_segments, messages.device),
         num_segments)
+
+
+def segment_gather(values: torch.Tensor, segment_ids,
+                   num_segments: int) -> torch.Tensor:
+    """``values[ids[e]]`` for each of the (E,) ids, 0 for a ``-1`` id:
+    values (num_segments, ...) → (E, ...).  Its backward is
+    ``segment_sum`` over the same ids or ``SegmentPlan`` (B7 on the
+    card, each segment's rows added in ascending edge order), not an
+    atomic scatter-add, so the ids may hold hubs: a -1 id adds nothing
+    anywhere."""
+    rows = _SegmentGather.apply(values.reshape(num_segments, -1),
+                                segment_ids, num_segments)
+    return rows.reshape((rows.shape[0],) + tuple(values.shape[1:]))
 
 
 def segment_max(messages: torch.Tensor, segment_ids, num_segments: int,

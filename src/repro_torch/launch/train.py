@@ -1,16 +1,18 @@
 """Training launcher: ``python -m repro_torch.launch.train --arch <id>``
 
-Trains a recsys architecture (``dlrm-rm2``, ``deepfm``,
-``two-tower-retrieval``) end to end on one card: step-addressable data
-→ the train step (B6 or B1 in the forward, their plain backward, AdamW)
-→ the fault-tolerant supervisor → checkpoints in the JAX package's
-format.  As the JAX launcher does, it always runs the smoke
-configuration (``--smoke`` is on by default).  ``--device cpu`` runs
-the plain PyTorch versions of the kernels.  The LM and GNN families and
-BERT4Rec raise ``NotImplementedError``: their training is the next
-slice (ROADMAP §A, A10d-2).
+Trains any of the ten architectures end to end on one card:
+step-addressable data → the train step → the fault-tolerant supervisor
+→ checkpoints in the JAX package's format.  As the JAX launcher does,
+it always runs the smoke configuration (``--smoke`` is on by default),
+with the JAX launcher's data for each family: the LMs read their
+batches from a ``TokenCube`` through the extraction service (on the
+card one ``gather_union_slices`` launch a step), NequIP trains on
+sampled minibatches of a synthetic graph (B7 in its forward and its
+backward), and the recsys models, BERT4Rec among them, on fresh draws
+of their smoke batch's shapes.  ``--device cpu`` runs the plain PyTorch
+versions of the kernels.
 
-    python -m repro_torch.launch.train --arch dlrm-rm2 --steps 20
+    python -m repro_torch.launch.train --arch glm4-9b --steps 20
 """
 
 from __future__ import annotations
@@ -31,16 +33,40 @@ from ..train.fault import FaultConfig, Supervisor
 
 def data_source_for(smoke: dict, device):
     """Step-addressable synthetic data matching the smoke batch of
-    ``smoke`` (``configs.train.smoke``): the JAX launcher's recsys
-    recipe, fresh numpy draws of each array's shape and dtype seeded by
-    the step, placed on ``device``."""
+    ``smoke`` (``configs.train.smoke``), placed on ``device``: the JAX
+    launcher's recipe for each family."""
     family = smoke["family"]
-    if family != "recsys":
-        raise NotImplementedError(
-            f"{family} training data is not ported yet (ROADMAP §A, "
-            f"A10d-2)")
     batch_template = smoke["batch"]
 
+    if family == "lm":
+        from ..dataplane.tokens import TokenCube
+
+        vocab = smoke["cfg"].vocab
+        tc = TokenCube(vocab=vocab, n_docs=32, doc_len=512, device=device)
+        b, s = np.asarray(batch_template["tokens"]).shape
+
+        def source(step: int) -> dict:
+            # numpy from the CPU's plain path; tensors on the card
+            bt = tc.batch(step, b, s)
+            return device_put(bt, device) if device.type == "cpu" else bt
+
+        return source
+
+    if family == "gnn":
+        from ..dataplane.graph import minibatch, synthetic_graph
+
+        g = synthetic_graph(512, 8, batch_template["node_feat"].shape[1],
+                            int(batch_template["labels"].max()) + 1)
+        n_pad = batch_template["node_feat"].shape[0]
+        e_pad = batch_template["edge_index"].shape[1]
+
+        def source(step: int) -> dict:
+            return device_put(minibatch(g, 8, [4, 3], n_pad, e_pad,
+                                        step=step), device)
+
+        return source
+
+    # recsys: replay the smoke batch's shapes with fresh synthetic data
     def source(step: int) -> dict:
         rng = np.random.default_rng(step)
         out = {}
@@ -75,7 +101,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     """Train; returns the supervisor's final state."""
     args = parse_args(argv)
-    train_cfgs.kind_of(args.arch)       # not ported: raise before any work
     device = resolve_device(args.device)
     smoke = train_cfgs.smoke(args.arch, device=device, seed=args.seed)
     source = data_source_for(smoke, device)

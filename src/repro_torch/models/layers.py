@@ -201,3 +201,85 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+class _TiedChunkedNLL(torch.autograd.Function):
+    """Per-row ``logsumexp(h @ table.T) - (h @ table.T)[label]`` over
+    vocabulary chunks, in float32 (float64 for float64 inputs), never
+    holding more than one (rows, chunk) tile of logits.
+
+    The forward runs the online logsumexp chunk by chunk and saves only
+    ``h``, ``table``, the labels and each row's logsumexp (``m + log s``
+    of the running maximum ``m`` and sum ``s``).  The backward walks the
+    chunks again: it recomputes each chunk's logits, forms ``softmax -
+    onehot`` scaled by the row's incoming gradient, and adds its share
+    to ``dh`` and to that chunk's rows of ``dtable``.  Autograd through
+    the loop would keep every chunk's logits, the whole (rows, V) tensor
+    this exists to avoid; the JAX package's ``jax.checkpoint`` inside its
+    scan is the same recomputation.  Columns past V (a last chunk that
+    is not full) are ``-inf``."""
+
+    @staticmethod
+    def forward(ctx, h, table, labels, chunk):
+        acc = torch.promote_types(h.dtype, torch.float32)
+        h2 = h.to(acc)
+        v = table.shape[0]
+        rows = h2.shape[0]
+        m = torch.full((rows,), -torch.inf, dtype=acc, device=h.device)
+        s = torch.zeros((rows,), dtype=acc, device=h.device)
+        gold = torch.zeros((rows,), dtype=acc, device=h.device)
+        for start in range(0, v, chunk):
+            stop = min(start + chunk, v)
+            logits = h2 @ table[start:stop].to(acc).T        # (rows, c)
+            hit = (labels >= start) & (labels < stop)
+            col = torch.where(hit, labels - start, 0).long()
+            gold = gold + torch.where(
+                hit, logits.gather(1, col[:, None])[:, 0], 0.0)
+            m2 = torch.maximum(m, logits.max(dim=-1).values)
+            s = s * torch.exp(m - m2) + logits.sub_(
+                m2[:, None]).exp_().sum(dim=-1)
+            m = m2
+        lse = m + torch.log(torch.clamp(s, min=1e-30))
+        ctx.save_for_backward(h, table, labels, lse)
+        ctx.chunk = chunk
+        return lse - gold
+
+    @staticmethod
+    def backward(ctx, grad_nll):
+        h, table, labels, lse = ctx.saved_tensors
+        acc = lse.dtype
+        h2 = h.to(acc)
+        g = grad_nll.to(acc)
+        dh = torch.zeros_like(h2)
+        dtable = torch.zeros(table.shape, dtype=acc, device=table.device)
+        for start in range(0, table.shape[0], ctx.chunk):
+            stop = min(start + ctx.chunk, table.shape[0])
+            tb = table[start:stop].to(acc)
+            p = torch.sub(h2 @ tb.T, lse[:, None]).exp_()   # softmax tile
+            p.mul_(g[:, None])
+            hit = (labels >= start) & (labels < stop)
+            col = torch.where(hit, labels - start, 0).long()
+            p.scatter_add_(1, col[:, None],
+                           torch.where(hit, -g, 0.0)[:, None])
+            dh.addmm_(p, tb)
+            dtable[start:stop] = p.T @ h2
+        return dh.to(h.dtype), dtable.to(table.dtype), None, None
+
+
+def cross_entropy_tied_chunked(h: torch.Tensor, table: torch.Tensor,
+                               labels: torch.Tensor,
+                               weights: "torch.Tensor | None" = None,
+                               chunk: int = 16_384) -> torch.Tensor:
+    """CE of ``labels`` under the tied logits ``h @ table.T`` without
+    materialising (…, V): h (…, D), table (V, D), labels (…) int.  The
+    mean NLL, or with ``weights`` (…) the weighted sum over the weights'
+    sum (at least 1).  Peak memory is one (rows, chunk) tile in the
+    forward and in the backward (``_TiedChunkedNLL``); V need not be a
+    multiple of ``chunk``."""
+    d = h.shape[-1]
+    nll = _TiedChunkedNLL.apply(h.reshape(-1, d), table,
+                                labels.reshape(-1), chunk)
+    if weights is not None:
+        w = weights.reshape(-1).to(nll.dtype)
+        return torch.sum(nll * w) / torch.clamp(w.sum(), min=1.0)
+    return nll.mean()

@@ -1,4 +1,4 @@
-"""NequIP — E(3)-equivariant message passing [arXiv:2101.03164], inference.
+"""NequIP — E(3)-equivariant message passing [arXiv:2101.03164].
 
 Irrep regime: node features are per-l real-spherical-harmonic channels
 ``{l: (N, C, 2l+1)}``; messages are channel-wise tensor products of
@@ -16,15 +16,20 @@ its plain version on CPU tensors.  A node-class forward launches B7
 ``n_layers × (l_max + 1)`` times, an energy forward once more.  The
 layers' sums share one ``segment_plan`` of the destination ids, built
 once per forward (the ids validated and grouped by node once), and the
-readout has one of the graph ids: 1 plan a node-class forward, 2 an
-energy forward.
+readout has one of the graph ids.  The layers read source rows through
+``segment_gather`` over a plan of the source ids, so the gathers'
+backward is B7 as well: 2 plans a node-class forward, 3 an energy
+forward.
 
 The forward follows the JAX package's ``nequip_forward`` step for step,
 with these differences, none of which changes what it computes:
 
-* ``constrain`` (a sharding hint for the pod) and ``jax.checkpoint``
-  (recomputation in the backward pass, for training) are left out: this
-  module serves one card, and only inference is ported.
+* ``constrain`` (a sharding hint for the pod) is left out: this module
+  runs on one card.  The JAX package's ``jax.checkpoint`` of each layer
+  is ``torch.utils.checkpoint`` (non-reentrant) in training
+  (``remat``, which ``nequip_loss`` sets): each layer's edge messages
+  are recomputed in the backward pass instead of kept.  Serving, forces
+  included, runs the layers once, as before.
 * The filter of each path, ``Y_lf(r̂) · G``, depends only on the edge,
   so it is contracted once per forward instead of once per layer; the
   tensor product is then a batched product per edge.  The channel mix
@@ -34,14 +39,18 @@ with these differences, none of which changes what it computes:
   bits only.
 * Padding edges (``src`` or ``dst`` = -1) are clamped to node 0 for the
   geometry and their messages are zeroed by the edge mask, as in the
-  JAX package, but they enter the sums with id -1 (dropped) rather
-  than as node 0's edges.  A zero message added to a sum that starts at
-  +0.0 never changes it (the sum is never -0.0), so every output is the
-  same to the bit, and node 0 does not become a hub of all the padding
-  edges (80,405 of the 168,960 of a ``minibatch_lg`` batch).
+  JAX package, but they enter the sums and the source gathers with id
+  -1 (dropped, read as 0) rather than as node 0's edges.  A zero
+  message added to a sum that starts at +0.0 never changes it (the sum
+  is never -0.0), so every output is the same to the bit, and node 0
+  does not become a hub of all the padding edges (80,405 of the 168,960
+  of a ``minibatch_lg`` batch), in the sums or in the gathers' backward.
 
 Forces (``nequip_energy_forces``) are ``-∂E/∂positions`` through
-``torch.autograd.grad``; B7's backward is the gather ``grad_out[ids]``.
+``torch.autograd.grad``; B7's backward is the gather ``grad_out[ids]``,
+and that gather's backward is B7 again, so ``create_graph=True`` keeps
+the forces differentiable for training (``nequip_loss``'s energy +
+forces branch), as ``jax.value_and_grad`` inside the JAX loss is.
 
 Parameters keep the JAX parameter tree's layout (``embed``, ``readout``
 and per layer ``radial``, ``mix``, ``self``, ``gate``, keyed by
@@ -60,6 +69,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from ..kernels.segment import ops as segment_ops
@@ -203,12 +213,13 @@ class NequIPLayer(nn.Module):
                 self.gate[str(l)] = _normal((c, c), 1.0 / math.sqrt(c), kw)
 
     def forward(self, feats: dict, filters: list, rbf: torch.Tensor,
-                emask: torch.Tensor, src: torch.Tensor,
+                emask: torch.Tensor, src: segment_ops.SegmentPlan,
                 seg: segment_ops.SegmentPlan) -> dict:
         cfg, c = self.cfg, self.cfg.channels
-        n, e = feats[0].shape[0], src.shape[0]
+        n, e = feats[0].shape[0], rbf.shape[0]
         radial_w = self.radial(rbf)                      # (E, paths*C)
-        h_src = {l: feats[l][src] for l in cfg.ls}       # (E, C, 2l+1)
+        h_src = {l: segment_ops.segment_gather(feats[l], src, n)
+                 for l in cfg.ls}                        # (E, C, 2l+1)
         msgs: dict[int, list] = {l: [] for l in cfg.ls}
         for pi, (li, _, lo) in enumerate(cfg.paths):
             msg = torch.bmm(h_src[li], filters[pi])      # (E, C, 2lo+1)
@@ -264,11 +275,20 @@ class NequIP(nn.Module):
                 edge_index: torch.Tensor,
                 node_mask: "torch.Tensor | None" = None,
                 graph_ids: "torch.Tensor | None" = None,
-                n_graphs: int = 1) -> torch.Tensor:
+                n_graphs: int = 1, remat: bool = False) -> torch.Tensor:
         """``edge_index`` (2, E) int32 (src, dst), padding edges -1.
 
         Returns per-node outputs (N, n_out) for ``node_class`` or
-        per-graph energies (n_graphs,) for ``energy``.
+        per-graph energies (n_graphs,) for ``energy``.  ``remat``
+        (training, with a gradient to take) recomputes each layer in the
+        backward pass, the JAX package's ``jax.checkpoint`` of
+        ``apply_layer``; it changes no value.
+
+        The layers gather source rows through a plan of the real edges'
+        source ids (``segment_gather``, whose backward is B7), not by
+        indexing with the clamped ids: those would send every padding
+        edge's zero into node 0, a hub that PyTorch's scatter-add
+        serialises (80,405 edges of a ``minibatch_lg`` batch).
         """
         cfg, c = self.cfg, self.cfg.channels
         n = node_feat.shape[0]
@@ -283,9 +303,11 @@ class NequIP(nn.Module):
         ys = {l: sph_harm(l, rhat).to(cfg.dtype) for l in cfg.ls}
         rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
         emask = (edge_mask & (r <= cfg.cutoff)).to(cfg.dtype)
-        # The sums' ids: padding edges dropped (their messages are zero),
-        # validated and grouped by node once for every sum of the forward.
+        # The sums' and gathers' ids: padding edges dropped (their
+        # messages are zero), validated and grouped by node once for
+        # every sum and gather of the forward.
         seg = segment_ops.segment_plan(torch.where(edge_mask, dst, -1), n)
+        src_seg = segment_ops.segment_plan(torch.where(edge_mask, src, -1), n)
         # Y_lf(r̂) · G of each path: (E, 2li+1, 2lo+1).
         filters = [torch.einsum("eb,abm->eam", ys[lf],
                                 getattr(self, f"gaunt_{pi}"))
@@ -294,8 +316,14 @@ class NequIP(nn.Module):
         feats = {l: torch.zeros((n, c, 2 * l + 1), dtype=cfg.dtype,
                                 device=node_feat.device) for l in cfg.ls}
         feats[0] = self.embed(node_feat.to(cfg.dtype))[..., None]
+        # The non-reentrant checkpoint also recomputes under the double
+        # backward of the force term.
         for layer in self.layers:
-            feats = layer(feats, filters, rbf, emask, srcc, seg)
+            if remat and torch.is_grad_enabled():
+                feats = checkpoint(layer, feats, filters, rbf, emask, src_seg,
+                                   seg, use_reentrant=False)
+            else:
+                feats = layer(feats, filters, rbf, emask, src_seg, seg)
 
         scalars = feats[0][..., 0]                       # (N, C)
         out = self.readout(scalars)                      # (N, n_out)
@@ -315,13 +343,46 @@ def nequip_energy_forces(model: NequIP, node_feat: torch.Tensor,
                          positions: torch.Tensor, edge_index: torch.Tensor,
                          node_mask: "torch.Tensor | None" = None,
                          graph_ids: "torch.Tensor | None" = None,
-                         n_graphs: int = 1
+                         n_graphs: int = 1, create_graph: bool = False
                          ) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-graph energies and conservative forces F = -∂E/∂positions
-    (the gradient of the summed energies)."""
+    (the gradient of the summed energies).  With ``create_graph`` both
+    stay attached to the graph, so a loss on them can be differentiated
+    with respect to the weights (``nequip_loss``); without, the energies
+    are detached (serving)."""
     pos = positions.detach().requires_grad_(True)
     with torch.enable_grad():
         e = model(node_feat, pos, edge_index, node_mask, graph_ids,
-                  n_graphs)
-        (grad,) = torch.autograd.grad(e.sum(), pos)
-    return e.detach(), -grad
+                  n_graphs, remat=create_graph)
+        (grad,) = torch.autograd.grad(e.sum(), pos,
+                                      create_graph=create_graph)
+    return (e if create_graph else e.detach()), -grad
+
+
+def nequip_loss(model: NequIP, batch: dict) -> torch.Tensor:
+    """The training loss of the JAX package's ``nequip_loss``:
+    ``node_class``: the NLL of ``labels`` under the per-node logits (in
+    float32), averaged over ``label_mask`` (at least 1) where the batch
+    has one; ``energy`` with ``forces`` in the batch: the mean squared
+    energy error plus 100 × the mean squared force error, the forces
+    differentiated through (a double backward); ``energy`` alone: the
+    mean squared energy error."""
+    args = (batch["node_feat"], batch["positions"], batch["edge_index"],
+            batch.get("node_mask"))
+    if model.cfg.readout == "node_class":
+        logits = model(*args, remat=True)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.take_along_dim(logp, batch["labels"].long()[:, None],
+                                    dim=-1)[:, 0]
+        mask = batch.get("label_mask")
+        if mask is not None:
+            return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+        return nll.mean()
+    graph = (batch.get("graph_ids"), batch.get("n_graphs", 1))
+    if batch.get("forces") is not None:
+        e, f = nequip_energy_forces(model, *args, *graph, create_graph=True)
+        el = torch.mean(torch.square(e - batch["energy"]))
+        fl = torch.mean(torch.square(f - batch["forces"]))
+        return el + 100.0 * fl
+    e = model(*args, *graph, remat=True)
+    return torch.mean(torch.square(e - batch["energy"]))

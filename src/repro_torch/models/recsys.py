@@ -1,5 +1,5 @@
 """RecSys models: the EmbeddingBag, DLRM (RM-2), DeepFM, two-tower
-retrieval and BERT4Rec, and the training losses of the first three.
+retrieval and BERT4Rec, and their training losses.
 
 The embedding lookup is the hot path, and it is the paper's algorithm on
 the (row, dim) table datacube: the ids plan the rows, and only those
@@ -21,7 +21,8 @@ zero table at the ids, as XLA takes the gradient of ``jnp.take`` in the
 JAX package, so an optimizer moves every row of a table every step.
 ``dlrm_loss`` and ``deepfm_loss`` are the stable binary cross-entropy
 of the logits, ``twotower_loss`` the in-batch softmax with the logQ
-correction; BERT4Rec's loss is not ported yet (ROADMAP §A).  Serving
+correction, ``bert4rec_loss`` the cloze objective through the chunked
+tied cross-entropy (``layers.cross_entropy_tied_chunked``).  Serving
 runs under ``torch.no_grad()``.
 
 Parameters keep the JAX package's layouts (stacked ``(T, R, D)``
@@ -44,7 +45,8 @@ from .._device import resolve_device
 from ..kernels._casting import ensure_i32_addressable
 from ..kernels.gather import ops as gather_ops
 from . import transformer as tf
-from .layers import MLP, cross_entropy, embedding_init, unembed
+from .layers import (MLP, cross_entropy, cross_entropy_tied_chunked,
+                     embedding_init, unembed)
 
 
 class EmbeddingBag(nn.Module):
@@ -284,6 +286,24 @@ def bert4rec_init(cfg: tf.TransformerConfig, device=None, seed: int = 0
 
 
 MAX_MASKED = 48   # cloze positions kept per sequence (0.2 × 200 + slack)
+
+
+def bert4rec_loss(params: tf.Params, cfg: tf.TransformerConfig,
+                  batch: dict) -> torch.Tensor:
+    """Masked-item prediction (cloze) over the item vocabulary, as the
+    JAX package's ``bert4rec_loss``: the trunk's hidden states once, the
+    top ``MAX_MASKED`` masked positions of each row (a stable sort of
+    ``-mask``, ties by position), and the chunked tied cross-entropy
+    over them (chunks of 4096 items), weighted by the mask; the
+    (B, S, V) logits are never formed."""
+    h, _ = tf.trunk(params, cfg, batch["items"])          # (B, S, D)
+    mask = batch["mask"]
+    order = torch.argsort(-mask, dim=1, stable=True)[:, :MAX_MASKED]
+    h_m = torch.take_along_dim(h, order[..., None], dim=1)
+    lab_m = torch.take_along_dim(batch["labels"], order, dim=1)
+    w_m = torch.take_along_dim(mask, order, dim=1)
+    return cross_entropy_tied_chunked(h_m, params["embed"]["table"], lab_m,
+                                      w_m, chunk=4096)
 
 
 def bert4rec_score(params: tf.Params, cfg: tf.TransformerConfig,

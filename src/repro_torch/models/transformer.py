@@ -24,8 +24,21 @@ pair the same way.
 
 MoE layers route with capacity on the forward and prefill paths and
 dropless on the decode paths, as in the JAX package.  The ``mtp``
-subtree is drawn and carried, and serving never reads it; its loss
-(``_mtp_loss``) waits for the training port (ROADMAP A10d).
+subtree is drawn and carried; serving never reads it, and the training
+loss (``loss_fn``) adds its ``_mtp_loss``.
+
+Training: ``loss_fn`` is the JAX package's (cross-entropy, plus the MoE
+aux loss, plus ``mtp_loss_weight`` × the MTP loss).  With ``remat`` (the
+JAX configuration's field, on by default) ``trunk`` recomputes each
+layer in the backward pass whenever a gradient will be taken
+(``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+``jax.checkpoint`` does: only each layer's input is kept.  A train
+state holds the parameters flat, keyed by the JAX tree's paths with
+each group's layers stacked (``"groups/0/attn/wq"`` (L_group, ...)):
+``stack_groups`` builds that tree from the port's nested one, and
+``unstack_groups`` gives the port's nested tree back as views of the
+stacked tensors (``torch.unbind``, whose backward is one ``stack`` of
+the layers' gradients).
 
 Learned positions (BERT4Rec, ``learned_pos``): a ``pos_embed.table``
 (max_seq, D) whose row at each token's position is added to its
@@ -35,8 +48,7 @@ prefill and decode the engine serves through.  A position outside
 [0, max_seq) raises ``IndexError`` before the table is read (ROADMAP
 C12), where the JAX package's ``jnp.take`` would return a NaN row.
 
-Left out, as for NequIP: ``constrain`` (a sharding hint for the pod) and
-``jax.checkpoint`` (recomputation for training).
+Left out, as for NequIP: ``constrain`` (a sharding hint for the pod).
 """
 
 from __future__ import annotations
@@ -44,13 +56,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device
 from .attention import (AttnConfig, gqa_decode, gqa_decode_paged,
                         gqa_forward, gqa_init, mla_decode, mla_decode_paged,
                         mla_forward, mla_init)
-from .layers import (dense_init, embed, embedding_init, glu_ffn,
-                     glu_ffn_init, rmsnorm, rmsnorm_init, unembed)
+from .layers import (cross_entropy, dense_init, embed, embedding_init,
+                     glu_ffn, glu_ffn_init, rmsnorm, rmsnorm_init, unembed)
 from .moe import MoEConfig, moe_ffn, moe_init
 
 Params = dict
@@ -89,6 +102,7 @@ class TransformerConfig:
     # execution
     dtype: torch.dtype = torch.float32
     q_chunk: int | None = 1024
+    remat: bool = True
 
     def attn_config(self) -> AttnConfig:
         return AttnConfig(
@@ -240,6 +254,23 @@ def _forward_attn(cfg: TransformerConfig):
     return mla_forward if cfg.attn_type == "mla" else gqa_forward
 
 
+def _layer_apply(cfg: TransformerConfig, use_moe: bool, lp: Params,
+                 x: torch.Tensor, positions: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer: (its output, the MoE aux loss or None)."""
+    h = _forward_attn(cfg)(lp["attn"], cfg.attn_config(),
+                           rmsnorm(lp["attn_norm"], x), positions,
+                           causal=cfg.causal, q_chunk=cfg.q_chunk)
+    return _ffn_block(cfg, use_moe, lp, x + h)
+
+
+def _needs_remat(cfg: TransformerConfig, params: Params) -> bool:
+    """Whether ``trunk`` recomputes its layers: ``cfg.remat`` and a
+    gradient will be taken through them."""
+    return cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params["layers"]))
+
+
 def trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
           positions: torch.Tensor | None = None
           ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -248,13 +279,15 @@ def trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     span = None
     if positions is None:
         positions, span = _positions(tokens), (0, tokens.shape[1] - 1)
-    acfg, attn = cfg.attn_config(), _forward_attn(cfg)
     x = _embed(params, cfg, tokens, positions, span)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = _needs_remat(cfg, params)
     for lp, use_moe in zip(params["layers"], cfg.layer_uses_moe()):
-        h = attn(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), positions,
-                 causal=cfg.causal, q_chunk=cfg.q_chunk)
-        x, a = _ffn_block(cfg, use_moe, lp, x + h)
+        if remat:
+            x, a = checkpoint(_layer_apply, cfg, use_moe, lp, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = _layer_apply(cfg, use_moe, lp, x, positions)
         if a is not None:
             aux = aux + a
     return rmsnorm(params["final_norm"], x), aux
@@ -266,6 +299,87 @@ def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     """tokens (B, S) → (logits (B, S, V), aux_loss)."""
     h, aux = trunk(params, cfg, tokens, positions)
     return _logits(params, cfg, h), aux
+
+
+# -- training ----------------------------------------------------------------
+def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
+            labels: torch.Tensor, mask: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, dict]:
+    """(cross-entropy of ``labels`` + the MoE aux loss + ``mtp_loss_weight``
+    × the MTP loss where the configuration has it, {"ce", "aux",
+    "mtp_ce"}), as the JAX package's ``loss_fn``."""
+    logits, aux = forward(params, cfg, tokens)
+    ce = cross_entropy(logits, labels, mask)
+    loss = ce + aux
+    metrics = {"ce": ce, "aux": aux}
+    if cfg.mtp:
+        mtp_ce = _mtp_loss(params, cfg, tokens, labels)
+        loss = loss + cfg.mtp_loss_weight * mtp_ce
+        metrics["mtp_ce"] = mtp_ce
+    return loss, metrics
+
+
+def _mtp_loss(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """DeepSeek-V3's depth-1 multi-token prediction as the JAX package
+    writes it: the token's embedding and the next token's (``roll`` by
+    one), each RMS-normed, concatenated and projected, one dense layer,
+    the final norm and the tied unembedding, predicting the label after
+    next (``roll`` of the labels); the last two positions are masked."""
+    b, s = tokens.shape
+    positions = _positions(tokens)
+    x = embed(params["embed"], tokens).to(cfg.dtype)
+    nxt = torch.roll(tokens, -1, dims=1)
+    mp = params["mtp"]
+    hcat = torch.cat([
+        rmsnorm(mp["norm_h"], x),
+        rmsnorm(mp["norm_e"], embed(params["embed"], nxt).to(cfg.dtype)),
+    ], dim=-1)
+    h = hcat @ mp["proj"]["w"].to(cfg.dtype)
+    h, _ = _layer_apply(cfg, False, mp["layer"], h, positions)
+    logits = unembed(params["embed"], rmsnorm(params["final_norm"], h))
+    mtp_labels = torch.roll(labels, -1, dims=1)
+    mask = (torch.arange(s, device=tokens.device)[None, :] < s - 2).to(
+        torch.float32).expand(b, s)
+    return cross_entropy(logits, mtp_labels, mask)
+
+
+def stack_groups(params: Params, cfg: TransformerConfig) -> Params:
+    """The port's nested parameters as the JAX package's tree: the layers
+    of each of ``cfg.layer_groups()``'s groups stacked along a leading
+    axis under ``"groups"`` (new tensors; the per-layer ones are
+    dropped from the returned tree)."""
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["groups"], i = [], 0
+    for n, _ in cfg.layer_groups():
+        group = params["layers"][i:i + n]
+        out["groups"].append(_stack(group))
+        i += n
+    return out
+
+
+def _stack(layers: list):
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([lp[k] for lp in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def unstack_groups(tree: Params, cfg: TransformerConfig) -> Params:
+    """The inverse of ``stack_groups``: the port's nested parameters,
+    each layer's tensors views of the group's stacked ones."""
+    out = {k: v for k, v in tree.items() if k != "groups"}
+    out["layers"] = []
+    for (n, _), group in zip(cfg.layer_groups(), tree["groups"]):
+        out["layers"].extend(_unbind(group, n))
+    return out
+
+
+def _unbind(group, n: int) -> list:
+    if isinstance(group, dict):
+        parts = {k: _unbind(v, n) for k, v in group.items()}
+        return [{k: v[j] for k, v in parts.items()} for j in range(n)]
+    return list(torch.unbind(group, 0))
 
 
 # -- serving over a dense cache ------------------------------------------

@@ -1086,11 +1086,14 @@ def test_nequip_on_the_card_equals_plain_segment_sum(cuda_device, shape,
 
     before = dict(LAUNCHES)
     got = run()
-    per_forward = 3 * cfg.n_layers + (shape == "molecule")
+    forces = shape == "molecule"
+    # The forward's sums, the energy readout, and the forces' backward
+    # of the source gathers of every layer after the first.
+    per_forward = 3 * cfg.n_layers + forces + forces * 3 * (cfg.n_layers - 1)
     assert LAUNCHES["segment_sum"] == before["segment_sum"] + per_forward
-    # One plan of the destination ids, one more of the graph ids.
-    assert LAUNCHES["segment_plan"] == \
-        before["segment_plan"] + 1 + (shape == "molecule")
+    # Plans of the destination and the source ids, one more of the graph
+    # ids.
+    assert LAUNCHES["segment_plan"] == before["segment_plan"] + 2 + forces
     monkeypatch.setattr(segk, "segment_sum", segref.segment_sum)
     want = run()
     for a, w in zip(got, want):
@@ -1562,3 +1565,78 @@ def test_paged_decode_attention_bert4rec_shape(cuda_device, n_split):
         *_on(cuda_device, *case), n_split=n_split),
         "paged_decode_attention_simt")
     _assert_b8_close(got, want, torch.float32)
+
+
+# -- training: B7 differentiated twice, the chunked CE, the LM data plane ---
+
+def test_segment_sum_second_order_on_the_card(cuda_device):
+    """The backward of B7's backward (a gather) is B7 again over the same
+    plan: one launch, byte-equal to the plain version on the card and on
+    the CPU, with no ``index_put_`` or ``index_add_`` in it."""
+    msg, ids = _segment_case(30_000, 3000, 32, torch.float32, seed=4)
+    ids = ids.to(cuda_device)
+    plan = segops.segment_plan(ids, 3000)
+    gen = torch.Generator().manual_seed(5)
+    m = msg.to(cuda_device).requires_grad_(True)
+    grad_out = torch.randn(3000, 32, generator=gen).to(
+        cuda_device).requires_grad_(True)
+    v = torch.randn(30_000, 32, generator=gen).to(cuda_device)
+    (g,) = torch.autograd.grad(segops.segment_sum(m, plan, 3000), m,
+                               grad_out, create_graph=True)
+    assert _bytes_equal(g.detach(), segref.segment_sum_backward(
+        grad_out.detach(), ids))
+    before = dict(LAUNCHES)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        (gg,) = torch.autograd.grad(g, grad_out, v)
+    assert LAUNCHES["segment_sum"] == before["segment_sum"] + 1
+    assert LAUNCHES["segment_plan"] == before["segment_plan"]
+    names = {e.name for e in prof.events()}
+    assert not any("index_put" in n or "index_add" in n for n in names)
+    assert _bytes_equal(gg, segref.segment_sum(v, plan, 3000))
+    assert _bytes_equal(gg.cpu(), segref.segment_sum(v.cpu(), ids.cpu(),
+                                                     3000))
+
+
+def test_chunked_cross_entropy_on_the_card_equals_cpu(cuda_device):
+    """The chunked tied CE's loss, ``dh`` and ``dtable`` at V = 10,000
+    (not a multiple of the 4096 chunk) within ``CARD_STEP`` of the same
+    call on the CPU (cuBLAS and the CPU sum their float32 products in
+    their own orders; TF32 stays off)."""
+    from repro_torch.models.layers import cross_entropy_tied_chunked
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    gen = torch.Generator().manual_seed(6)
+    h = torch.randn(2048, 64, generator=gen)
+    table = torch.randn(10_000, 64, generator=gen) * 0.1
+    labels = torch.randint(0, 10_000, (2048,), generator=gen)
+    weights = (torch.rand(2048, generator=gen) < 0.8).float()
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        hh = h.to(dev).requires_grad_(True)
+        tt = table.to(dev).requires_grad_(True)
+        loss = cross_entropy_tied_chunked(hh, tt, labels.to(dev),
+                                          weights.to(dev), chunk=4096)
+        runs[str(dev)] = (loss.detach(), *torch.autograd.grad(loss,
+                                                              (hh, tt)))
+    for got, want in zip(runs[str(cuda_device)], runs["cpu"]):
+        torch.testing.assert_close(got.cpu(), want, **CARD_STEP)
+
+
+def test_token_cube_batch_on_the_card(cuda_device):
+    """One LM batch from a ``TokenCube`` on the card: one
+    ``gather_union_slices`` launch and no ``gather_rows``, the tokens
+    byte-equal to the CPU cube's (the plain path over numpy)."""
+    from repro_torch.dataplane.tokens import TokenCube
+
+    card = TokenCube(vocab=1000, n_docs=8, doc_len=600, device=cuda_device)
+    host = TokenCube(vocab=1000, n_docs=8, doc_len=600, device="cpu")
+    before = dict(LAUNCHES)
+    got = card.batch(3, 8, 256)
+    assert LAUNCHES["gather_union_slices"] == \
+        before["gather_union_slices"] + 1
+    assert LAUNCHES["gather_rows"] == before["gather_rows"]
+    want = host.batch(3, 8, 256)
+    for k in ("tokens", "labels"):
+        assert got[k].is_cuda and got[k].dtype == torch.int32
+        assert got[k].cpu().numpy().tobytes() == want[k].tobytes(), k

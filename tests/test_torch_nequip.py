@@ -353,13 +353,14 @@ class TestNequIP:
         if name == "molecule":
             assert seen[-1] == ((n, 1), kw["n_graphs"])
 
-    @pytest.mark.parametrize("name,plans", (("full_graph", 1),
-                                            ("minibatch", 1),
-                                            ("molecule", 2)))
+    @pytest.mark.parametrize("name,plans", (("full_graph", 2),
+                                            ("minibatch", 2),
+                                            ("molecule", 3)))
     def test_one_segment_plan_per_forward(self, name, plans, monkeypatch):
-        """The layers' sums share one plan of the destination ids, and an
-        energy forward builds one more for the readout; outputs (and
-        forces) still agree with the JAX package within 2e-5."""
+        """The layers' sums share one plan of the destination ids and
+        their gathers one of the source ids, and an energy forward builds
+        one more for the readout; outputs (and forces) still agree with
+        the JAX package within 2e-5."""
         model, params, jcfg, args, kw = _run_both(name)
         built = []
         real = sops.segment_plan
@@ -385,9 +386,9 @@ class TestNequIP:
                 got, np.asarray(_ref_forward(params, jcfg, *jargs, **jkw)),
                 **F32)
         n = targs[0].shape[0]
-        assert len(built) == plans and built[0] == n
+        assert len(built) == plans and built[:2] == [n, n]
         if name == "molecule":
-            assert built[1] == kw["n_graphs"]
+            assert built[2] == kw["n_graphs"]
 
     @pytest.mark.parametrize("name", ("minibatch", "molecule"))
     def test_padding_edges_dropped_equals_clamped_to_node_0(
