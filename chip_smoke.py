@@ -247,6 +247,27 @@ and then, printing one JSON line per phase:
                round, tokens/s, the replayed round's idle share and top
                kernels, the peak memory, the prefill's dropped share and
                the round's bound (the weights a round reads, once);
+11b. distributed — the port's distribution on an NCCL process group of
+               one rank (a ``FileStore`` in a temporary directory, no
+               TCP) and ``make_host_mesh(1, 1)`` on "cuda":
+               ``quantized_psum`` of a seeded float32 tensor (2²⁴
+               elements) byte-equal to its plain CPU arithmetic, and the
+               same with the scale halved (a planted fault) unequal, and
+               timed; the JAX distributed test's linear AdamW step with
+               ``DTensor`` params P(None, "model"), moments P("data",
+               "model") and a P("data", None) batch within 1e-5 of the
+               step on plain tensors; DLRM-RM2's published train state
+               (AdamW, 20 GB, the moments drawn) placed by
+               ``named(mesh, sanitize_specs(...))`` of its lowering's
+               specs, saved as a sharded checkpoint under ``build/`` and
+               restored onto the mesh with ``shardings``, every local
+               tensor byte-equal to the source; after it is freed, fault
+               C14: one run (0, 2³¹) of a 2³¹-element uint8 payload
+               through ``gather_plan_runs`` (one B2 launch, the path's
+               count) byte-equal to the payload, and timed; the dry run
+               of all 40 cells on both production meshes (80 records,
+               all ``ok``), with the largest per-device
+               ``argument_bytes`` of each family; each piece's seconds;
 12. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B1 at
@@ -284,7 +305,8 @@ and then, printing one JSON line per phase:
 The launch counters are reset just before each path (phases 2-3, the
 plain extract, 5, 6, 7, each model of 8, two-tower, BERT4Rec and
 BERT4Rec's engine in 8b, each model's supervised steps in 8c and 8d,
-each shape of 9, the engine and the launcher of 10, each model of 11)
+each shape of 9, the engine and the launcher of 10, each model of 11,
+11b)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call (and phase 11's
@@ -4325,6 +4347,283 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
     return row
 
 
+# -- 11b. distributed ---------------------------------------------------------
+DIST_PSUM_ELEMENTS = 1 << 24       # quantized_psum's seeded tensor (64 MB)
+DIST_STEP_TOL = 1e-5               # the JAX distributed test's bound
+DIST_STATE_ARCH = "dlrm-rm2"       # its published train state, AdamW
+C14_ELEMENTS = 1 << 31             # one B2 run over a uint8 payload
+C14_TIMED = 5
+
+
+def quantized_psum_plain(x, scale_factor: float = 1.0):
+    """``quantized_psum``'s arithmetic over a group of one rank, in plain
+    torch on the CPU: the scale max|x| / 127 (``scale_factor`` times it:
+    a planted fault), the int8 values, their int32 sum (the one rank's),
+    dequantised."""
+    import torch
+
+    x32 = x.detach().float().cpu()
+    scale = torch.clamp(torch.max(torch.abs(x32)), min=1e-12) / 127.0
+    scale = scale * scale_factor
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q.to(torch.int32).float() * scale
+
+
+def dist_linear_step(dev, mesh, seed: int) -> dict:
+    """The JAX test's linear AdamW step (w (16, 8), x (32, 16), y (32,
+    8), lr 0.05, no decay or warm-up) on DTensors placed as that test
+    places them, inside the mesh's context, against the same step on
+    plain tensors on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.dataplane.pipeline import device_put_sharded
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.distributed.sharding import P, named
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_state import (init_train_state,
+                                               make_train_step)
+
+    def loss_fn(params, batch):
+        pred = batch["x"] @ params["w"]
+        return torch.mean((pred - batch["y"]) ** 2), {}
+
+    cfg = OptimizerConfig(kind="adamw", lr=0.05, weight_decay=0.0,
+                          warmup_steps=0, total_steps=10_000)
+    rng = np.random.default_rng(seed)
+    host = {k: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+            .to(dev) for k, s in (("w", (16, 8)), ("x", (32, 16)),
+                                  ("y", (32, 8)))}
+    step = make_train_step(loss_fn, cfg)
+    batch = {"x": host["x"], "y": host["y"]}
+    ref, _ = step(init_train_state({"w": host["w"].clone()}, cfg), batch)
+    sspec = {"params": {"w": P(None, "model")},
+             "opt": {"m": {"w": P("data", "model")},
+                     "v": {"w": P("data", "model")}, "step": P()}}
+    state = device_put_sharded(init_train_state({"w": host["w"].clone()},
+                                                cfg), named(mesh, sspec))
+    placed = device_put_sharded(batch, named(mesh, {"x": P("data", None),
+                                                    "y": P("data", None)}))
+    with mesh_context(mesh):
+        out, _ = step(state, placed)
+    w = out["params"]["w"].detach()
+    err = float(torch.max(torch.abs(w.full_tensor()
+                                    - ref["params"]["w"].detach())))
+    assert w.to_local().device.type == dev.type
+    assert err <= DIST_STEP_TOL, f"DTensor step off by {err}"
+    return {"max_abs_err": err, "tol": DIST_STEP_TOL,
+            "placements": [str(p) for p in w.placements]}
+
+
+def dist_state_round_trip(dev, seed: int, mesh, d: Path, cfg=None) -> dict:
+    """DLRM-RM2's train state (published unless ``cfg``) with drawn
+    moments, placed on ``mesh`` by its sanitized specs (the recsys rules
+    and ZeRO-1 moments: its lowering's, which the published state
+    checks), saved
+    as a sharded checkpoint into ``d`` and restored onto the mesh with
+    ``shardings``; every local tensor must be byte-equal to the
+    source's."""
+    import torch
+
+    from repro_torch.configs import get_arch, get_config
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.configs.common import _opt_specs
+    from repro_torch.dataplane.pipeline import device_put_sharded
+    from repro_torch.distributed.sharding import (named, param_specs,
+                                                  recsys_rules,
+                                                  sanitize_specs)
+    from repro_torch.train import checkpoint as ckpt
+
+    out = {"arch": DIST_STATE_ARCH}
+    t0 = time.perf_counter()
+    run = train_cfgs.train(DIST_STATE_ARCH,
+                           cfg or get_config(DIST_STATE_ARCH), device=dev,
+                           seed=seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in run["state"]["opt"]["m"].values():
+            m.normal_(generator=gen)
+        for v in run["state"]["opt"]["v"].values():
+            v.uniform_(generator=gen)
+        run["state"]["opt"]["step"].fill_(3)
+    state = {"params": {k: p.detach() for k, p in
+                        run["state"]["params"].items()},
+             "opt": run["state"]["opt"]}
+    pspecs = param_specs(state["params"], recsys_rules)
+    specs = {"params": pspecs,
+             "opt": _opt_specs(run["opt"].kind, state["params"], pspecs)}
+    if cfg is None:     # the published state: its lowering's own specs
+        low = get_arch(DIST_STATE_ARCH).lowering("train_batch", mesh)
+        assert specs == low.in_specs[0]
+        del low
+    shardings = named(mesh, sanitize_specs(specs, state, mesh))
+    placed = device_put_sharded(state, shardings)
+    # What the restore is handed: the state's shapes and dtypes only.
+    target = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                            device="meta"), state)
+    del run, state
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    out["build_and_place_s"] = time.perf_counter() - t0
+    leaves = ckpt.flatten_tree(placed)
+    out["bytes"] = sum(t.to_local().numel() * t.element_size()
+                       for t in leaves.values())
+    out["leaves"] = len(leaves)
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(d, 1, placed)
+    out["save_s"] = time.perf_counter() - t0
+    out["file_bytes"] = sum(f.stat().st_size for f in d.rglob("*")
+                            if f.is_file())
+    t0 = time.perf_counter()
+    restored = ckpt.restore_checkpoint(d, 1, target, shardings)
+    torch.cuda.synchronize()
+    out["restore_s"] = time.perf_counter() - t0
+    got = ckpt.flatten_tree(restored)
+    assert sorted(got) == sorted(leaves)
+    bad = [k for k, v in leaves.items()
+           if tuple(got[k].placements) != tuple(v.placements)
+           or got[k].to_local().device.type != dev.type
+           or not same_bytes(got[k].to_local(), v.to_local())]
+    assert not bad, f"restored state differs at {bad[:5]}"
+    out["byte_equal"] = True
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del placed, restored, got, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def c14_read(dev, seed: int, timer, path_launches: dict) -> dict:
+    """Fault C14: one run (0, 2³¹) of a 2³¹-element uint8 payload through
+    ``gather_plan_runs``, the counts set to 0 just before and read just
+    after (``path_launches["distributed"]``: one B2 launch), byte-equal
+    to the payload; then its time beside the bytes bound (each byte read
+    once and written once, each run's start, length and offset) and that
+    of the one PyTorch call that computes the same, a copy of the
+    payload."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ops as gops
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.randint(0, 256, (C14_ELEMENTS,), dtype=torch.uint8,
+                         device=dev, generator=gen)
+    starts, lengths = np.array([0]), np.array([C14_ELEMENTS])
+    reset_launches()
+    out = gops.gather_plan_runs(flat, starts, lengths)
+    torch.cuda.synchronize()
+    path_launches["distributed"] = dict(LAUNCHES)
+    assert {k: n for k, n in LAUNCHES.items() if n} == \
+        {"gather_plan_runs": 1}, f"the 2^31-element read: {dict(LAUNCHES)}"
+    assert out.shape == flat.shape and torch.equal(out, flat), \
+        "C14: the 2^31-element read differs from the payload"
+    del out
+    runs = gops.plan_run_inputs(flat, starts, lengths)
+    n_runs = runs[0].numel()
+    n_bytes = 2 * C14_ELEMENTS + n_runs * 16
+    ms = timer(lambda: gk.gather_plan_runs(flat, *runs), iters=C14_TIMED,
+               warmup=1)
+    # One run from 0 is a copy of the payload's first 2^31 elements.
+    library_ms = timer(lambda: flat.narrow(0, 0, C14_ELEMENTS).clone(),
+                       iters=C14_TIMED, warmup=1)
+    del flat, runs
+    torch.cuda.empty_cache()
+    return {"what": "C14: one run of 2^31 uint8 elements",
+            "byte_equal": True, "ms": ms, "library_ms": library_ms,
+            "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": n_bytes, "shape": {"N": C14_ELEMENTS, "R": 1,
+                                        "runs_handed_to_b2": n_runs}}
+
+
+def dryrun_all() -> dict:
+    """The dry run of every cell on both production meshes, in process:
+    all 80 records ``ok``; the largest per-device ``argument_bytes`` of
+    each family, and DeepSeek-V3's and Arctic's ``train_4k``."""
+    from repro_torch.configs import all_cells, get_arch
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    recs = [dryrun.run_cell(a, s, mp) for a, s in all_cells()
+            for mp in (False, True)]
+    assert len(recs) == 80 and all(r["ok"] for r in recs)
+    largest: dict = {}
+    for r in recs:
+        fam = get_arch(r["arch"]).family
+        b = r["memory"]["argument_bytes"]
+        if b > largest.get(fam, {}).get("argument_bytes", -1):
+            largest[fam] = {"argument_bytes": b, "arch": r["arch"],
+                            "shape": r["shape"], "mesh": r["mesh"]}
+    return {"records": len(recs), "seconds": time.perf_counter() - t0,
+            "largest_by_family": largest,
+            "train_4k": {f"{r['arch']}|{r['mesh']}":
+                         r["memory"]["argument_bytes"] for r in recs
+                         if r["shape"] == "train_4k"
+                         and r["arch"] in ("deepseek-v3-671b",
+                                           "arctic-480b")}}
+
+
+def distributed(dev, seed: int, card: str, path_launches: dict) -> dict:
+    """Phase 11b; returns B2's C14 variant for the kernels line."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import quantized_psum
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    row = {"phase": "distributed", "card": card}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        t0 = time.perf_counter()
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.FileStore(str(Path(d) / "store"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh = make_host_mesh(1, 1)
+            assert mesh.device_mesh.device_type == dev.type
+            row["group_s"] = time.perf_counter() - t0
+
+            t0 = time.perf_counter()
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x = torch.randn(DIST_PSUM_ELEMENTS, generator=gen, device=dev)
+            got = quantized_psum(x).cpu()
+            want = quantized_psum_plain(x)
+            fault = quantized_psum_plain(x, scale_factor=0.5)
+            assert bytes_equal(got, want), "quantized_psum != plain"
+            assert not bytes_equal(got, fault), \
+                "a halved scale went unseen"
+            timer = Timer(dev)
+            row["quantized_psum"] = {
+                "elements": DIST_PSUM_ELEMENTS, "byte_equal": True,
+                "planted_fault_outside": True,
+                "ms": timer(lambda: quantized_psum(x), iters=10),
+                "seconds": time.perf_counter() - t0}
+            del x
+
+            t0 = time.perf_counter()
+            row["dtensor_step"] = {**dist_linear_step(dev, mesh, seed),
+                                   "seconds": time.perf_counter() - t0}
+
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
+            row["state"] = {**dist_state_round_trip(
+                dev, seed, mesh, Path(d) / "ckpt"),
+                "seconds": time.perf_counter() - t0}
+
+            t0 = time.perf_counter()
+            c14 = c14_read(dev, seed, timer, path_launches)
+            row["c14"] = {**c14, "seconds": time.perf_counter() - t0}
+
+            row["dryrun"] = dryrun_all()
+        finally:
+            dist.destroy_process_group()
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return c14
+
+
 def weather_setup():
     """The extraction phases' cube and requests: the F320-like irregular
     weather cube (2 dates of 4 times, 37 levels, 640 latitude rows),
@@ -4920,6 +5219,9 @@ def main(argv=None) -> int:
     b8_timing_entry["variants"] += lm_moe(dev, args.seed, card,
                                           path_launches)
 
+    # -- 11b. distributed: torch.distributed on a group of one, C14 ------
+    c14_variant = distributed(dev, args.seed, card, path_launches)
+
     # -- 12. timing at the shapes each path gave its kernels ------------
     launches = {k: sum(p[k] for p in path_launches.values())
                 for k in LAUNCHES}
@@ -4964,7 +5266,7 @@ def main(argv=None) -> int:
         "plain_ms": timer(lambda: gref.gather_plan_runs(*b2_args)),
         "bound_ms": b2_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
         "library_ms": timer(lambda: torch.index_select(flat, 0, offsets2)),
-        "shape": {"N": n_points, "R": n_runs}})
+        "shape": {"N": n_points, "R": n_runs}, "variants": [c14_variant]})
 
     # The union read and its slices: phase 3's last window, each union
     # offset and position read once with its element, each output

@@ -23,6 +23,16 @@ def resolve_device(device: "str | torch.device | None" = None
     return dev
 
 
+def seeded_generator(device: torch.device, seed: int
+                     ) -> "torch.Generator | None":
+    """A generator on ``device`` seeded with ``seed``; None on the
+    ``meta`` device, where nothing is drawn (a model built there has its
+    shapes and dtypes, and allocates nothing)."""
+    if device.type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def upload(device: torch.device, *arrays: np.ndarray) -> list:
     """The host ``arrays`` (any dtype torch has) as tensors of their own
     shapes on ``device``, packed into one buffer (each at an 8-byte

@@ -12,6 +12,7 @@ import dataclasses
 
 from ..models.recsys import bert4rec_config
 from ..train.optimizer import OptimizerConfig
+from .common import recsys_arch
 
 ID = "bert4rec"
 
@@ -31,3 +32,8 @@ def _opt() -> OptimizerConfig:
     """The training optimizer, as the JAX module's ``get()`` sets it."""
     return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
                            total_steps=300_000)
+
+
+def get():
+    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+    return recsys_arch(ID, "bert4rec", _cfg(), _smoke(), _opt())

@@ -1,6 +1,44 @@
-"""Shapes the models are served at: the LM sequence and batch sizes,
-the recsys batch sizes per traffic kind and NequIP's graph shapes, as in
-the JAX package's configuration."""
+"""Architecture definitions of the port: the shapes each model is served
+and trained at, and for every (architecture × shape) cell its lowering:
+the arguments of the function the cell runs as ``meta`` tensors and their
+PartitionSpec trees, the JAX package's ``configs/common.py`` over the
+port's models.
+
+``lowering(shape, mesh)`` gives the cell's kind (the train step, the
+prefill, the decode step or the serving forward), that function's
+arguments in the JAX lowering's tree with its shapes and dtypes (nothing
+allocated), and the spec trees of those arguments, the JAX lowering's
+own: what the dry run (``launch.dryrun``) reads.  It holds no callable:
+the port's models take local tensors (their kernels read raw pointers),
+so no cell runs sharded yet, and ``train.train_state.make_train_step``,
+``models.transformer.prefill``/``decode_step`` and the recsys forwards
+are called on real tensors where a cell is run.
+
+``probes`` stays None: the JAX package's cost probes exist because XLA's
+``cost_analysis`` counts a scan body once; the port's layers run in a
+Python loop and no whole-program cost is read.
+
+Three families: "lm" (5 transformer archs × train/prefill/decode/500k),
+"gnn" (NequIP × 4 graph regimes), "recsys" (4 archs × 4 serving
+regimes).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from .. import carry
+from ..distributed import sharding as shd
+from ..distributed.sharding import PartitionSpec as P
+from ..models import nequip as nq
+from ..models import transformer as tf
+from ..train.optimizer import OptimizerConfig, make_optimizer
+from . import train as train_cfgs
 
 LM_SHAPES = {
     "train_4k": dict(seq=4096, batch=256, kind="train"),
@@ -38,3 +76,250 @@ GNN_SHAPES = {
                      forces=True),
     # real: 128 graphs × 30 nodes / 64 edges = 3840 / 8192
 }
+
+
+@dataclass
+class Lowering:
+    args: tuple                 # meta tensors, in the JAX lowering's tree
+    in_specs: tuple             # matching PartitionSpec trees
+    kind: str = "train"         # train | prefill | decode | serve
+
+
+@dataclass
+class ArchDef:
+    arch_id: str
+    family: str                 # lm | gnn | recsys
+    shapes: tuple[str, ...]
+    lowering: Callable[[str, Any], Lowering]
+    smoke: Callable[..., dict]  # configs.train.smoke of the architecture
+    describe: Callable[[], dict]
+    probes: Callable[[str, Any], dict] | None = None
+    correction: Callable[[], dict] | None = None
+
+
+def _sds(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An abstract argument: a ``meta`` tensor of ``shape``."""
+    return torch.empty(tuple(int(x) for x in shape), dtype=dtype,
+                       device="meta")
+
+
+def dp(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def all_axes(mesh) -> tuple:
+    return tuple(mesh.axis_names)
+
+
+def _opt_specs(opt_kind: str, params: dict, pspecs: dict) -> dict:
+    """Spec tree for the optimizer state, mirroring its structure."""
+    if opt_kind == "adamw":
+        mv = shd.opt_state_specs(pspecs, params)
+        return {"m": mv, "v": mv, "step": P()}
+
+    # adafactor: vr drops the last dim, vc the second-to-last
+    def fspec(spec, leaf):
+        shape = tuple(leaf.shape)
+        spec = shd.add_data_axis(spec, shape)
+        dims = list(spec) + [None] * (len(shape) - len(spec))
+        if len(shape) >= 2:
+            return {"vr": P(*dims[:-1]), "vc": P(*dims[:-2], dims[-1])}
+        return {"v": P(*dims)}
+
+    return {"f": shd.tree_map(fspec, pspecs, params), "step": P()}
+
+
+def _abstract_opt(opt_cfg: OptimizerConfig, params: dict) -> dict:
+    opt_init, _ = make_optimizer(opt_cfg)
+    return opt_init(params)
+
+
+def _train_lowering(params: dict, pspecs: dict, opt_cfg: OptimizerConfig,
+                    batch: dict, bspecs: dict) -> Lowering:
+    """The train step's lowering: ``({"params", "opt"}, batch)``."""
+    state = {"params": params, "opt": _abstract_opt(opt_cfg, params)}
+    sspecs = {"params": pspecs,
+              "opt": _opt_specs(opt_cfg.kind, params, pspecs)}
+    return Lowering((state, batch), (sspecs, bspecs), kind="train")
+
+
+# =====================================================================
+# LM family
+# =====================================================================
+def _decoder_params(cfg: tf.TransformerConfig) -> dict:
+    """A decoder's train-state parameters (flat, groups stacked) on
+    ``meta``."""
+    return carry.decoder_params(tf.init_params(cfg, device="meta"), cfg)
+
+
+def lm_arch(arch_id: str, cfg: tf.TransformerConfig,
+            smoke_cfg: tf.TransformerConfig, opt_cfg: OptimizerConfig,
+            fsdp: bool = True, accum: int = LM_ACCUM) -> ArchDef:
+    rules = shd.fsdp_rules(shd.lm_rules) if fsdp else shd.lm_rules
+
+    def lowering(shape: str, mesh) -> Lowering:
+        info = LM_SHAPES[shape]
+        b, s = info["batch"], info["seq"]
+        dpa = dp(mesh)
+        params = _decoder_params(cfg)
+        pspecs = shd.param_specs(params, rules)
+
+        if info["kind"] == "train":
+            batch = {"tokens": _sds((b, s), torch.int32),
+                     "labels": _sds((b, s), torch.int32)}
+            bspecs = {"tokens": P(dpa, None), "labels": P(dpa, None)}
+            return _train_lowering(params, pspecs, opt_cfg, batch, bspecs)
+
+        if info["kind"] == "prefill":
+            return Lowering((params, _sds((b, s), torch.int32)),
+                            (pspecs, P(dpa, None)), kind="prefill")
+
+        # decode: one new token against an S-token cache
+        caches = tf.init_cache(cfg, b, s, device="meta")
+        if b == 1:
+            seq_ax = tuple(a for a in ("data", "model")
+                           if a in mesh.axis_names)
+            cspec_batch, cspec_seq = None, seq_ax
+        else:
+            cspec_batch, cspec_seq = dpa, "model"
+
+        def cache_spec(leaf):
+            # (L, B, S, …)
+            extra = (None,) * (leaf.ndim - 3)
+            return P(None, cspec_batch, cspec_seq, *extra)
+
+        cspecs = shd.tree_map(cache_spec, caches)
+        tspec = P(dpa) if b > 1 else P()
+        return Lowering((params, caches, _sds((b,), torch.int32),
+                         _sds((b,), torch.int32)),
+                        (pspecs, cspecs, tspec, tspec), kind="decode")
+
+    def correction() -> dict:
+        groups = cfg.layer_groups()
+        return {"groups": [n for n, _ in groups],
+                "two_groups": len(groups) > 1,
+                "accum": accum, "opt_kind": opt_cfg.kind,
+                "n_params": tf.count_params(
+                    tf.init_params(cfg, device="meta"))}
+
+    def describe() -> dict:
+        return {"arch": arch_id, "family": "lm",
+                "d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                "vocab": cfg.vocab, "moe": cfg.moe is not None}
+
+    return ArchDef(arch_id, "lm", tuple(LM_SHAPES), lowering,
+                   functools.partial(train_cfgs.smoke, arch_id), describe,
+                   correction=correction)
+
+
+# =====================================================================
+# GNN family (NequIP)
+# =====================================================================
+def gnn_arch(arch_id: str, base: nq.NequIPConfig,
+             smoke_base: nq.NequIPConfig,
+             opt_cfg: OptimizerConfig) -> ArchDef:
+    def lowering(shape: str, mesh) -> Lowering:
+        info = GNN_SHAPES[shape]
+        cfg = dataclasses.replace(base, d_feat=info["d_feat"],
+                                  n_out=info["n_out"],
+                                  readout=info["readout"])
+        n, e = info["n_nodes"], info["n_edges"]
+        axes = all_axes(mesh)
+        params = carry.model_params(nq.NequIP(cfg, device="meta"))
+        pspecs = shd.param_specs(params, shd.gnn_rules)
+        f32, i32 = torch.float32, torch.int32
+        batch = {"node_feat": _sds((n, info["d_feat"]), f32),
+                 "positions": _sds((n, 3), f32),
+                 "edge_index": _sds((2, e), i32)}
+        bspecs = {"node_feat": P(axes, None), "positions": P(axes, None),
+                  "edge_index": P(None, axes)}
+        if info["readout"] == "node_class":
+            batch["labels"] = _sds((n,), i32)
+            batch["label_mask"] = _sds((n,), f32)
+            bspecs["labels"] = P(axes)
+            bspecs["label_mask"] = P(axes)
+        else:
+            ng = info["n_graphs"]
+            batch.update({"graph_ids": _sds((n,), i32),
+                          "energy": _sds((ng,), f32),
+                          "forces": _sds((n, 3), f32)})
+            bspecs.update({"graph_ids": P(axes), "energy": P(),
+                           "forces": P(axes, None)})
+        return _train_lowering(params, pspecs, opt_cfg, batch, bspecs)
+
+    def describe() -> dict:
+        return {"arch": arch_id, "family": "gnn",
+                "channels": base.channels, "l_max": base.l_max,
+                "n_layers": base.n_layers}
+
+    return ArchDef(arch_id, "gnn", tuple(GNN_SHAPES), lowering,
+                   functools.partial(train_cfgs.smoke, arch_id), describe)
+
+
+# =====================================================================
+# RecSys family
+# =====================================================================
+def recsys_arch(arch_id: str, kind: str, cfg: Any, smoke_cfg: Any,
+                opt_cfg: OptimizerConfig) -> ArchDef:
+    """kind ∈ {dlrm, deepfm, twotower, bert4rec}."""
+    f32, i32 = torch.float32, torch.int32
+
+    def batch_of(b: int) -> dict:
+        if kind == "dlrm":
+            return {"dense": _sds((b, cfg.n_dense), f32),
+                    "bags": _sds((b, cfg.n_sparse, cfg.bag_size), i32)}
+        if kind == "deepfm":
+            return {"bags": _sds((b, cfg.n_sparse, 1), i32)}
+        if kind == "twotower":
+            return {"user_ids": _sds((b,), i32),
+                    "item_ids": _sds((b,), i32),
+                    "item_logq": _sds((b,), f32)}
+        return {"items": _sds((b, 200), i32)}
+
+    def lowering(shape: str, mesh) -> Lowering:
+        info = RECSYS_SHAPES[shape]
+        b = info["batch"]
+        dpa = dp(mesh)
+        if kind == "bert4rec":
+            params = _decoder_params(cfg)
+        else:
+            params = carry.model_params(
+                train_cfgs._MODELS[kind](cfg, device="meta"))
+        pspecs = shd.param_specs(params, shd.recsys_rules)
+
+        def batch_specs(batch):
+            return shd.tree_map(
+                lambda a: P(dpa, *([None] * (a.ndim - 1))), batch)
+
+        if info["kind"] == "train":
+            batch = batch_of(b)
+            bspecs = batch_specs(batch)
+            if kind in ("dlrm", "deepfm"):
+                batch["labels"] = _sds((b,), f32)
+                bspecs["labels"] = P(dpa)
+            if kind == "bert4rec":
+                batch["labels"] = _sds((b, 200), i32)
+                batch["mask"] = _sds((b, 200), f32)
+                bspecs["labels"] = P(dpa, None)
+                bspecs["mask"] = P(dpa, None)
+            return _train_lowering(params, pspecs, opt_cfg, batch, bspecs)
+
+        if info["kind"] == "retrieval":
+            if kind == "twotower":
+                return Lowering(
+                    (params, _sds((1,), i32), _sds((info["n_cand"],), i32)),
+                    (pspecs, P(), P(tuple(mesh.axis_names))), kind="serve")
+            if kind == "bert4rec":
+                return Lowering((params, _sds((1, 200), i32)),
+                                (pspecs, P(None, None)), kind="serve")
+            # dlrm / deepfm: bulk-score 10⁶ candidate rows for one user
+            b = info["n_cand"]
+        batch = batch_of(b)
+        return Lowering((params, batch), (pspecs, batch_specs(batch)),
+                        kind="serve")
+
+    def describe() -> dict:
+        return {"arch": arch_id, "family": "recsys", "kind": kind}
+
+    return ArchDef(arch_id, "recsys", tuple(RECSYS_SHAPES), lowering,
+                   functools.partial(train_cfgs.smoke, arch_id), describe)

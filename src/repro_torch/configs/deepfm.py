@@ -4,6 +4,7 @@ rows of 10 (1.56 GB in float32) and a first-order table of width 1."""
 
 from ..models.recsys import DeepFMConfig
 from ..train.optimizer import OptimizerConfig
+from .common import recsys_arch
 
 ID = "deepfm"
 
@@ -22,3 +23,8 @@ def _opt() -> OptimizerConfig:
     """The training optimizer, as the JAX module's ``get()`` sets it."""
     return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
                            total_steps=300_000)
+
+
+def get():
+    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+    return recsys_arch(ID, "deepfm", _cfg(), _smoke(), _opt())

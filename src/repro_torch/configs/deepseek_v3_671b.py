@@ -7,6 +7,7 @@ import torch
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
 from ..train.optimizer import OptimizerConfig
+from .common import lm_arch
 
 ID = "deepseek-v3-671b"
 
@@ -40,3 +41,9 @@ def _opt() -> OptimizerConfig:
     """The training optimizer, as the JAX module's ``get()`` sets it."""
     return OptimizerConfig(kind="adafactor", lr=2.2e-4, warmup_steps=2000,
                            total_steps=100_000)
+
+
+def get():
+    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+    # 671B params: Adafactor (factored states) + full FSDP×TP sharding.
+    return lm_arch(ID, _cfg(), _smoke(), _opt(), fsdp=True, accum=8)

@@ -5,6 +5,7 @@ float32."""
 
 from ..models.recsys import DLRMConfig
 from ..train.optimizer import OptimizerConfig
+from .common import recsys_arch
 
 ID = "dlrm-rm2"
 
@@ -25,3 +26,8 @@ def _opt() -> OptimizerConfig:
     """The training optimizer, as the JAX module's ``get()`` sets it."""
     return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
                            total_steps=300_000)
+
+
+def get():
+    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+    return recsys_arch(ID, "dlrm", _cfg(), _smoke(), _opt())

@@ -5,6 +5,7 @@ import torch
 
 from ..models.transformer import TransformerConfig
 from ..train.optimizer import OptimizerConfig
+from .common import lm_arch
 
 ID = "granite-3-8b"
 
@@ -27,3 +28,8 @@ def _opt() -> OptimizerConfig:
     """The training optimizer, as the JAX module's ``get()`` sets it."""
     return OptimizerConfig(kind="adamw", lr=3e-4, warmup_steps=2000,
                            total_steps=100_000)
+
+
+def get():
+    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+    return lm_arch(ID, _cfg(), _smoke(), _opt(), fsdp=False)

@@ -7,7 +7,7 @@ import dataclasses
 
 from ..models.nequip import NequIPConfig
 from ..train.optimizer import OptimizerConfig
-from .common import GNN_SHAPES
+from .common import GNN_SHAPES, gnn_arch
 
 ID = "nequip"
 
@@ -35,3 +35,8 @@ def _opt() -> OptimizerConfig:
     """The training optimizer, as the JAX module's ``get()`` sets it."""
     return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
                            total_steps=50_000)
+
+
+def get():
+    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+    return gnn_arch(ID, _cfg(), _smoke(), _opt())

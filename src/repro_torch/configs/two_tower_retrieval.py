@@ -5,6 +5,7 @@ users and 10⁶ items × 256, 2.05 GB in float32."""
 
 from ..models.recsys import TwoTowerConfig
 from ..train.optimizer import OptimizerConfig
+from .common import recsys_arch
 
 ID = "two-tower-retrieval"
 
@@ -23,3 +24,8 @@ def _opt() -> OptimizerConfig:
     """The training optimizer, as the JAX module's ``get()`` sets it."""
     return OptimizerConfig(kind="adamw", lr=1e-3, warmup_steps=100,
                            total_steps=300_000)
+
+
+def get():
+    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+    return recsys_arch(ID, "twotower", _cfg(), _smoke(), _opt())

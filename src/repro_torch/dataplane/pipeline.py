@@ -9,7 +9,8 @@ through a shared :class:`~repro_torch.serve.extraction.ExtractionService`,
 so request geometry that recurs across steps is served from the plan
 cache instead of re-running Algorithm 1.  ``device_put`` places a host
 batch on the card: one pinned buffer and one non-blocking copy
-(``_device.upload``), where the JAX package places it on its mesh.
+(``_device.upload``); ``device_put_sharded`` places it on a mesh, as
+``DTensor`` tensors by a tree of ``distributed.sharding.named`` placements.
 """
 
 from __future__ import annotations
@@ -102,3 +103,20 @@ def device_put(batch: dict, device: "torch.device | str") -> dict:
     keys = list(batch)
     tensors = upload(device, *(np.asarray(batch[k]) for k in keys))
     return dict(zip(keys, tensors))
+
+
+def device_put_sharded(batch: Any, shardings: Any) -> Any:
+    """Place a batch onto the mesh: each tensor leaf through
+    ``distribute_tensor`` with its ``NamedSharding`` (the matching leaf of
+    ``shardings``, from ``sharding.named``).  Every rank passes the whole
+    batch, and each keeps its own shard."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from ..distributed.sharding import tree_map
+
+    def put(x, s):
+        t = x if isinstance(x, torch.Tensor) else torch.as_tensor(x)
+        return distribute_tensor(t.to(s.device_mesh.device_type),
+                                 s.device_mesh, s.placements)
+
+    return tree_map(put, batch, shardings)

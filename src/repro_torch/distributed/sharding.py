@@ -1,16 +1,36 @@
-"""Consistent-hash routing of plan-cache keys to shards (DESIGN.md §7).
+"""Sharding rules: param path → PartitionSpec, per model family — plus
+the consistent-hash ring that routes plan-cache keys to shards.
 
-Only the ring of the JAX package's ``distributed/sharding.py`` is here:
-``PREFIX_HEX``, ``RING_SPACE``, ``key_point`` and ``HashRing``, with the
-logic unchanged.  It is pure Python.  The mesh and the partition rules
-of that file wait for the model layers.
+The JAX package's ``distributed/sharding.py`` with its logic unchanged,
+over the port's trees.  Rules are name-based (like MaxText's logical-axis
+rules): one function reads a leaf's path and shape and returns its spec,
+in axis *names* ("data", "model", and optionally "pod"), so the same
+model lowers on any mesh: single-pod (16, 16), multi-pod (2, 16, 16), or
+the small CPU meshes of the tests.
+
+Conventions:
+ * TP: attention heads / FFN hidden / vocab / MoE experts → "model".
+ * Batch-like inputs → ("pod", "data") for training (pod = outer DP).
+ * Optimizer state (m/v): the param spec with "data" added on the first
+   open dim — ZeRO-1 style state sharding.
+ * Stacked-layer params (leading layer dim) get None prepended.
+
+Specs are the port's own ``PartitionSpec``: an immutable tuple of
+``None``, an axis name or a tuple of names, one entry a tensor dim, that
+compares as JAX's does.  Trees are nested dicts and lists (a train
+state, a cache), and a leaf's path is its keys joined by ``/``: the
+train state's keys already are the JAX tree's paths
+(``"groups/0/attn/wq"``), so a rule splits a path on ``/``.  ``named``
+turns a spec into a ``torch.distributed.tensor`` placement on a mesh
+(``launch.mesh``).
 """
 
 from __future__ import annotations
 
 import bisect
 import hashlib
-from typing import Iterable
+import math
+from typing import Any, Callable, Iterable, NamedTuple
 
 
 # ---------------------------------------------------------------------------
@@ -96,3 +116,292 @@ class HashRing:
             raise RuntimeError("HashRing has no nodes")
         i = bisect.bisect_right(points, key_point(key))
         return owners[i % len(owners)]
+
+
+# ---------------------------------------------------------------------------
+# Partition specs and trees of them
+# ---------------------------------------------------------------------------
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: ``None`` (not sharded), a mesh axis name,
+    or a tuple of names (sharded over their product, major to minor).
+    As in JAX, a list entry becomes a tuple, a one-name tuple becomes the
+    name and an empty one ``None``; ``P()`` is "replicated", and two
+    specs are equal when their entries are."""
+
+    def __new__(cls, *dims):
+        return super().__new__(cls, (_entry(d) for d in dims))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+    def __reduce__(self):
+        return (PartitionSpec, tuple(self))
+
+
+P = PartitionSpec
+
+
+def _entry(d):
+    if isinstance(d, (tuple, list)):
+        names = tuple(d)
+        if not names or names == (None,):
+            return None
+        return names[0] if len(names) == 1 else names
+    return d
+
+
+def entry_axes(d) -> tuple:
+    """The axis names of one spec entry (``None``, a name or a tuple of
+    names), major first."""
+    if d is None:
+        return ()
+    return d if isinstance(d, tuple) else (d,)
+
+
+def is_spec_leaf(x) -> bool:
+    return isinstance(x, PartitionSpec) or x is None
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any,
+             is_leaf: Callable = lambda x: False) -> Any:
+    """``fn`` over the leaves of nested dicts, lists and tuples (a spec
+    is a leaf), with the matching leaves of ``rest``."""
+    if not is_leaf(tree) and not isinstance(tree, PartitionSpec):
+        if isinstance(tree, dict):
+            return {k: tree_map(fn, v, *(r[k] for r in rest),
+                                is_leaf=is_leaf) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                       is_leaf=is_leaf)
+                              for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree: Any, path: str = "") -> Any:
+    """``fn(path, leaf)`` over nested dicts and lists, ``path`` the keys
+    (a list's indices) joined by ``/``."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return fn(path, tree)
+    out = {k: tree_map_with_path(fn, v, f"{path}/{k}" if path else str(k))
+           for k, v in items}
+    return out if isinstance(tree, dict) else type(tree)(out.values())
+
+
+def _path_names(path) -> list[str]:
+    """A leaf's path as its parts: a ``/``-joined string is split, a
+    sequence of parts (keys, indices, JAX path entries) read part by
+    part."""
+    if isinstance(path, str):
+        return path.split("/")
+    return [str(getattr(p, "key", getattr(p, "idx", p))) for p in path]
+
+
+def _shape(leaf) -> tuple[int, ...]:
+    return tuple(int(d) for d in getattr(leaf, "shape", ()))
+
+
+# ---------------------------------------------------------------------------
+# Family rules
+# ---------------------------------------------------------------------------
+
+def lm_rules(path, shape: tuple[int, ...]) -> P:
+    """Transformer sharding (GQA / MLA / MoE / dense)."""
+    names = _path_names(path)
+    leaf = names[-1]
+    stacked = "groups" in names         # stacked layers → leading L dim
+    inner = shape[1:] if stacked else shape
+
+    def spec(*dims):
+        full = (None,) + dims if stacked else dims
+        return P(*full[: len(shape)])
+
+    if leaf in ("scale", "bias", "b"):
+        return spec(None)
+    if "router" in names:
+        return spec(None, None)
+    if leaf in ("w_gate", "w_up") and len(inner) == 3:     # MoE (E, D, F)
+        return spec("model", None, None)
+    if leaf == "w_down" and len(inner) == 3:               # MoE (E, F, D)
+        return spec("model", None, None)
+    if "embed" in names or leaf == "table":                # (V, D)
+        return spec("model", None)
+    if leaf in ("wq", "wk", "wv", "wq_b", "wk_b", "wv_b"):
+        return spec(None, "model")                         # (…, H·Dh)
+    if leaf in ("wq_a", "wkv_a"):
+        return spec(None, "model")                         # low-rank in
+    if leaf == "wo":
+        return spec("model", None)                         # (H·Dh, D)
+    if leaf in ("w_gate", "w_up"):                         # dense (D, F)
+        return spec(None, "model")
+    if leaf == "w_down":                                   # dense (F, D)
+        return spec("model", None)
+    if leaf == "w":                                        # generic dense
+        if len(inner) == 2:
+            return spec(None, "model")
+        return spec(*([None] * len(inner)))
+    return P(*([None] * len(shape)))
+
+
+def gnn_rules(path, shape: tuple[int, ...]) -> P:
+    """NequIP params are tiny — replicate everything."""
+    return P(*([None] * len(shape)))
+
+
+def recsys_rules(path, shape: tuple[int, ...]) -> P:
+    names = _path_names(path)
+    leaf = names[-1]
+    if leaf == "tables" and len(shape) == 3:     # (T, rows, D) row-shard
+        return P(None, "model", None)
+    if leaf == "table" and len(shape) == 2:      # (rows, D) row-shard
+        return P("model", None)
+    if ("tower" in " ".join(names) or "deep" in names or "top" in names
+            or "bot" in names) and leaf == "w" and len(shape) == 2:
+        return P(None, None)                     # small MLPs replicated
+    # bert4rec reuses the transformer
+    return lm_rules(path, shape)
+
+
+RULES: dict[str, Callable] = {
+    "lm": lm_rules,
+    "gnn": gnn_rules,
+    "recsys": recsys_rules,
+}
+
+
+def param_specs(params: Any, rules: Callable) -> Any:
+    """PartitionSpec tree matching ``params`` (each leaf's path and
+    shape through ``rules``)."""
+    return tree_map_with_path(lambda path, leaf: rules(path, _shape(leaf)),
+                              params)
+
+
+DATA_AXIS_SIZE = 16   # production data-axis extent (per pod)
+POD_AXIS_SIZE = 2     # pods on the multi-pod mesh
+
+# FSDP shards over data *and* pod: 671B-class models only fit when the
+# cross-pod axis also carries parameter shards (sanitize_specs degrades
+# this to data-only on single-pod meshes).
+FSDP_AXES = ("data", "pod")
+
+
+def add_data_axis(spec: P, shape: tuple[int, ...],
+                  min_size: int = 2 ** 16,
+                  data_size: int = DATA_AXIS_SIZE * POD_AXIS_SIZE,
+                  axes: tuple = FSDP_AXES) -> P:
+    """Add the FSDP axes on the first open, evenly divisible dim of a
+    ≥2-D tensor (ZeRO/FSDP).  Dims not divisible by the full extent are
+    skipped, as JAX's input shardings require exact division."""
+    if len(shape) < 2 or math.prod(shape) < min_size:
+        return spec
+    flat = [a for d in spec for a in entry_axes(d)]
+    if any(a in flat for a in axes):
+        return spec
+    dims = list(spec) + [None] * (len(shape) - len(spec))
+    for i, d in enumerate(dims):
+        if d is None and shape[i] > 1 and shape[i] % data_size == 0:
+            dims[i] = axes
+            break
+    return P(*dims)
+
+
+def axis_sizes(mesh) -> dict[str, int]:
+    """{axis name: size} of a port mesh (``launch.mesh.Mesh``)."""
+    return dict(zip(mesh.axis_names, mesh.axis_sizes))
+
+
+def sanitize_specs(spec_tree: Any, aval_tree: Any, mesh) -> Any:
+    """Make spec trees legal for this mesh: drop axis names the mesh
+    does not have (rules may speak of "pod" on single-pod meshes), and
+    drop axes whose product doesn't divide the dim size.
+
+    Published configs have plenty of awkward extents (49155-token
+    vocabs, 26 tables, 61 layers): any non-divisible dim falls back to
+    replication on that dim, everything else keeps its sharding."""
+    sizes = axis_sizes(mesh)
+
+    def fix(spec, aval):
+        if not isinstance(spec, P):
+            return spec
+        shape = _shape(aval)
+        out = []
+        for i, d in enumerate(list(spec)[: len(shape)]):
+            axes = tuple(a for a in entry_axes(d) if a in sizes)
+            if not axes or shape[i] % math.prod(sizes[a] for a in axes):
+                out.append(None)
+            else:
+                out.append(axes if len(axes) > 1 else axes[0])
+        return P(*out)
+
+    return tree_map(fix, spec_tree, aval_tree, is_leaf=is_spec_leaf)
+
+
+def opt_state_specs(pspec_tree: Any, params: Any,
+                    min_size: int = 2 ** 16) -> Any:
+    """ZeRO-1: add "data" on the first open dim of each ≥2-D param."""
+    return tree_map(
+        lambda spec, leaf: add_data_axis(spec, _shape(leaf), min_size),
+        pspec_tree, params, is_leaf=is_spec_leaf)
+
+
+def fsdp_rules(base_rules: Callable) -> Callable:
+    """Wrap family rules with FSDP: params additionally shard on "data".
+
+    Embedding tables are exempt, as in the JAX package (whose token
+    gather over a table sharded on both vocab and feature dims falls
+    back to a full rematerialisation)."""
+    def rules(path, shape):
+        names = _path_names(path)
+        if "embed" in names or names[-1] == "table":
+            return base_rules(path, shape)
+        return add_data_axis(base_rules(path, shape), shape)
+
+    return rules
+
+
+class NamedSharding(NamedTuple):
+    """Where a tensor lives on a mesh, as ``torch.distributed.tensor``
+    takes it: ``distribute_tensor(t, *sharding)``.  ``device_mesh`` is
+    None on an abstract mesh (sizes only)."""
+    device_mesh: Any
+    placements: tuple
+
+
+def placements(axis_names, spec: P) -> tuple:
+    """The DTensor placements of ``spec`` on a mesh of ``axis_names``: one
+    per mesh dim,
+    ``Shard(i)`` on each axis that tensor dim ``i`` names (a tuple of
+    names: on each of them) and ``Replicate()`` on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(axis_names)
+    out: list = [Replicate()] * len(names)
+    for i, d in enumerate(spec):
+        for a in entry_axes(d):
+            if a not in names:
+                raise ValueError(f"{spec}: axis {a!r} is not on the mesh "
+                                 f"{names}")
+            j = names.index(a)
+            if isinstance(out[j], Shard):
+                raise ValueError(f"{spec}: axis {a!r} named twice")
+            out[j] = Shard(i)
+    return tuple(out)
+
+
+def named(mesh, spec_tree: Any) -> Any:
+    """Each spec leaf of ``spec_tree`` as a ``NamedSharding`` on
+    ``mesh`` (``None`` stays ``None``)."""
+    return tree_map(
+        lambda s: None if s is None else
+        NamedSharding(mesh.device_mesh, placements(mesh.axis_names, s)),
+        spec_tree, is_leaf=is_spec_leaf)
+
+
+def batch_axes(mesh) -> tuple:
+    """The combined data-parallel axes present on this mesh."""
+    axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+    return axes if axes else (mesh.axis_names[0],)

@@ -26,13 +26,15 @@ import torch
 
 from ..._device import upload
 from .._build import LAUNCHES  # noqa: F401  (ops.LAUNCHES[name])
-from .._casting import checked_cast_i32
+from .._casting import I32_LIMIT, checked_cast_i32
 from . import kernel, ref
 
 # The JAX package's burst chunk width in elements (its DMA block):
 # ``chunk_runs``'s default, and accepted and ignored by
 # ``gather_plan_runs``, which copies runs whole.
 BURST_BLOCK = 128
+# The longest run B2 is handed: its lengths are int32.
+I32_MAX = I32_LIMIT - 1
 
 
 def _route(t: torch.Tensor):
@@ -148,14 +150,30 @@ def chunk_runs(run_starts: np.ndarray, run_lengths: np.ndarray,
     return chunk_starts, gather_idx
 
 
+def split_long_runs(starts: np.ndarray, lengths: np.ndarray,
+                    most: int = I32_MAX) -> tuple[np.ndarray, np.ndarray]:
+    """The runs (int64) with each run longer than ``most`` elements cut
+    into pieces of ``most`` (the last one shorter), in order: the same
+    elements in the same order, so the prefix of the lengths still puts
+    each element at its point.  Runs that fit come back as they were."""
+    long = lengths > most
+    pieces = np.where(long, -(-lengths // most), 1)
+    first = np.repeat(np.cumsum(pieces) - pieces, pieces)
+    k = np.arange(int(pieces.sum())) - first
+    run_len = np.repeat(lengths, pieces)
+    return (np.repeat(starts, pieces) + k * most,
+            np.minimum(run_len - k * most, most))
+
+
 def plan_run_inputs(flat: torch.Tensor, run_starts, run_lengths) -> tuple:
     """What ``gather_plan_runs`` hands its kernel for a plan's runs: the
     starts (int32, checked against the payload as the JAX package checks
     its chunk starts; an empty run's start is not read and is passed as
-    0), the lengths (int32) and their exclusive prefix (int64, on the
-    host over the runs: O(runs), not O(points)), all on the payload's
-    device from one upload, and the number of points.  A run that ends
-    past the payload raises."""
+    0), the lengths (int32, checked: a run longer than 2³¹ − 1 elements
+    is first cut into pieces that fit, ``split_long_runs``) and their
+    exclusive prefix (int64, on the host over the runs: O(runs), not
+    O(points)), all on the payload's device from one upload, and the
+    number of points.  A run that ends past the payload raises."""
     n = flat.shape[0]
     lengths = np.asarray(run_lengths, dtype=np.int64).reshape(-1)
     starts = np.asarray(run_starts).reshape(-1)
@@ -170,10 +188,16 @@ def plan_run_inputs(flat: torch.Tensor, run_starts, run_lengths) -> tuple:
     if ends.size and ends.max() > n:
         raise IndexError(f"burst gather: a run ends at {ends.max()}, past "
                          f"the payload's {n} elements")
+    if lengths.size and lengths.max() > I32_MAX:
+        # Each piece starts inside the payload, so its start fits too.
+        starts, lengths = split_long_runs(starts.astype(np.int64), lengths)
+        starts = checked_cast_i32(starts, what="burst gather run starts",
+                                  n_elements=n)
     offsets = np.zeros(lengths.size + 1, np.int64)
     np.cumsum(lengths, out=offsets[1:])
-    return (*upload(flat.device, starts, lengths.astype(np.int32),
-                     offsets), int(offsets[-1]))
+    lengths = checked_cast_i32(lengths, what="burst gather run lengths")
+    return (*upload(flat.device, starts, lengths, offsets),
+            int(offsets[-1]))
 
 
 def gather_plan_runs(flat: torch.Tensor, run_starts: np.ndarray,

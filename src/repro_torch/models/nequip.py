@@ -24,8 +24,10 @@ forward.
 The forward follows the JAX package's ``nequip_forward`` step for step,
 with these differences, none of which changes what it computes:
 
-* ``constrain`` (a sharding hint for the pod) is left out: this module
-  runs on one card.  The JAX package's ``jax.checkpoint`` of each layer
+* ``constrain`` (``distributed.context``, a sharding hint for the pod)
+  is not called: the message sums are kernel B7, which takes local
+  tensors through raw pointers and has no ``DTensor`` sharding rule, so
+  the model runs on one card's tensors.  The JAX package's ``jax.checkpoint`` of each layer
   is ``torch.utils.checkpoint`` (non-reentrant) in training
   (``remat``, which ``nequip_loss`` sets): each layer's edge messages
   are recomputed in the backward pass instead of kept.  Serving, forces
@@ -71,7 +73,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .._device import resolve_device
+from .._device import resolve_device, seeded_generator
 from ..kernels.segment import ops as segment_ops
 from .layers import MLP
 
@@ -258,7 +260,7 @@ class NequIP(nn.Module):
     def __init__(self, cfg: NequIPConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
         c = cfg.channels
         self.cfg = cfg

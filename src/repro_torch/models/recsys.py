@@ -41,7 +41,7 @@ from dataclasses import dataclass
 import torch
 from torch import nn
 
-from .._device import resolve_device
+from .._device import resolve_device, seeded_generator
 from ..kernels._casting import ensure_i32_addressable
 from ..kernels.gather import ops as gather_ops
 from . import transformer as tf
@@ -122,7 +122,7 @@ class DLRM(nn.Module):
     def __init__(self, cfg: DLRMConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
         self.cfg = cfg
         self.bags = EmbeddingBag(cfg.n_sparse, cfg.rows, cfg.embed_dim, **kw)
@@ -173,7 +173,7 @@ class DeepFM(nn.Module):
     def __init__(self, cfg: DeepFMConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
         self.cfg = cfg
         self.bags = EmbeddingBag(cfg.n_sparse, cfg.rows, cfg.embed_dim, **kw)
@@ -226,7 +226,7 @@ class TwoTower(nn.Module):
     def __init__(self, cfg: TwoTowerConfig, device=None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = seeded_generator(dev, seed)
         kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
         self.cfg = cfg
         self.user_embed = nn.Parameter(embedding_init(

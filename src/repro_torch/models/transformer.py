@@ -48,7 +48,12 @@ prefill and decode the engine serves through.  A position outside
 [0, max_seq) raises ``IndexError`` before the table is read (ROADMAP
 C12), where the JAX package's ``jnp.take`` would return a NaN row.
 
-Left out, as for NequIP: ``constrain`` (a sharding hint for the pod).
+The JAX package's ``constrain`` calls (``distributed.context``, sharding
+hints for the pod) are not made here: the paged decode calls kernel
+B8 (``kernels.paged_attn``) on local tensors through raw pointers,
+which has no ``DTensor`` sharding rule, so the decoder runs on one
+card's tensors, as NequIP does.  ``configs.common.lm_arch`` gives its shardings for the
+dry run.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from dataclasses import dataclass
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .._device import resolve_device
+from .._device import resolve_device, seeded_generator
 from .attention import (AttnConfig, gqa_decode, gqa_decode_paged,
                         gqa_forward, gqa_init, mla_decode, mla_decode_paged,
                         mla_forward, mla_init)
@@ -155,10 +160,8 @@ def init_params(cfg: TransformerConfig, device=None, seed: int = 0
     card), from a ``torch.Generator`` seeded with ``seed``.  Each tensor
     is drawn in place where it lives, so the weights are never held
     twice.  ``device="meta"`` gives the shapes and allocates nothing."""
-    dev = torch.device("meta") if device == "meta" else \
-        resolve_device(device)
-    gen = None if dev.type == "meta" else \
-        torch.Generator(device=dev).manual_seed(seed)
+    dev = resolve_device(device)
+    gen = seeded_generator(dev, seed)
     kw = dict(generator=gen, device=dev, dtype=cfg.dtype)
     d = cfg.d_model
     params: Params = {

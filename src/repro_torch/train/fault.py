@@ -4,8 +4,9 @@ The supervisor wraps a train loop with the JAX package's logic (its
 ``train.fault``):
 
  * **checkpoint/restart** — on any step failure, restore the latest
-   committed checkpoint into the state and replay from the step after
-   it (the data source is step-addressable, so replay is deterministic);
+   committed checkpoint into the state (or, with ``shardings``, onto a
+   mesh: elastic restore) and replay from the step after it (the data
+   source is step-addressable, so replay is deterministic);
    with no checkpoint yet, replay the failed step from the state in
    memory, which a failed step leaves as it was
    (``train.train_state``);
@@ -31,6 +32,7 @@ from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import (cleanup_old, flatten_tree, latest_step,
                          restore_checkpoint, save_checkpoint)
@@ -116,19 +118,27 @@ class Supervisor:
             blocking=not self.cfg.async_ckpt)
         cleanup_old(self.cfg.ckpt_dir, self.cfg.keep)
 
-    def _restore(self, state: Any) -> int | None:
-        """Restore the latest checkpoint into ``state``; the step to
-        resume from, or None where there is none."""
+    def _restore(self, state: Any, shardings: Any | None
+                 ) -> tuple[int | None, Any]:
+        """(the step to resume from, or None where there is no
+        checkpoint; the state restored into ``state``, placed by
+        ``shardings`` where given)."""
         if self.pending_ckpt is not None:
             self.pending_ckpt.join()
+        if dist.is_available() and dist.is_initialized():
+            dist.barrier()      # every rank's last save is committed
         step = latest_step(self.cfg.ckpt_dir)
         if step is None:
-            return None
-        restore_checkpoint(self.cfg.ckpt_dir, step, state)
-        return step + 1
+            return None, state
+        return step + 1, restore_checkpoint(self.cfg.ckpt_dir, step, state,
+                                            shardings)
 
-    def run(self, state: Any, n_steps: int,
+    def run(self, state: Any, n_steps: int, shardings: Any | None = None,
             on_metrics: Callable[[int, dict], None] | None = None) -> Any:
+        """Run ``n_steps`` from step 0.  ``shardings`` (a tree of
+        ``sharding.named`` placements matching ``state``) places a
+        restored state on its mesh, which may differ from the one that
+        saved; without it a restore writes into ``state`` in place."""
         step = 0
         while step < n_steps:
             try:
@@ -156,9 +166,9 @@ class Supervisor:
                           self.cfg.max_restarts)
                 if self.restarts > self.cfg.max_restarts:
                     raise
-                resumed = self._restore(state)
+                resumed, restored = self._restore(state, shardings)
                 if resumed is not None:
-                    step = resumed
+                    step, state = resumed, restored
                 # else: replay from the state in memory
         if self.pending_ckpt is not None:
             self.pending_ckpt.join()

@@ -12,8 +12,14 @@ Everything that can fail on bad inputs — the data, the forward, the
 backward, the compressor — runs before the first write to the state;
 the optimizer's in-place update comes last.  A step that raises
 therefore leaves the state as it was, and ``train.fault.Supervisor`` may
-replay it from memory.  On one card the JAX package's sharding
-constraint on the microbatches has nothing to do.
+replay it from memory.
+
+The state and the batch may be ``DTensor`` tensors on a mesh
+(``distributed.sharding.named``): the step is then the same plain torch
+ops, which ``torch.distributed.tensor`` runs shard by shard.  As in the
+JAX package, each microbatch is pinned back onto the batch axes
+(``distributed.context.constrain``), which the reshape would otherwise
+move to the small accumulation axis; on plain tensors that is a no-op.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..distributed.context import DP, constrain
 from .optimizer import OptimizerConfig, make_optimizer
 
 
@@ -56,11 +63,20 @@ def value_and_grad(loss_fn: Callable, params: dict, batch: Any
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
-def _microbatch(batch: Any, accum_steps: int, i: int) -> Any:
-    """Microbatch ``i`` of ``accum_steps`` along the leading axis."""
+def _microbatches(batch: Any, accum_steps: int) -> Any:
+    """The batch as (accum_steps, B / accum_steps, ...) along the leading
+    axis, each microbatch kept on the batch axes."""
     if isinstance(batch, dict):
-        return {k: _microbatch(v, accum_steps, i) for k, v in batch.items()}
-    return batch.reshape((accum_steps, -1) + tuple(batch.shape[1:]))[i]
+        return {k: _microbatches(v, accum_steps) for k, v in batch.items()}
+    micro = batch.reshape((accum_steps, -1) + tuple(batch.shape[1:]))
+    return constrain(micro, None, DP, *([None] * (batch.ndim - 1)))
+
+
+def _take(micro: Any, i: int) -> Any:
+    """Microbatch ``i`` of ``_microbatches``."""
+    if isinstance(micro, dict):
+        return {k: _take(v, i) for k, v in micro.items()}
+    return micro[i]
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
@@ -78,15 +94,16 @@ def make_train_step(loss_fn: Callable, opt_cfg: OptimizerConfig,
         else:
             # Microbatches over the leading axis, their gradients summed
             # in the parameters' dtype, then divided by the count.
-            grads = {k: torch.zeros(p.shape, dtype=p.dtype,
-                                    device=p.device)
+            grads = {k: torch.zeros_like(
+                         p, memory_format=torch.contiguous_format)
                      for k, p in params.items()}
             lsum = torch.zeros((), dtype=torch.float32,
                                device=next(iter(params.values())).device)
             metricss = []
+            micro = _microbatches(batch, accum_steps)
             for i in range(accum_steps):
-                loss, metrics, g = value_and_grad(
-                    loss_fn, params, _microbatch(batch, accum_steps, i))
+                loss, metrics, g = value_and_grad(loss_fn, params,
+                                                  _take(micro, i))
                 for k, a in grads.items():
                     a.add_(g[k].to(a.dtype))
                 lsum = lsum + loss

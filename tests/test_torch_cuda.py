@@ -26,7 +26,9 @@ own or of B1 and no host sync, on the layouts of
 int32 on the card as on the CPU.  The MoE routing and layer and MLA run
 no kernel of the port (plain PyTorch and cuBLAS on the card): routing is
 byte-equal to the CPU's on the same logits, the layers within
-rtol = atol = 2e-5 in float32.
+rtol = atol = 2e-5 in float32.  Fault C14's read (one run of 2³¹
+elements) is byte-equal to its payload, and ``quantized_psum`` on an
+NCCL group of one rank to its arithmetic on the CPU.
 """
 
 import contextlib
@@ -1640,3 +1642,48 @@ def test_token_cube_batch_on_the_card(cuda_device):
     for k in ("tokens", "labels"):
         assert got[k].is_cuda and got[k].dtype == torch.int32
         assert got[k].cpu().numpy().tobytes() == want[k].tobytes(), k
+
+
+# -- C14 and the distribution on the card -------------------------------------
+
+def test_gather_plan_runs_one_run_of_2_31_elements(cuda_device):
+    """Fault C14: one run (0, 2³¹) of a 2³¹-element uint8 payload (2.1 GB,
+    and 2.1 GB of output) is read by one B2 launch, byte for byte."""
+    n = 2 ** 31
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    flat = torch.randint(0, 256, (n,), dtype=torch.uint8,
+                         device=cuda_device, generator=gen)
+    before = LAUNCHES["gather_plan_runs"]
+    out = gops.gather_plan_runs(flat, np.array([0]), np.array([n]))
+    assert LAUNCHES["gather_plan_runs"] == before + 1
+    assert out.shape == (n,) and torch.equal(out, flat)
+
+
+def _quantized_psum_plain(x, scale_factor=1.0):
+    """``quantized_psum``'s arithmetic for a group of one rank, on the
+    CPU (``scale_factor`` scales the scale: a planted fault)."""
+    x32 = x.detach().float().cpu()
+    scale = torch.clamp(torch.max(torch.abs(x32)), min=1e-12) / 127.0
+    scale = scale * scale_factor
+    q = torch.clamp(torch.round(x32 / scale), -127, 127).to(torch.int8)
+    return q.to(torch.int32).float() * scale
+
+
+def test_quantized_psum_on_an_nccl_group_of_one(cuda_device, tmp_path):
+    """The int8 all-reduce over NCCL, one rank met through a FileStore:
+    byte-equal to its arithmetic on the CPU; a halved scale is not."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.compression import quantized_psum
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        x = torch.randn(1 << 20, generator=gen, device=cuda_device)
+        got = quantized_psum(x)
+        assert got.is_cuda
+        assert _bytes_equal(got.cpu(), _quantized_psum_plain(x))
+        assert not _bytes_equal(got.cpu(), _quantized_psum_plain(x, 0.5))
+    finally:
+        dist.destroy_process_group()
