@@ -268,6 +268,27 @@ and then, printing one JSON line per phase:
                of all 40 cells on both production meshes (80 records,
                all ``ok``), with the largest per-device
                ``argument_bytes`` of each family; each piece's seconds;
+11c. analysis — the port's CLI gate, ``python -m repro_torch.analysis
+               --all --device cuda``, in process from a temporary working
+               directory: the lint, the lock checker and the self-check,
+               whose plans come from the card's B3 (2 launches, each
+               byte-equal to B3's plain version) and must verify clean;
+11d. examples — each ``examples/torch_*.py``'s ``main(argv)`` in process
+               on the card: quickstart (O128) and extract_weather (O96,
+               and the 160 × 320 irregular cube through the extraction
+               service) with every extraction's values byte-equal to
+               ``flat[plan.offsets]`` of the host ``Slicer``'s plan;
+               serve_lm's 10 requests of 12 tokens, the page pool empty
+               after the drain, every B8 call (float32, the CUDA-core
+               kernel) within ``B8_F32`` of its plain version inside the
+               call; train_lm at its 100m preset for ``EXAMPLE_STEPS``
+               steps with a preemption at ``EXAMPLE_PREEMPT`` (one
+               restart from the checkpoint of step 49) and train_recsys
+               for ``EXAMPLE_STEPS`` steps, each loss's last 10 steps'
+               mean below its first 10's; the kernels each example
+               launched (``path_launches["examples"]``, and by example),
+               each call of B2 and the union slices and the last of B6
+               byte-equal to the plain version;
 12. timing   — each kernel at the shapes its path gave it, with CUDA
                events: kernel, plain version, one library call where one
                computes the same function, and the card's bound (B1 at
@@ -306,7 +327,7 @@ The launch counters are reset just before each path (phases 2-3, the
 plain extract, 5, 6, 7, each model of 8, two-tower, BERT4Rec and
 BERT4Rec's engine in 8b, each model's supervised steps in 8c and 8d,
 each shape of 9, the engine and the launcher of 10, each model of 11,
-11b)
+11b, 11c, each example of 11d)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call (and phase 11's
@@ -405,6 +426,9 @@ LM_REPLAYS = 8                 # unchecked replays of the first round
 # tolerance (tests/test_kernels.py); both sum in float32 in their own
 # order and round the output to bf16, so they differ by an ulp or so.
 B8_BF16 = dict(rtol=2e-2, atol=2e-2)
+# B8 in float32 (the CUDA-core kernel) against its plain version: the
+# card tests' float32 tolerance (tests/test_torch_cuda.py).
+B8_F32 = dict(rtol=2e-5, atol=2e-5)
 # A second bound that scales with the output: both versions round float32
 # results to bf16, so an element may differ by one bf16 ulp of itself,
 # at most 2^-7 of the largest |output|.  B8_BF16's atol alone cannot see
@@ -512,6 +536,12 @@ CE_F64 = {"loss": 2.6e-7, "dh": 1.1e-5, "dtable": 1.2e-5,
 # unshifted gave loss 0.0578-0.0587, gradient norm 0.0537-0.101.  The
 # bounds are twice the gaps' largest readings.
 LM_F32 = {"loss": 5.1e-5, "grad_norm": 9.1e-4}
+
+
+# The examples phase: the train examples' steps, and the step at which
+# train_lm is preempted (past its checkpoint of step 49).
+EXAMPLE_STEPS = 120
+EXAMPLE_PREEMPT = 70
 
 
 def emit(obj) -> None:
@@ -4624,6 +4654,219 @@ def distributed(dev, seed: int, card: str, path_launches: dict) -> dict:
     return c14
 
 
+def analysis(dev, card, check, path_launches: dict) -> None:
+    """Phase 11c: the port's CLI gate (``--all --device cuda``) in
+    process from a temporary working directory, with B3's calls of the
+    self-check held against its plain version."""
+    from repro_torch.analysis import __main__ as cli
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.plan import kernel as pk, ref as pref
+
+    t0 = time.perf_counter()
+    said = io.StringIO()
+    reset_launches()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d, \
+            contextlib.chdir(d), contextlib.redirect_stdout(said), \
+            recording(pk, "plan_runs_2d") as calls:
+        rc = cli.main(["--all", "--device", dev.type])
+    path_launches["analysis"] = dict(LAUNCHES)
+    assert rc == 0, f"the analysis gate exited {rc}"
+    # The box and the triangle plan on B3; span_all on the host.
+    assert LAUNCHES["plan_runs_2d"] == len(calls) == 2, LAUNCHES
+    for a, kw in calls:
+        for g, w in zip(pk.plan_runs_2d(*a, **kw),
+                        pref.plan_runs_2d(*a, **kw)):
+            check("plan_runs_2d", g, w, "analysis self-check")
+    emit({"phase": "analysis", "argv": ["--all", "--device", dev.type],
+          "exit": rc, "said": said.getvalue().splitlines(),
+          "b3_calls_checked": len(calls),
+          "launches": path_launches["analysis"], "card": card,
+          "seconds": time.perf_counter() - t0})
+
+
+def load_example(name: str):
+    """The module ``examples/<name>.py``, loaded from its file."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def host_values_equal(cube, flat_np, requests: dict, values: dict) -> int:
+    """Each request's values byte-equal to ``flat_np[plan.offsets]`` of
+    the host ``Slicer``'s plan; returns the points compared."""
+    import numpy as np
+
+    from repro_torch.core import Slicer
+
+    host = Slicer(cube)
+    n = 0
+    for name, req in requests.items():
+        plan, _ = host.extract_plan(req)
+        want = flat_np[plan.offsets]
+        got = values[name]
+        assert got.dtype == want.dtype and np.array_equal(
+            got.view(np.uint8), want.view(np.uint8)), \
+            f"{name}: values != flat[plan.offsets] of the host plan"
+        n += plan.n_points
+    return n
+
+
+def examples(dev, card, check, path_launches: dict) -> None:
+    """Phase 11d: every ``examples/torch_*.py``'s ``main(argv)`` on the
+    card, its printout kept, its kernels counted and checked."""
+    import torch
+
+    from repro_torch.analysis import check_bench_file
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk, ref as gref
+    from repro_torch.kernels.paged_attn import kernel as pak
+    from repro_torch.kernels.paged_attn import ref as paref
+
+    t_phase = time.perf_counter()
+    row = {"phase": "examples", "card": card}
+    by_example = {}
+
+    @contextlib.contextmanager
+    def run(name: str):
+        """Counters reset before, read after; stdout kept in the row."""
+        said = io.StringIO()
+        t0 = time.perf_counter()
+        reset_launches()
+        with contextlib.redirect_stdout(said):
+            yield
+        torch.cuda.synchronize()
+        by_example[name] = {k: v for k, v in LAUNCHES.items() if v}
+        row[name] = {"seconds": time.perf_counter() - t0,
+                     "said": said.getvalue().splitlines()[-6:]}
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d, \
+            recording(gk, "gather_plan_runs") as b2_calls, \
+            recording(gk, "gather_union_slices") as union_calls:
+        qs = load_example("torch_quickstart")
+        with run("quickstart"):
+            out = qs.main(["--device", dev.type])
+        wc, flat_np = qs.cube_and_data()
+        row["quickstart"].update(points_checked=host_values_equal(
+            wc.cube, flat_np, out["requests"], out["values"]),
+            rows=out["rows"])
+        assert by_example["quickstart"]["gather_plan_runs"] == 5
+        assert "gather_rows" not in by_example["quickstart"]
+
+        ew = load_example("torch_extract_weather")
+        bench = Path(d) / "BENCH_torch_extraction.json"
+        with run("extract_weather"):
+            out = ew.main(["--device", dev.type, "--out", str(bench)])
+        cubes = ew.cubes_and_data()
+        irr = out["irregular"]
+        row["extract_weather"].update(
+            points_checked=host_values_equal(
+                cubes["regular"][0].cube, cubes["regular"][1],
+                out["requests"], out["values"])
+            + host_values_equal(cubes["irregular"][0].cube,
+                                cubes["irregular"][1], irr["requests"],
+                                irr["values"]),
+            rows=irr["rows"],
+            seam_shift_cache_hit=irr["seam_shift_cache_hit"])
+        assert irr["seam_shift_cache_hit"]
+        assert [str(x) for x in check_bench_file(bench)] == []
+        launched = by_example["extract_weather"]
+        assert launched["gather_plan_runs"] == 4, launched
+        assert launched["gather_union_slices"] == 3, launched
+        assert "gather_rows" not in launched
+        del cubes, flat_np, wc
+
+        # serve_lm: every B8 call held against its plain version inside
+        # the call (the pool changes after every call).
+        tally = {"calls": 0, "max_abs_err": 0.0}
+        b8 = pak.paged_decode_attention
+
+        def checked_b8(*a, **kw):
+            out = b8(*a, **kw)
+            want = paref.paged_decode_attention(*a)
+            torch.testing.assert_close(out, want, **B8_F32)
+            tally["calls"] += 1
+            tally["max_abs_err"] = max(tally["max_abs_err"],
+                                       max_abs_err(out, want))
+            return out
+
+        sl = load_example("torch_serve_lm")
+        with swapped(pak, "paged_decode_attention", checked_b8), \
+                run("serve_lm"):
+            out = sl.main(["--device", dev.type])
+        assert out["requests"] == 10 and all(
+            len(toks) == 12 for _, toks in out["outputs"]), out
+        assert out["utilization"] == 0
+        launched = by_example["serve_lm"]
+        assert "paged_decode_attention" not in launched
+        n_layers = sl.demo_config().n_layers
+        assert launched["paged_decode_attention_simt"] == tally["calls"] \
+            and tally["calls"] % n_layers == 0, (launched, tally)
+        row["serve_lm"].update(new_tokens=out["new_tokens"],
+                               utilization=out["utilization"],
+                               b8_calls_checked=tally["calls"],
+                               b8_max_abs_err=tally["max_abs_err"],
+                               b8_tol=B8_F32)
+
+        tl = load_example("torch_train_lm")
+        n_unions = len(union_calls)
+        with run("train_lm"):
+            out = tl.main(["--device", dev.type, "--preset", "100m",
+                           "--steps", str(EXAMPLE_STEPS), "--preempt-at",
+                           str(EXAMPLE_PREEMPT), "--ckpt-dir",
+                           str(Path(d) / "lm")])
+        # steps 0 to the preemption, then again from the checkpoint
+        # after step 49 (the batch of each is one union read)
+        replayed = EXAMPLE_STEPS - 50
+        assert out["restarts"] == 1, out["restarts"]
+        assert len(out["losses"]) == EXAMPLE_PREEMPT + replayed
+        assert out["final_loss"] < out["first_loss"], out
+        assert by_example["train_lm"]["gather_union_slices"] \
+            == len(union_calls) - n_unions == EXAMPLE_PREEMPT + replayed
+        row["train_lm"].update({k: out[k] for k in (
+            "n_params", "first_loss", "final_loss", "restarts", "steps")})
+
+        trs = load_example("torch_train_recsys")
+        with recording(gk, "gather_rows_bag") as b6_calls, \
+                run("train_recsys"):
+            out = trs.main(["--device", dev.type, "--steps",
+                            str(EXAMPLE_STEPS), "--ckpt-dir",
+                            str(Path(d) / "dlrm")])
+        assert out["restarts"] == 0
+        assert out["final_loss"] < out["first_loss"], out
+        # D = 16 float32, 64-byte rows: B6's tiled kernel, once a step
+        assert by_example["train_recsys"]["gather_rows_bag_tiled"] \
+            == len(b6_calls) == EXAMPLE_STEPS, by_example["train_recsys"]
+        row["train_recsys"].update({k: out[k] for k in (
+            "first_loss", "final_loss", "restarts", "steps")})
+
+    # The calls against their plain versions: B2's and the union reads'
+    # inputs do not change; B6's table moved with every step, so its last
+    # calls are checked on their inputs as they are now.
+    for a, kw in b2_calls:
+        check("gather_plan_runs", gk.gather_plan_runs(*a, **kw),
+              gref.gather_plan_runs(*a, **kw), "examples")
+    for a, kw in union_calls:
+        check("gather_union_slices", gk.gather_union_slices(*a, **kw),
+              gref.gather_union_slices(*a, **kw), "examples")
+    with torch.no_grad():
+        for a, kw in b6_calls[-3:]:
+            check("gather_rows_bag", gk.gather_rows_bag(*a, **kw),
+                  gref.gather_rows_bag(*a, **kw), "train_recsys example")
+    path_launches["examples"] = {
+        k: sum(e.get(k, 0) for e in by_example.values()) for k in LAUNCHES}
+    row.update({"checked": {"gather_plan_runs": len(b2_calls),
+                            "gather_union_slices": len(union_calls),
+                            "gather_rows_bag": min(3, len(b6_calls))},
+                "launches_by_example": by_example,
+                "launches": path_launches["examples"],
+                "seconds": time.perf_counter() - t_phase})
+    emit(row)
+
+
 def weather_setup():
     """The extraction phases' cube and requests: the F320-like irregular
     weather cube (2 dates of 4 times, 37 levels, 640 latitude rows),
@@ -5221,6 +5464,12 @@ def main(argv=None) -> int:
 
     # -- 11b. distributed: torch.distributed on a group of one, C14 ------
     c14_variant = distributed(dev, args.seed, card, path_launches)
+
+    # -- 11c. analysis: the port's CLI gate, B3 planning its self-check -
+    analysis(dev, card, check, path_launches)
+
+    # -- 11d. examples: the five examples on the card -------------------
+    examples(dev, card, check, path_launches)
 
     # -- 12. timing at the shapes each path gave its kernels ------------
     launches = {k: sum(p[k] for p in path_launches.values())

@@ -207,4 +207,5 @@ def batched_plan_2d(verts: torch.Tensor, valid: torch.Tensor,
 def promote_bool(values: torch.Tensor) -> torch.Tensor:
     """The JAX package's ``jnp.where(mask, take, 0)`` promotes a bool
     field's values to int32; every other dtype keeps its own."""
-    return values.to(torch.int32) if values.dtype == torch.bool else values
+    # Bool values promoted, not offsets: 0 and 1 fit any width.
+    return values.to(torch.int32) if values.dtype == torch.bool else values  # lint-ok: unchecked-i32-cast

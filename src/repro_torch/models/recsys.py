@@ -89,7 +89,9 @@ class EmbeddingBag(nn.Module):
         b, _, n_slots = bags.shape
         base = torch.arange(n_tables, device=bags.device,
                             dtype=torch.int32)[None, :, None] * rows
-        flat = torch.where(bags >= 0, bags.int() + base, -1)
+        # The range check above bounds every id below ``rows`` and the
+        # constructor's ensure_i32_addressable bounds T·R below 2³¹.
+        flat = torch.where(bags >= 0, bags.int() + base, -1)  # lint-ok: unchecked-i32-cast
         table = self.tables.view(n_tables * rows, dim)
         out = gather_ops.gather_rows_bag_checked(
             table, flat.view(b * n_tables, n_slots)).view(b, n_tables, dim)

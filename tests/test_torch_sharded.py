@@ -42,6 +42,8 @@ from repro.serve.extraction import (  # noqa: E402
     ExtractionService as RefExtractionService)
 
 from repro_torch import carry  # noqa: E402
+from repro_torch.analysis import (  # noqa: E402
+    check_bench_file as port_check_bench_file)
 from repro_torch.analysis.plan_check import PlanVerificationError  # noqa: E402
 from repro_torch.distributed import sharding as port_sharding  # noqa: E402
 from repro_torch.launch import serve as launcher  # noqa: E402
@@ -646,7 +648,8 @@ class TestLauncher:
             _argv(tmp_path, "--requests", "48")))
         assert "48 requests" in capsys.readouterr().out
         assert [str(d) for d in check_bench_file(tmp_path / "bench.json")] \
-            == []
+            == [str(d) for d in port_check_bench_file(
+                tmp_path / "bench.json")] == []
         row = json.loads((tmp_path / "bench.json").read_text())["rows"][0]
         assert row == run.row and row["requests"] == 48
         assert row["scenario"] == "zipf1.3-grid32"
@@ -669,7 +672,8 @@ class TestLauncher:
         run = launcher.run_extract(launcher.parse_args(
             _argv(tmp_path, "--requests", "0")))
         assert run.served == [] and run.row["requests"] == 0
-        assert check_bench_file(tmp_path / "bench.json") == []
+        assert check_bench_file(tmp_path / "bench.json") == [] \
+            == port_check_bench_file(tmp_path / "bench.json")
 
     def test_guards(self, tmp_path, monkeypatch):
         assert launcher.parse_args([]).bench_out == "BENCH_torch_serve.json"
