@@ -268,6 +268,20 @@ and then, printing one JSON line per phase:
                of all 40 cells on both production meshes (80 records,
                all ``ok``), with the largest per-device
                ``argument_bytes`` of each family; each piece's seconds;
+11b2. sharded_models — on a new NCCL group of one rank, ``make_host_mesh(1,
+               1)``: DLRM-RM2 ``train_batch`` (published width, 65,536
+               rows, 3 steps), two-tower ``serve_p99`` (512) and
+               ``retrieval_cand`` (2²⁰ candidates), NequIP
+               ``minibatch_lg`` (3 steps), each through its cell's
+               ``Lowering.fn`` on DTensors under the cell's specs
+               (``carry.distribute_state``) and, first, on the
+               plain-tensor path from the same seed, both in
+               deterministic mode: parameters or outputs byte-equal
+               (a mesh of one reduces nothing), the same launches of
+               B6, B1, B7 and ``segment_plan``, every kernel call of the
+               mesh runs' first step or forward held against its plain
+               version when it is made; each run's seconds, step times
+               and peak memory;
 11c. analysis — the port's CLI gate, ``python -m repro_torch.analysis
                --all --device cuda``, in process from a temporary working
                directory: the lint, the lock checker and the self-check,
@@ -327,11 +341,11 @@ The launch counters are reset just before each path (phases 2-3, the
 plain extract, 5, 6, 7, each model of 8, two-tower, BERT4Rec and
 BERT4Rec's engine in 8b, each model's supervised steps in 8c and 8d,
 each shape of 9, the engine and the launcher of 10, each model of 11,
-11b, 11c, each example of 11d)
+11b, each mesh run of 11b2, 11c, each example of 11d)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call (and phase 11's
-routing records).  ``chip_lm_moe.py`` runs phase 11 alone at several
+routing records), and 11b2's, made at each call of a first step.  ``chip_lm_moe.py`` runs phase 11 alone at several
 seeds, ``chip_retrieval.py`` phase 8b.  The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.
@@ -4654,6 +4668,363 @@ def distributed(dev, seed: int, card: str, path_launches: dict) -> dict:
     return c14
 
 
+# The sharded_models phase: cells' Lowering.fn on DTensors over a (1, 1)
+# mesh of an NCCL group of one, against the plain-tensor path from the
+# same seed.  A one-rank mesh reduces nothing, so every result must be
+# the plain path's to the bit (both in deterministic mode: B6's and B1's
+# backward is index_add_).
+SHARDED_STEPS = 3                 # DLRM-RM2 and NequIP: 1 + 2 steps each
+SHARDED_TT_P99 = 512              # two-tower serve_p99 users and items
+
+
+def sharded_models(dev, seed: int, card: str, check,
+                   path_launches: dict) -> None:
+    """Phase 11b2: DLRM-RM2 ``train_batch`` (published width, 65,536
+    rows), two-tower ``serve_p99`` and ``retrieval_cand`` and NequIP
+    ``minibatch_lg`` training, each through its cell's ``Lowering.fn``
+    with the state (or parameters) and the batch as DTensors under the
+    cell's specs on a (1, 1) ("data", "model") mesh, against the
+    plain-tensor path from the same seed, which runs first and is freed
+    (its results kept on the host).  Results byte-equal, the same
+    launches of B6, B1 and B7 (and ``segment_plan``), and every kernel
+    call of the mesh runs' first step or forward held against its plain
+    version at the time of the call (so the mesh's first step is slower
+    by those checks).  Each run's seconds cover building its state
+    (the plain path builds its model, the mesh run places one built
+    before); ``step_s`` times each step to a synchronize.  The counters
+    of the mesh runs alone are the path's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    row = {"phase": "sharded_models", "card": card}
+    mesh_launches = {k: 0 for k in LAUNCHES}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(d) / "store"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh = make_host_mesh(1, 1)
+            assert mesh.device_mesh.device_type == "cuda"
+            for name, fn in (("dlrm_train", sharded_dlrm),
+                             ("two_tower_serve", sharded_two_tower),
+                             ("nequip_train", sharded_nequip)):
+                row[name] = fn(dev, seed, mesh, check)
+                for k, v in row[name]["mesh"]["launches"].items():
+                    mesh_launches[k] += v
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    path_launches["sharded_models"] = mesh_launches
+    for kname in ("gather_rows", "gather_rows_bag", "segment_sum"):
+        assert mesh_launches[kname] > 0, f"{kname}: not on the mesh path"
+    row["launches"] = {k: v for k, v in mesh_launches.items() if v}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+
+
+def counted_run(fn) -> dict:
+    """``fn()`` with the counters reset before it: its result, seconds
+    (to a synchronize), launches and peak memory above what was held."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, peak = peak_of(fn)
+    torch.cuda.synchronize()
+    return {"out": out, "seconds": time.perf_counter() - t0,
+            "launches": {k: v for k, v in LAUNCHES.items() if v},
+            "peak_bytes": peak}
+
+
+def host_copy(tree: dict) -> dict:
+    """Each tensor of ``tree`` (plain, or a DTensor's local shard: the
+    whole tensor on a one-rank mesh) copied to the host."""
+    from repro_torch.distributed.sharding import is_dtensor
+
+    return {k: (v.to_local() if is_dtensor(v) else v).detach().cpu()
+            for k, v in tree.items()}
+
+
+def compare_runs(plain: dict, mesh: dict, what: str) -> dict:
+    """The two runs' host results byte-equal and their launches equal;
+    the row of both (the results dropped)."""
+    assert plain["launches"] == mesh["launches"], \
+        f"{what}: launches {plain['launches']} plain, {mesh['launches']} " \
+        f"on the mesh"
+    bad = [k for k in plain["out"] if not same_bytes(plain["out"][k],
+                                                     mesh["out"][k])]
+    assert not bad, f"{what}: the mesh run differs from the plain one " \
+        f"at {bad[:5]}"
+    return {run: {k: v for k, v in r.items() if k != "out"}
+            for run, r in (("plain", plain), ("mesh", mesh))}
+
+
+@contextlib.contextmanager
+def checked_calls(module, name: str, plain, check, what: str):
+    """Each call of ``module.<name>`` while the block runs held against
+    ``plain`` on the same inputs at the time of the call (before a step's
+    optimizer writes the parameters it read); yields the list of checked
+    calls' shapes."""
+    fn = getattr(module, name)
+    shapes = []
+
+    def checking(*a, **kw):
+        out = fn(*a, **kw)
+        check(name, out, plain(*a, **kw), what)
+        shapes.append(list(out.shape))
+        return out
+
+    with swapped(module, name, checking):
+        yield shapes
+
+
+def sharded_dlrm(dev, seed: int, mesh, check) -> dict:
+    """DLRM-RM2 at published width: ``SHARDED_STEPS`` steps of the plain
+    path (``configs.train.train``'s step on the model's parameters) and
+    of the ``train_batch`` cell's ``fn`` on the state as DTensors, from
+    the same seed and batches."""
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.configs import dlrm_rm2, get_arch
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.dataplane.pipeline import device_put
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels.gather import kernel as gk, ref as gref
+    from repro_torch.models.recsys import DLRM
+    from repro_torch.train.train_state import init_train_state
+
+    cfg = dlrm_rm2._cfg()
+    host = train_batches("dlrm", cfg, SHARDED_STEPS, seed)
+    low = get_arch("dlrm-rm2").lowering("train_batch", mesh)
+
+    def plain_steps():
+        setup = train_cfgs.train("dlrm-rm2", cfg, device=dev, seed=seed)
+        state, times = setup["state"], []
+        for b in host:
+            t0 = time.perf_counter()
+            state, _ = setup["step"](state, device_put(b, dev))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return host_copy(state["params"]), times
+
+    with deterministic():
+        plain = counted_run(plain_steps)
+        plain["out"], plain["step_s"] = plain["out"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = DLRM(cfg, device=dev, seed=seed)
+        state = carry.distribute_state(init_train_state(
+            carry.model_params(model), dlrm_rm2._opt()), mesh,
+            low.in_specs[0])
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        batches = [carry.distribute_state(b, mesh, low.in_specs[1])
+                   for b in host]
+
+        def mesh_steps():
+            st, times, first = state, [], []
+            with mesh_context(mesh):
+                for i, b in enumerate(batches):
+                    t0 = time.perf_counter()
+                    with (checked_calls(gk, "gather_rows_bag",
+                                        gref.gather_rows_bag, check,
+                                        "sharded_models dlrm")
+                          if i == 0 else contextlib.nullcontext()) as c:
+                        st, _ = low.fn(st, b)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    first = c or first
+            return host_copy(st["params"]), times, first
+
+        on_mesh = counted_run(mesh_steps)
+    on_mesh["out"], on_mesh["step_s"], first = on_mesh["out"]
+    out = compare_runs(plain, on_mesh, "dlrm-rm2 train_batch")
+    out["b6_calls_checked"] = len(first)
+    out["rows"] = int(host[0]["bags"].shape[0])
+    out["steps"] = SHARDED_STEPS
+    return out
+
+
+def sharded_two_tower(dev, seed: int, mesh, check) -> dict:
+    """Two-tower at published width: ``serve_p99`` (512 users against
+    their 512 items) and ``retrieval_cand`` (one user, 2²⁰ candidates)
+    forwards, through the plain model and through each cell's ``fn`` on
+    the parameters and ids as DTensors, the mesh's B1 calls checked;
+    then both once more, unchecked, timed alike (``warm_s``), and once
+    more under the profiler (``profiled``: wall, kernel time, idle
+    share)."""
+    import numpy as np
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.configs import get_arch, two_tower_retrieval
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels.gather import kernel as gk, ref as gref
+    from repro_torch.models.recsys import TwoTower
+
+    cfg = two_tower_retrieval._cfg()
+    rng = np.random.default_rng(seed)
+    n_cand = RECSYS_SHAPES["retrieval_cand"]["n_cand"]
+    p99 = {"user_ids": rng.integers(0, cfg.n_users, SHARDED_TT_P99),
+           "item_ids": rng.integers(0, cfg.n_items, SHARDED_TT_P99),
+           "item_logq": np.zeros(SHARDED_TT_P99)}
+    p99 = {k: v.astype(np.float32 if k == "item_logq" else np.int32)
+           for k, v in p99.items()}
+    user = rng.integers(0, cfg.n_users, 1).astype(np.int32)
+    cands = rng.integers(0, cfg.n_items, n_cand).astype(np.int32)
+    model = TwoTower(cfg, device=dev, seed=seed)
+
+    def plain_forwards():
+        with torch.no_grad():
+            t = {k: torch.from_numpy(v).to(dev) for k, v in p99.items()}
+            a = model.score_candidates(t["user_ids"], t["item_ids"])
+            b = model.score_candidates(torch.from_numpy(user).to(dev),
+                                       torch.from_numpy(cands).to(dev))
+        return {"serve_p99": a.cpu(), "retrieval_cand": b.cpu()}
+
+    with deterministic():
+        plain = counted_run(plain_forwards)
+        params = {k: v.detach() for k, v in
+                  carry.model_params(model).items()}
+        lows = {s: get_arch("two-tower-retrieval").lowering(s, mesh)
+                for s in ("serve_p99", "retrieval_cand")}
+        placed = carry.distribute_state(params, mesh,
+                                        lows["serve_p99"].in_specs[0])
+        args = {"serve_p99": (carry.distribute_state(
+                    p99, mesh, lows["serve_p99"].in_specs[1]),),
+                "retrieval_cand": tuple(
+                    carry.distribute_state(a, mesh, s) for a, s in zip(
+                        (user, cands), lows["retrieval_cand"].in_specs[1:]))}
+
+        def mesh_forwards():
+            with mesh_context(mesh), checked_calls(
+                    gk, "gather_rows", gref.gather_rows, check,
+                    "sharded_models two-tower") as calls:
+                got = {s: lows[s].fn(placed, *args[s]).full_tensor().cpu()
+                       for s in lows}
+            return got, calls
+
+        on_mesh = counted_run(mesh_forwards)
+
+        def mesh_unchecked():
+            with mesh_context(mesh):
+                return {s: lows[s].fn(placed, *args[s]).full_tensor().cpu()
+                        for s in lows}
+
+        # Both paths again, warm and unchecked, for their times; then once
+        # more each under the profiler: the device's share of the wall.
+        warm = {"plain": counted_run(plain_forwards),
+                "mesh": counted_run(mesh_unchecked)}
+        profiled = {run: device_profile(fn, top=4,
+                                        named=("b1_ms", "gather_rows"))
+                    for run, fn in (("plain", plain_forwards),
+                                    ("mesh", mesh_unchecked))}
+    on_mesh["out"], calls = on_mesh["out"]
+    for run, r in warm.items():
+        assert all(same_bytes(plain["out"][k], r["out"][k])
+                   for k in plain["out"]), f"two-tower {run} again differs"
+    out = compare_runs(plain, on_mesh, "two-tower serving")
+    out["b1_calls_checked"] = len(calls)
+    out["warm_s"] = {run: r["seconds"] for run, r in warm.items()}
+    out["profiled"] = profiled
+    out["shapes"] = {"serve_p99": SHARDED_TT_P99, "retrieval_cand": n_cand}
+    return out
+
+
+def sharded_nequip(dev, seed: int, mesh, check) -> dict:
+    """NequIP at published width on phase 9's ``minibatch_lg`` graph:
+    ``SHARDED_STEPS`` steps of the plain path and of the cell's ``fn``
+    on the state and the graph as DTensors (nodes and edges sharded over
+    both mesh axes), from the same seed, their parameters compared; then
+    one more step of each under the profiler (``profiled``: wall, kernel
+    time, idle share), its launches counted with the rest."""
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import nequip as nequip_cfg
+    from repro_torch.configs import train as train_cfgs
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels.segment import kernel as segk
+    from repro_torch.kernels.segment import ref as segref
+    from repro_torch.models.nequip import NequIP
+    from repro_torch.train.train_state import init_train_state
+
+    shape = "minibatch_lg"
+    cfg = nequip_cfg.for_shape(shape)
+    low = get_arch("nequip").lowering(shape, mesh)
+    host = {k: v for k, v in nequip_train_batch(shape, seed).items()
+            if k in low.args[1]}
+    assert set(host) == set(low.args[1]), sorted(host)
+
+    def plain_steps():
+        setup = train_cfgs.train("nequip", cfg, device=dev, seed=seed)
+        state = setup["state"]
+        batch = nequip_batch_on(host, dev, torch.float32)
+        times = []
+        for _ in range(SHARDED_STEPS):
+            t0 = time.perf_counter()
+            state, _ = setup["step"](state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        params = host_copy(state["params"])
+        return params, times, device_profile(
+            lambda: setup["step"](state, batch), top=4)
+
+    with deterministic():
+        plain = counted_run(plain_steps)
+        plain["out"], plain["step_s"], plain["profiled"] = plain["out"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = NequIP(cfg, device=dev, seed=seed)
+        state = carry.distribute_state(init_train_state(
+            carry.model_params(model), nequip_cfg._opt()), mesh,
+            low.in_specs[0])
+        del model
+        batch = carry.distribute_state(nequip_batch_on(host, dev,
+                                                       torch.float32),
+                                       mesh, low.in_specs[1])
+
+        def mesh_steps():
+            st, times, first = state, [], []
+            with mesh_context(mesh):
+                for i in range(SHARDED_STEPS):
+                    t0 = time.perf_counter()
+                    with (checked_calls(segk, "segment_sum",
+                                        segref.segment_sum, check,
+                                        "sharded_models nequip")
+                          if i == 0 else contextlib.nullcontext()) as c:
+                        st, _ = low.fn(st, batch)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    first = c or first
+                params = host_copy(st["params"])
+                return params, times, first, device_profile(
+                    lambda: low.fn(st, batch), top=4)
+
+        on_mesh = counted_run(mesh_steps)
+    on_mesh["out"], on_mesh["step_s"], first, on_mesh["profiled"] = \
+        on_mesh["out"]
+    out = compare_runs(plain, on_mesh, f"nequip {shape}")
+    out["b7_calls_checked"] = len(first)
+    out["graph"] = {"nodes": int(host["node_feat"].shape[0]),
+                    "edges": int(host["edge_index"].shape[1]),
+                    "d_feat": int(host["node_feat"].shape[1])}
+    out["steps"] = SHARDED_STEPS
+    return out
+
+
 def analysis(dev, card, check, path_launches: dict) -> None:
     """Phase 11c: the port's CLI gate (``--all --device cuda``) in
     process from a temporary working directory, with B3's calls of the
@@ -5464,6 +5835,10 @@ def main(argv=None) -> int:
 
     # -- 11b. distributed: torch.distributed on a group of one, C14 ------
     c14_variant = distributed(dev, args.seed, card, path_launches)
+
+    # -- 11b2. sharded_models: DLRM-RM2, two-tower and NequIP through
+    # their cells' Lowering.fn on DTensors (B6, B1, B7 on the mesh) ------
+    sharded_models(dev, args.seed, card, check, path_launches)
 
     # -- 11c. analysis: the port's CLI gate, B3 planning its self-check -
     analysis(dev, card, check, path_launches)

@@ -10,6 +10,8 @@ other.  The models do have weights: ``dlrm_from_params``,
 as the JAX package's initialisers build it, into the port's modules, and
 ``transformer_from_params`` turns such a tree into the decoder's
 parameter dict (BERT4Rec's too, with its ``pos_embed``).
+``distribute_state`` places such a state (or a batch) on a mesh as
+``DTensor`` tensors under a cell's specs.
 
 Training state crosses too: ``model_params`` keys a recsys model's or
 NequIP's parameters by the JAX package's tree paths (``"bags/tables"``,
@@ -164,7 +166,8 @@ _PATHS = {_recsys.TwoTower: {"user_embed": "user_embed/table",
                              "item_embed": "item_embed/table"}}
 
 
-def _jax_path(model: torch.nn.Module, name: str) -> str:
+def jax_path(model: torch.nn.Module, name: str) -> str:
+    """The JAX package's tree path of ``model``'s parameter ``name``."""
     renames = _PATHS.get(type(model), {})
     if name in renames:
         return renames[name]
@@ -183,7 +186,7 @@ def model_params(model) -> dict:
     (``decoder_params``), returned as it is."""
     if isinstance(model, dict):
         return model
-    return {_jax_path(model, name): p
+    return {jax_path(model, name): p
             for name, p in model.named_parameters()}
 
 
@@ -306,6 +309,23 @@ def train_state_from_tree(model, tree: dict) -> dict:
     if "ef" in tree:
         state["ef"] = _tensors_like(tree["ef"], params, "ef")
     return state
+
+
+def distribute_state(tree: Any, mesh, specs: Any) -> Any:
+    """A carried tree (a train state, parameters or a batch, of plain
+    tensors or numpy arrays) placed on ``mesh`` (``launch.mesh.Mesh``):
+    each leaf a ``DTensor`` under its spec in ``specs`` (a cell's
+    ``Lowering.in_specs`` entry), the spec first made legal for the
+    mesh's sizes (``sanitize_specs``).  Every rank passes the whole tree
+    and keeps its own shards, so a model carried from one set of weights
+    runs sharded from those weights."""
+    from .dataplane.pipeline import device_put_sharded
+    from .distributed import sharding as shd
+
+    tensors = shd.tree_map(lambda x: x if isinstance(x, torch.Tensor)
+                           else torch.as_tensor(np.asarray(x)), tree)
+    return device_put_sharded(tensors, shd.named(
+        mesh, shd.sanitize_specs(specs, tensors, mesh)))
 
 
 def tree_from_paths(flat: dict) -> dict:

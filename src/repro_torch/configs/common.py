@@ -8,11 +8,20 @@ port's models.
 prefill, the decode step or the serving forward), that function's
 arguments in the JAX lowering's tree with its shapes and dtypes (nothing
 allocated), and the spec trees of those arguments, the JAX lowering's
-own: what the dry run (``launch.dryrun``) reads.  It holds no callable:
-the port's models take local tensors (their kernels read raw pointers),
-so no cell runs sharded yet, and ``train.train_state.make_train_step``,
-``models.transformer.prefill``/``decode_step`` and the recsys forwards
-are called on real tensors where a cell is run.
+own: what the dry run (``launch.dryrun``) reads.
+
+``fn`` is the cell's function and ``donate`` the arguments it updates in
+place, the JAX lowering's: for DLRM-RM2, DeepFM and two-tower (all four
+shapes) and NequIP (all four graphs), the train step ``fn(state,
+batch)`` (``donate=(0,)``: the port's optimizer writes the state in
+place) or the serving forward ``fn(params, batch)`` (two-tower's
+``retrieval_cand``: ``fn(params, user_ids, cand_ids)``).  ``fn`` takes
+the ``args`` tree as real tensors or as ``DTensor`` tensors under
+``in_specs`` (``carry.distribute_state``; inside
+``distributed.context.mesh_context``), and runs the hand-written kernels
+B1, B6 and B7 on each rank's own shards.  The LM cells and BERT4Rec's
+keep ``fn=None`` and ``donate=()`` until their decoder runs on DTensors
+(ROADMAP §A, the next slice).
 
 ``probes`` stays None: the JAX package's cost probes exist because XLA's
 ``cost_analysis`` counts a scan body once; the port's layers run in a
@@ -31,6 +40,7 @@ from dataclasses import dataclass
 from typing import Any, Callable
 
 import torch
+from torch import nn
 
 from .. import carry
 from ..distributed import sharding as shd
@@ -38,6 +48,7 @@ from ..distributed.sharding import PartitionSpec as P
 from ..models import nequip as nq
 from ..models import transformer as tf
 from ..train.optimizer import OptimizerConfig, make_optimizer
+from ..train.train_state import make_train_step
 from . import train as train_cfgs
 
 LM_SHAPES = {
@@ -80,8 +91,10 @@ GNN_SHAPES = {
 
 @dataclass
 class Lowering:
+    fn: Callable | None         # step or forward (None: LM, BERT4Rec)
     args: tuple                 # meta tensors, in the JAX lowering's tree
     in_specs: tuple             # matching PartitionSpec trees
+    donate: tuple = ()          # arguments ``fn`` updates in place
     kind: str = "train"         # train | prefill | decode | serve
 
 
@@ -135,12 +148,65 @@ def _abstract_opt(opt_cfg: OptimizerConfig, params: dict) -> dict:
 
 
 def _train_lowering(params: dict, pspecs: dict, opt_cfg: OptimizerConfig,
-                    batch: dict, bspecs: dict) -> Lowering:
-    """The train step's lowering: ``({"params", "opt"}, batch)``."""
+                    batch: dict, bspecs: dict,
+                    step: Callable | None = None) -> Lowering:
+    """The train step's lowering: ``step(state, batch)`` over
+    ``({"params", "opt"}, batch)``, the state donated (updated in place);
+    no step (``None``, nothing donated) for a family the port does not
+    yet run sharded."""
     state = {"params": params, "opt": _abstract_opt(opt_cfg, params)}
     sspecs = {"params": pspecs,
               "opt": _opt_specs(opt_cfg.kind, params, pspecs)}
-    return Lowering((state, batch), (sspecs, bspecs), kind="train")
+    return Lowering(step, (state, batch), (sspecs, bspecs),
+                    donate=(0,) if step is not None else (), kind="train")
+
+
+def _bind(module: nn.Module, tensors: dict) -> None:
+    """Rebind ``module``'s parameters and buffers named in ``tensors``
+    (dotted names) to those tensors themselves, as plain attributes."""
+    for name, t in tensors.items():
+        owner, _, attr = name.rpartition(".")
+        mod = module.get_submodule(owner)
+        mod._parameters.pop(attr, None)
+        mod._buffers.pop(attr, None)
+        setattr(mod, attr, t)
+
+
+def model_fn(cls, cfg, body: Callable) -> Callable:
+    """``f(params, *args) = body(model, *args)``, ``model`` a ``cls(cfg)``
+    that holds ``params`` (keyed by the JAX paths, ``carry.model_params``;
+    plain tensors or ``DTensor`` tensors) and its constant buffers
+    (``cls.buffers_for``) on their device, replicated on their mesh.  No
+    model is allocated: a ``meta`` skeleton's parameters are rebound to
+    the given tensors at each call, so gradients reach them, and stay
+    bound after it, where a recomputing backward (``remat``) reads
+    them."""
+    model = cls(cfg, device="meta")
+    names = {carry.jax_path(model, n): n for n, _ in model.named_parameters()}
+    make_buffers = getattr(cls, "buffers_for", None)
+    cache: dict = {}
+
+    def f(params: dict, *args):
+        some = next(iter(params.values()))
+        key = (str(some.device), id(getattr(some, "device_mesh", None)))
+        if key not in cache:
+            cache.clear()
+            cache[key] = {} if make_buffers is None else {
+                k: shd.replicate_like(v, some)
+                for k, v in make_buffers(cfg, some.device).items()}
+        _bind(model, {**{names[k]: v for k, v in params.items()},
+                      **cache[key]})
+        return body(model, *args)
+
+    return f
+
+
+def _serving(fn: Callable) -> Callable:
+    """``fn`` run under ``torch.no_grad()``, as the port serves."""
+    def serve(*args):
+        with torch.no_grad():
+            return fn(*args)
+    return serve
 
 
 # =====================================================================
@@ -171,7 +237,7 @@ def lm_arch(arch_id: str, cfg: tf.TransformerConfig,
             return _train_lowering(params, pspecs, opt_cfg, batch, bspecs)
 
         if info["kind"] == "prefill":
-            return Lowering((params, _sds((b, s), torch.int32)),
+            return Lowering(None, (params, _sds((b, s), torch.int32)),
                             (pspecs, P(dpa, None)), kind="prefill")
 
         # decode: one new token against an S-token cache
@@ -190,8 +256,8 @@ def lm_arch(arch_id: str, cfg: tf.TransformerConfig,
 
         cspecs = shd.tree_map(cache_spec, caches)
         tspec = P(dpa) if b > 1 else P()
-        return Lowering((params, caches, _sds((b,), torch.int32),
-                         _sds((b,), torch.int32)),
+        return Lowering(None, (params, caches, _sds((b,), torch.int32),
+                               _sds((b,), torch.int32)),
                         (pspecs, cspecs, tspec, tspec), kind="decode")
 
     def correction() -> dict:
@@ -245,7 +311,13 @@ def gnn_arch(arch_id: str, base: nq.NequIPConfig,
                           "forces": _sds((n, 3), f32)})
             bspecs.update({"graph_ids": P(axes), "energy": P(),
                            "forces": P(axes, None)})
-        return _train_lowering(params, pspecs, opt_cfg, batch, bspecs)
+        # n_graphs is static: closed over, as the JAX step does.
+        extra = {} if info["readout"] == "node_class" else \
+            {"n_graphs": info["n_graphs"]}
+        loss = model_fn(nq.NequIP, cfg, lambda m, bt: nq.nequip_loss(
+            m, {**bt, **extra}))
+        step = make_train_step(lambda p, bt: (loss(p, bt), {}), opt_cfg)
+        return _train_lowering(params, pspecs, opt_cfg, batch, bspecs, step)
 
     def describe() -> dict:
         return {"arch": arch_id, "family": "gnn",
@@ -259,6 +331,15 @@ def gnn_arch(arch_id: str, base: nq.NequIPConfig,
 # =====================================================================
 # RecSys family
 # =====================================================================
+# The serving forward of each recsys model kind on a cell's batch.
+_SERVE = {
+    "dlrm": lambda m, bt: m(bt["dense"], bt["bags"]),
+    "deepfm": lambda m, bt: m(bt["bags"]),
+    "twotower": lambda m, bt: m.score_candidates(bt["user_ids"],
+                                                 bt["item_ids"]),
+}
+
+
 def recsys_arch(arch_id: str, kind: str, cfg: Any, smoke_cfg: Any,
                 opt_cfg: OptimizerConfig) -> ArchDef:
     """kind ∈ {dlrm, deepfm, twotower, bert4rec}."""
@@ -280,11 +361,11 @@ def recsys_arch(arch_id: str, kind: str, cfg: Any, smoke_cfg: Any,
         info = RECSYS_SHAPES[shape]
         b = info["batch"]
         dpa = dp(mesh)
+        model_cls = train_cfgs._MODELS.get(kind)
         if kind == "bert4rec":
             params = _decoder_params(cfg)
         else:
-            params = carry.model_params(
-                train_cfgs._MODELS[kind](cfg, device="meta"))
+            params = carry.model_params(model_cls(cfg, device="meta"))
         pspecs = shd.param_specs(params, shd.recsys_rules)
 
         def batch_specs(batch):
@@ -302,20 +383,29 @@ def recsys_arch(arch_id: str, kind: str, cfg: Any, smoke_cfg: Any,
                 batch["mask"] = _sds((b, 200), f32)
                 bspecs["labels"] = P(dpa, None)
                 bspecs["mask"] = P(dpa, None)
-            return _train_lowering(params, pspecs, opt_cfg, batch, bspecs)
+                return _train_lowering(params, pspecs, opt_cfg, batch,
+                                       bspecs)
+            loss = model_fn(model_cls, cfg, train_cfgs._LOSSES[kind])
+            step = make_train_step(lambda p, bt: (loss(p, bt), {}), opt_cfg)
+            return _train_lowering(params, pspecs, opt_cfg, batch, bspecs,
+                                   step)
 
         if info["kind"] == "retrieval":
             if kind == "twotower":
                 return Lowering(
+                    _serving(model_fn(model_cls, cfg, lambda m, u, c:
+                                      m.score_candidates(u, c))),
                     (params, _sds((1,), i32), _sds((info["n_cand"],), i32)),
                     (pspecs, P(), P(tuple(mesh.axis_names))), kind="serve")
             if kind == "bert4rec":
-                return Lowering((params, _sds((1, 200), i32)),
+                return Lowering(None, (params, _sds((1, 200), i32)),
                                 (pspecs, P(None, None)), kind="serve")
             # dlrm / deepfm: bulk-score 10⁶ candidate rows for one user
             b = info["n_cand"]
         batch = batch_of(b)
-        return Lowering((params, batch), (pspecs, batch_specs(batch)),
+        fn = None if kind == "bert4rec" else _serving(
+            model_fn(model_cls, cfg, _SERVE[kind]))
+        return Lowering(fn, (params, batch), (pspecs, batch_specs(batch)),
                         kind="serve")
 
     def describe() -> dict:

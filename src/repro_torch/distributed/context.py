@@ -75,3 +75,6 @@ def constrain(x: torch.Tensor, *spec_dims) -> torch.Tensor:
 
 
 DP = ("pod", "data")   # canonical batch-parallel axes
+# Nodes and edges of a graph shard over every mesh axis (the JAX
+# package's ``models.nequip.GRAPH_AXES``).
+GRAPH_AXES = ("pod", "data", "model")

@@ -28,6 +28,7 @@ turns a spec into a ``torch.distributed.tensor`` placement on a mesh
 from __future__ import annotations
 
 import bisect
+import functools
 import hashlib
 import math
 from typing import Any, Callable, Iterable, NamedTuple
@@ -405,3 +406,164 @@ def batch_axes(mesh) -> tuple:
     """The combined data-parallel axes present on this mesh."""
     axes = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
     return axes if axes else (mesh.axis_names[0],)
+
+
+# ---------------------------------------------------------------------------
+# DTensor placements, and a DTensor's local tensor and back
+# ---------------------------------------------------------------------------
+
+def is_dtensor(x) -> bool:
+    """``x`` is a ``torch.distributed.tensor.DTensor``."""
+    import torch.distributed as dist
+
+    if not dist.is_available():
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def shard_ranges(n: int, mesh, placements, dim: int = 0) -> list:
+    """The global indices ``[lo, hi)`` along ``dim`` (of size ``n``) of
+    this rank's part of a ``DTensor`` placed ``placements`` on ``mesh``
+    (a ``DeviceMesh``): first ``(0, n)``, then the range after each mesh
+    dim that shards ``dim``, in mesh order.  Each such mesh dim cuts the
+    current range into ``torch.chunk`` pieces (ceil-sized, the last ones
+    shorter or empty), as ``DTensor`` lays shards out."""
+    ranges = [(0, int(n))]
+    coord = mesh.get_coordinate()
+    for j, pl in enumerate(placements):
+        if pl.is_shard(dim):
+            lo, hi = ranges[-1]
+            size = -(-(hi - lo) // mesh.size(j))
+            lo = min(lo + coord[j] * size, hi)
+            ranges.append((lo, min(lo + size, hi)))
+    return ranges
+
+
+def local_range(x, dim: int) -> tuple[int, int]:
+    """The global indices ``[lo, hi)`` along ``dim`` of this rank's shard
+    of the ``DTensor`` ``x`` (``shard_ranges``'s last)."""
+    return shard_ranges(x.shape[dim], x.device_mesh, x.placements, dim)[-1]
+
+
+def replicate_like(t, like):
+    """``t``, the same on every rank, as a replicated ``DTensor`` on the
+    mesh of ``like`` where ``like`` is a ``DTensor``; else ``t`` itself.
+    For the constants a model builds beside its sharded tensors (index
+    tables, Gaunt coefficients, ramps)."""
+    if not is_dtensor(like) or is_dtensor(t):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = like.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def row_ids(x):
+    """``torch.arange(x.shape[0])`` (int64) on ``x``'s device; on a mesh,
+    a ``DTensor`` placed as ``x``'s dim 0 (each rank its own rows'
+    ids)."""
+    import torch
+
+    if not is_dtensor(x):
+        return torch.arange(x.shape[0], device=x.device)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lo, hi = local_range(x, 0)
+    mesh = x.device_mesh
+    return DTensor.from_local(
+        torch.arange(lo, hi, device=x.device), mesh,
+        [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements],
+        run_check=False, shape=(int(x.shape[0]),), stride=(1,))
+
+
+def rowwise(fn, x, *rest):
+    """``fn(x, *rest)`` where it only mixes values within a row of dim 0,
+    every tensor of ``rest`` holding the same rows as ``x`` (labels,
+    masks).  On a mesh (``x`` a ``DTensor``): each placed with dim 0
+    kept sharded as ``x``'s and every other dim whole, ``fn`` run on the
+    local tensors, and the result (dim 0 ``x``'s rows) placed as those
+    rows.  Constants ``fn`` reads whole go in its closure (``whole``).
+    For what DTensor lacks a rule for, or would spread over ranks: a
+    row's softmax, an index of a row's own entries."""
+    if not is_dtensor(x):
+        return fn(x, *rest)
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = x.device_mesh
+    rows = [Shard(0) if p.is_shard(0) else Replicate() for p in x.placements]
+    local = [local_of(replicate_like(t, x).redistribute(mesh, rows))
+             for t in (x, *rest)]
+    out = fn(*local)
+    return dtensor_of(out, mesh, rows,
+                      (int(x.shape[0]),) + tuple(out.shape[1:]))
+
+
+def whole(t):
+    """The whole of a replicated ``DTensor`` as this rank's tensor (its
+    local tensor); any other tensor as it is."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+@functools.lru_cache(maxsize=None)
+def _boundary():
+    """A ``DTensor``'s local tensor and back, as autograd Functions each
+    the other's backward: a graph that crosses them differentiates again
+    (a force's gradient).  ``DTensor.to_local``/``from_local`` build
+    their gradients outside the graph in some PyTorch releases, which
+    drops the second-order terms."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    class ToLocal(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, grad_placements):
+            ctx.meta = (x.device_mesh, tuple(grad_placements),
+                        tuple(x.shape))
+            return x.to_local().detach()
+
+        @staticmethod
+        def backward(ctx, grad):
+            mesh, pls, shape = ctx.meta
+            return FromLocal.apply(grad, mesh, pls, shape), None
+
+    class FromLocal(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, local, mesh, placements, shape):
+            ctx.meta = (mesh, tuple(placements))
+            stride = [1] * len(shape)
+            for i in range(len(shape) - 2, -1, -1):
+                stride[i] = stride[i + 1] * shape[i + 1]
+            return DTensor.from_local(local.detach(), mesh, placements,
+                                      run_check=False, shape=shape,
+                                      stride=tuple(stride))
+
+        @staticmethod
+        def backward(ctx, grad):
+            mesh, pls = ctx.meta
+            # A replicated gradient of a partial sum is each rank's own.
+            want = tuple(g if p.is_partial() and g.is_replicate() else p
+                         for p, g in zip(pls, grad.placements))
+            if want != tuple(grad.placements):
+                grad = grad.redistribute(mesh, want)
+            return ToLocal.apply(grad, want), None, None, None
+
+    return ToLocal, FromLocal
+
+
+def local_of(x, grad_placements=None):
+    """``x.to_local(grad_placements=...)`` of a ``DTensor``, through
+    ``_boundary``: differentiable any number of times."""
+    to_local, _ = _boundary()
+    return to_local.apply(x, tuple(grad_placements or x.placements))
+
+
+def dtensor_of(local, mesh, placements, shape: tuple):
+    """``DTensor.from_local`` of ``local`` as a tensor of global ``shape``
+    (contiguous) placed ``placements`` on ``mesh`` (a ``DeviceMesh``),
+    through ``_boundary``: differentiable any number of times."""
+    _, from_local = _boundary()
+    return from_local.apply(local, mesh, tuple(placements),
+                            tuple(int(d) for d in shape))

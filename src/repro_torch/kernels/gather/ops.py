@@ -7,11 +7,21 @@ raises.  ``use_pallas``/``interpret`` of ``gather_rows`` and
 ``gather_plan_runs`` keep the JAX package's signatures for parity and
 are ignored — on the port the device decides.
 
-``gather_rows`` (B1) and ``gather_rows_bag`` (B6) are differentiable
-with respect to the table: the forward is routed as above, the backward
-is ``ref.gather_rows_backward`` / ``ref.gather_rows_bag_backward``
-(plain PyTorch on every device: the JAX package takes these gradients
-with XLA's scatter-add, not with a Pallas kernel).
+``gather_rows`` (B1) and ``gather_rows_bag`` (B6) are the custom ops
+``repro_torch::gather_rows`` and ``repro_torch::gather_rows_bag``: the
+kernel on the card, ``ref`` on the CPU, a fake for ``meta`` and fake
+tensors, and differentiable with respect to the table.  Their backward
+is ``ref.gather_rows_backward`` / ``ref.gather_rows_bag_backward`` as
+ops of their own (plain PyTorch on every device: the JAX package takes
+these gradients with XLA's scatter-add, not with a Pallas kernel).
+
+On a ``DTensor`` table (a model on a mesh) the work stays on each
+rank's own shard: ``sharded_rows`` hands each rank's kernel its own rows
+of a table sharded on them (``recsys_rules``), the ids of other ranks'
+rows as -1 (B6 drops them as padding; B1 reads a zero row), and sums the
+ranks' results; a replicated table keeps the ids' placement.  No rank
+holds or gathers another's rows.  ``DTensor`` ids are checked once for
+all ranks (``kernels._mesh.checked_ids``).
 
 The host arrays a launch reads (a plan's runs; a window's union and
 positions) are validated and cast on the host, then reach the card
@@ -25,8 +35,10 @@ import numpy as np
 import torch
 
 from ..._device import upload
+from ...distributed import sharding as shd
 from .._build import LAUNCHES  # noqa: F401  (ops.LAUNCHES[name])
 from .._casting import I32_LIMIT, checked_cast_i32
+from .._mesh import checked_ids
 from . import kernel, ref
 
 # The JAX package's burst chunk width in elements (its DMA block):
@@ -38,7 +50,10 @@ I32_MAX = I32_LIMIT - 1
 
 
 def _route(t: torch.Tensor):
-    """``kernel`` for a CUDA tensor, ``ref`` for a CPU tensor."""
+    """``kernel`` for a CUDA tensor, ``ref`` for a CPU tensor; any other
+    device raises (the ops' fakes serve fake tensors, which report the
+    device they stand for, and ``meta`` tensors given to an op
+    directly)."""
     if t.device.type == "cuda":
         return kernel
     if t.device.type == "cpu":
@@ -58,39 +73,170 @@ def _index_tensor(indices, device: torch.device, *, what: str,
     return idx.to(device)
 
 
-class _GatherRows(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, indices):
-        ctx.save_for_backward(indices)
-        ctx.n_rows = table.shape[0]
-        return _route(table).gather_rows(table, indices)
+# -- B1 and B6 as custom ops --------------------------------------------------
+# Each op runs its kernel on a CUDA tensor (``kernel``, counted in
+# ``LAUNCHES``) and its plain version on a CPU tensor (``ref``); its fake
+# gives the output's shape and dtype on ``meta`` and fake tensors, and its
+# backward is the plain PyTorch gradient of ``ref`` as an op of its own.
+# The bodies look ``kernel.<name>`` up at each call, so a caller that
+# swaps the module's function (a recorder, a plain stand-in) is obeyed.
+@torch.library.custom_op("repro_torch::gather_rows", mutates_args=(),
+                         device_types="cuda")
+def gather_rows_op(table: torch.Tensor,
+                   indices: torch.Tensor) -> torch.Tensor:
+    """B1: ``table[indices]`` for an (N, D) table and (M,) int32 ids in
+    [0, N), already checked."""
+    return kernel.gather_rows(table, indices)
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        (indices,) = ctx.saved_tensors
-        return ref.gather_rows_backward(grad_out, indices, ctx.n_rows), None
+
+@gather_rows_op.register_kernel("cpu")
+def _(table, indices):
+    return ref.gather_rows(table, indices)
 
 
-class _GatherRowsBag(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, table, bags):
-        ctx.save_for_backward(bags)
-        ctx.n_rows = table.shape[0]
-        return _route(table).gather_rows_bag(table, bags)
+@gather_rows_op.register_fake
+def _(table, indices):
+    return table.new_empty((indices.shape[0], table.shape[1]))
 
-    @staticmethod
-    def backward(ctx, grad_out):
-        (bags,) = ctx.saved_tensors
-        return (ref.gather_rows_bag_backward(grad_out, bags, ctx.n_rows),
-                None)
+
+@torch.library.custom_op("repro_torch::gather_rows_backward",
+                         mutates_args=())
+def gather_rows_backward_op(grad_out: torch.Tensor, indices: torch.Tensor,
+                            n_rows: int) -> torch.Tensor:
+    """B1's gradient with respect to its table: ``ref.gather_rows_backward``
+    on every device."""
+    return ref.gather_rows_backward(grad_out, indices, n_rows)
+
+
+@gather_rows_backward_op.register_fake
+def _(grad_out, indices, n_rows):
+    return grad_out.new_empty((n_rows, grad_out.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::gather_rows_bag", mutates_args=(),
+                         device_types="cuda")
+def gather_rows_bag_op(table: torch.Tensor,
+                       bags: torch.Tensor) -> torch.Tensor:
+    """B6: bag sums of an (N, D) table over (B, L) int32 bags in [-1, N),
+    already checked."""
+    return kernel.gather_rows_bag(table, bags)
+
+
+@gather_rows_bag_op.register_kernel("cpu")
+def _(table, bags):
+    return ref.gather_rows_bag(table, bags)
+
+
+@gather_rows_bag_op.register_fake
+def _(table, bags):
+    return table.new_empty((bags.shape[0], table.shape[1]))
+
+
+@torch.library.custom_op("repro_torch::gather_rows_bag_backward",
+                         mutates_args=())
+def gather_rows_bag_backward_op(grad_out: torch.Tensor, bags: torch.Tensor,
+                                n_rows: int) -> torch.Tensor:
+    """B6's gradient with respect to its table:
+    ``ref.gather_rows_bag_backward`` on every device."""
+    return ref.gather_rows_bag_backward(grad_out, bags, n_rows)
+
+
+@gather_rows_bag_backward_op.register_fake
+def _(grad_out, bags, n_rows):
+    return grad_out.new_empty((n_rows, grad_out.shape[1]))
+
+
+def _save_ids(ctx, inputs, output):
+    table, ids = inputs
+    ctx.save_for_backward(ids)
+    ctx.n_rows = table.shape[0]
+
+
+def _gather_rows_grad(ctx, grad_out):
+    (ids,) = ctx.saved_tensors
+    return gather_rows_backward_op(grad_out, ids, ctx.n_rows), None
+
+
+def _gather_rows_bag_grad(ctx, grad_out):
+    (bags,) = ctx.saved_tensors
+    return gather_rows_bag_backward_op(grad_out, bags, ctx.n_rows), None
+
+
+gather_rows_op.register_autograd(_gather_rows_grad, setup_context=_save_ids)
+gather_rows_bag_op.register_autograd(_gather_rows_bag_grad,
+                                     setup_context=_save_ids)
+
+
+def sharded_rows(table, ids, row_dim: int, local_fn):
+    """A lookup of a ``DTensor`` table at ``ids`` run on each rank's own
+    rows, with no rank gathering another's: ``local_fn(local_table,
+    local_ids)`` on this rank's shard of the table (rows [lo, hi) of dim
+    ``row_dim``) and its ids, each id outside [lo, hi) given as -1 and
+    the others as ``id - lo``.  The table is sharded on ``row_dim`` or
+    replicated on each mesh dim.  On a dim that shards its rows, the ids
+    are first made whole there (an all-gather of ids, never of rows) and
+    the local results, zero where an id is not this rank's, are summed
+    over it (``Partial``); on a dim that replicates it, the ids keep
+    their placement and so does the result.  The result (its dim 0
+    follows the ids' dim 0) ends placed as the ids were.  The table's
+    gradient comes back on its own rows, a partial sum over the ranks
+    that split the batch until the train step reduces it
+    (``train_state.value_and_grad``).  ``ids`` may be a plain tensor,
+    the same on every rank."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = table.device_mesh
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    want, out_p, grad_p = [], [], []
+    for tp, ip in zip(table.placements, ids.placements):
+        if tp.is_shard(row_dim):
+            want.append(Replicate())
+            out_p.append(Partial())
+            grad_p.append(tp)
+        elif tp.is_replicate() and not ip.is_partial():
+            want.append(ip)
+            out_p.append(ip)
+            grad_p.append(Partial() if ip.is_shard() else Replicate())
+        else:
+            raise ValueError(f"sharded_rows: a table placed {tp} with ids "
+                             f"placed {ip}")
+    whole = ids.redistribute(mesh, want) if tuple(want) != \
+        tuple(ids.placements) else ids
+    lo, hi = shd.local_range(table, row_dim)
+    mine = whole.to_local()
+    local_ids = torch.where((mine >= lo) & (mine < hi), mine - lo, -1)
+    out = local_fn(shd.local_of(table, grad_p), local_ids)
+    out = shd.dtensor_of(out, mesh, out_p,
+                         (ids.shape[0],) + tuple(out.shape[1:]))
+    return out.redistribute(mesh, ids.placements)
+
+
+def _local_gather_rows(table: torch.Tensor,
+                       ids: torch.Tensor) -> torch.Tensor:
+    """B1 on this rank's rows: a -1 id reads a zero row."""
+    rows = gather_rows_op(table, ids.clamp(min=0))
+    return torch.where((ids >= 0)[:, None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
 
 
 def gather_rows(table: torch.Tensor, indices, use_pallas: bool = False,
                 interpret: bool = True) -> torch.Tensor:
-    """``table[indices]`` for an (N, D) table; kernel B1 on the card."""
-    idx = _index_tensor(indices, table.device, what="gather_rows indices",
-                        n_elements=table.shape[0])
-    return _GatherRows.apply(table, idx)
+    """``table[indices]`` for an (N, D) table; kernel B1 on the card.
+    A ``DTensor`` table is read through ``sharded_rows`` (each rank B1 on
+    its own rows)."""
+    _route(table)           # a table on any other device raises
+    if shd.is_dtensor(indices):
+        idx = checked_ids(indices, what="gather_rows indices",
+                          n_rows=table.shape[0])
+    else:
+        idx = _index_tensor(indices, table.device,
+                            what="gather_rows indices",
+                            n_elements=table.shape[0])
+    if shd.is_dtensor(table):
+        return sharded_rows(table, idx, 0, _local_gather_rows)
+    return gather_rows_op(table, idx)
 
 
 def gather_plan_rows(flat: torch.Tensor, offsets, row: int,
@@ -109,6 +255,11 @@ def gather_rows_bag(table: torch.Tensor, bags) -> torch.Tensor:
     """Fused EmbeddingBag(sum) over an (N, D) table: ``out[b] =
     sum_l table[bags[b, l]]`` for (B, L) bags padded with -1 (the only
     negative value allowed); kernel B6 on the card."""
+    _route(table)           # a table on any other device raises
+    if shd.is_dtensor(bags):
+        return gather_rows_bag_checked(table, checked_ids(
+            bags, what="gather_rows_bag bags", n_rows=table.shape[0],
+            allow_negative_one=True))
     idx = _index_tensor(bags, table.device, what="gather_rows_bag bags",
                         n_elements=table.shape[0], allow_negative_one=True)
     return gather_rows_bag_checked(table, idx)
@@ -117,8 +268,12 @@ def gather_rows_bag(table: torch.Tensor, bags) -> torch.Tensor:
 def gather_rows_bag_checked(table: torch.Tensor,
                             bags: torch.Tensor) -> torch.Tensor:
     """``gather_rows_bag`` on (B, L) int32 bags already on the table's
-    device and known to lie in [-1, N): no check, no host read."""
-    return _GatherRowsBag.apply(table, bags)
+    device and known to lie in [-1, N): no check, no host read.  A
+    ``DTensor`` table is summed by ``sharded_rows`` (B6 drops the ids of
+    other ranks' rows as padding)."""
+    if shd.is_dtensor(table):
+        return sharded_rows(table, bags, 0, gather_rows_bag_op)
+    return gather_rows_bag_op(table, bags)
 
 
 def chunk_runs(run_starts: np.ndarray, run_lengths: np.ndarray,

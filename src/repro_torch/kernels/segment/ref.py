@@ -7,6 +7,7 @@ CUDA kernel against on the card.  Same contracts as ``kernel``.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 
@@ -18,12 +19,16 @@ class SegmentPlan:
     """A segment grouping built once and read by every sum over the same
     ids (``ops.segment_plan`` builds it): the validated int32 ``ids``
     (E,), ``num_segments``, and their CSR ``perm`` (E,) and ``offsets``
-    (S + 1,), int64, as ``segment_csr`` gives them, all on one device."""
+    (S + 1,), int64, as ``segment_csr`` gives them, all on one device.
+    A plan of a ``DTensor`` of ids (edges sharded over a mesh) holds this
+    rank's own ids and their grouping, and the ``DTensor`` as ``dist``
+    (``ops.segment_plan``); ``dist`` is None on one device."""
 
     ids: torch.Tensor
     num_segments: int
     perm: torch.Tensor
     offsets: torch.Tensor
+    dist: Any = None
 
     def check(self, messages: torch.Tensor, num_segments: int) -> None:
         """Raise unless this plan is for ``num_segments`` segments over

@@ -24,6 +24,8 @@ import math
 import torch
 from torch import nn
 
+from ..distributed import sharding as shd
+
 
 class Dense(nn.Module):
     """``x @ w + b``: ``w`` drawn normal · 1/√d_in, ``b`` zeros."""
@@ -197,7 +199,8 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean negative log-likelihood of ``labels`` under ``logits``
     (…, V), in float32: ``logsumexp`` minus the label's logit; with
     ``mask``, the masked sum over the mask's sum (at least 1)."""
-    nll = _NLL.apply(logits.float(), labels.long())
+    # Each row's softmax on the rank that holds the row, on a mesh.
+    nll = shd.rowwise(_NLL.apply, logits.float(), labels.long())
     if mask is not None:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()

@@ -24,11 +24,16 @@ forward.
 The forward follows the JAX package's ``nequip_forward`` step for step,
 with these differences, none of which changes what it computes:
 
-* ``constrain`` (``distributed.context``, a sharding hint for the pod)
-  is not called: the message sums are kernel B7, which takes local
-  tensors through raw pointers and has no ``DTensor`` sharding rule, so
-  the model runs on one card's tensors.  The JAX package's ``jax.checkpoint`` of each layer
-  is ``torch.utils.checkpoint`` (non-reentrant) in training
+* On a mesh the model takes ``DTensor`` tensors: nodes and edges sharded
+  over ``GRAPH_AXES``, the parameters replicated.  ``constrain`` pins
+  the edge messages, the message sums and each layer's features there,
+  at the JAX package's three places.  Every edge's geometry and every
+  message sum run on the rank that holds the edge, on its local tensors
+  (B7 on its own edges, then a reduce-scatter of the sums; the source
+  rows and positions all-gathered first), through collectives that
+  differentiate again, so forces train sharded too.
+* The JAX package's ``jax.checkpoint`` of each layer is
+  ``torch.utils.checkpoint`` (non-reentrant) in training
   (``remat``, which ``nequip_loss`` sets): each layer's edge messages
   are recomputed in the backward pass instead of kept.  Serving, forces
   included, runs the layers once, as before.
@@ -74,6 +79,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device, seeded_generator
+from ..distributed import sharding as shd
+from ..distributed.context import GRAPH_AXES, constrain
+from ..kernels._mesh import whole_rows
 from ..kernels.segment import ops as segment_ops
 from .layers import MLP
 
@@ -100,8 +108,7 @@ def sph_harm_np(l: int, v: np.ndarray) -> np.ndarray:
 def sph_harm(l: int, v: torch.Tensor) -> torch.Tensor:
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
     if l == 0:
-        return torch.full(v.shape[:-1] + (1,), 0.2820947917738781,
-                          dtype=v.dtype, device=v.device)
+        return torch.full_like(v[..., :1], 0.2820947917738781)
     if l == 1:
         c = 0.4886025119029199
         return torch.stack([c * y, c * z, c * x], -1)
@@ -151,7 +158,8 @@ def tp_paths(l_max: int) -> list[tuple[int, int, int]]:
 def bessel_rbf(r: torch.Tensor, n: int, cutoff: float) -> torch.Tensor:
     """Bessel radial basis [DimeNet] with p=6 polynomial envelope."""
     r = torch.clamp(r, min=1e-6)
-    k = torch.arange(1, n + 1, dtype=r.dtype, device=r.device)
+    k = shd.replicate_like(torch.arange(1, n + 1, dtype=r.dtype,
+                                        device=r.device), r)
     rb = math.sqrt(2.0 / cutoff) * torch.sin(k * math.pi * r[..., None]
                                              / cutoff) / r[..., None]
     x = torch.clamp(r / cutoff, 0.0, 1.0)
@@ -187,6 +195,54 @@ class NequIPConfig:
 def _normal(shape: tuple[int, int], scale: float, kw: dict) -> nn.Parameter:
     w = torch.empty(shape, dtype=kw["dtype"], device=kw["device"])
     return nn.Parameter(w.normal_(0.0, scale, generator=kw["generator"]))
+
+
+def _geometry(cfg: NequIPConfig, positions: torch.Tensor, src: torch.Tensor,
+              dst: torch.Tensor, edge_mask: torch.Tensor) -> tuple:
+    """Each edge's ``Y_l(r̂)`` (a dict by l), radial basis and mask:
+    padding ids clamped to node 0, as in the JAX package."""
+    rel = positions[src.clamp(min=0).long()] - \
+        positions[dst.clamp(min=0).long()]                # (E, 3)
+    r = torch.linalg.norm(rel + 1e-12, dim=-1)
+    rhat = rel / torch.clamp(r, min=1e-6)[:, None]
+    ys = {l: sph_harm(l, rhat).to(cfg.dtype) for l in cfg.ls}
+    rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
+    emask = (edge_mask & (r <= cfg.cutoff)).to(cfg.dtype)
+    return ys, rbf, emask
+
+
+def _edge_geometry(cfg: NequIPConfig, positions: torch.Tensor,
+                   src: torch.Tensor, dst: torch.Tensor,
+                   edge_mask: torch.Tensor) -> tuple:
+    """``_geometry``.  On a mesh (``DTensor`` node rows and edges), the
+    positions are made whole on every rank (an all-gather of (N, 3)),
+    each rank computes its own edges' geometry on its local tensors, and
+    the results are sharded as the edges are; the positions' gradient
+    (forces) is each rank's, reduce-scattered back.  Per-edge work never
+    leaves its rank."""
+    if not shd.is_dtensor(src):
+        return _geometry(cfg, positions, src, dst, edge_mask)
+    mesh, pls = src.device_mesh, src.placements
+    ys, rbf, emask = _geometry(cfg, whole_rows(positions), src.to_local(),
+                               dst.to_local(), edge_mask.to_local())
+    e = int(src.shape[0])
+
+    def edges(t):
+        return shd.dtensor_of(t, mesh, pls, (e,) + tuple(t.shape[1:]))
+
+    return {l: edges(y) for l, y in ys.items()}, edges(rbf), edges(emask)
+
+
+def _zeros_like_rows(like: torch.Tensor, shape: tuple,
+                     dtype: torch.dtype) -> torch.Tensor:
+    """Zeros of ``shape`` on ``like``'s device; on a mesh, a ``DTensor``
+    whose dim 0 is placed as ``like``'s (node rows)."""
+    if not shd.is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+
+    return zeros(shape, dtype=dtype, device_mesh=like.device_mesh,
+                 placements=like.placements)
 
 
 class NequIPLayer(nn.Module):
@@ -232,7 +288,8 @@ class NequIPLayer(nn.Module):
             if not msgs[l]:
                 new_feats[l] = feats[l]
                 continue
-            msg = torch.cat(msgs[l], dim=1)              # (E, P·C, 2l+1)
+            msg = constrain(torch.cat(msgs[l], dim=1),   # (E, P·C, 2l+1)
+                            GRAPH_AXES, None, None)
             # "epm,pc->ecm" as (E, 2l+1, P·C) @ (P·C, C): summed in
             # (m, channel) order, transposed after the sum.
             msg_mixed = torch.matmul(msg.transpose(1, 2),
@@ -240,6 +297,7 @@ class NequIPLayer(nn.Module):
             mixed = segment_ops.segment_sum(
                 msg_mixed.reshape(e, -1), seg, n).view(
                     n, 2 * l + 1, c).transpose(1, 2)
+            mixed = constrain(mixed, GRAPH_AXES, None, None)
             self_c = torch.einsum("ncm,cd->ndm", feats[l],
                                   self.self_interaction[str(l)])
             h = mixed + self_c
@@ -248,7 +306,7 @@ class NequIPLayer(nn.Module):
             else:
                 gate = torch.sigmoid(feats[0][..., 0] @ self.gate[str(l)])
                 h = h * gate[..., None]
-            new_feats[l] = h
+            new_feats[l] = constrain(h, GRAPH_AXES, None, None)
         return new_feats
 
 
@@ -268,10 +326,16 @@ class NequIP(nn.Module):
         self.layers = nn.ModuleList(NequIPLayer(cfg, **kw)
                                     for _ in range(cfg.n_layers))
         self.readout = MLP([c, c, cfg.n_out], **kw)
-        for pi, path in enumerate(cfg.paths):
-            self.register_buffer(
-                f"gaunt_{pi}", torch.from_numpy(gaunt(*path)).to(
-                    device=dev, dtype=cfg.dtype), persistent=False)
+        for name, buf in self.buffers_for(cfg, dev).items():
+            self.register_buffer(name, buf, persistent=False)
+
+    @staticmethod
+    def buffers_for(cfg: NequIPConfig, device) -> dict:
+        """The Gaunt tensor of each path, ``gaunt_{pi}``, in ``cfg.dtype``
+        on ``device``."""
+        return {f"gaunt_{pi}": torch.from_numpy(gaunt(*path)).to(
+                    device=device, dtype=cfg.dtype)
+                for pi, path in enumerate(cfg.paths)}
 
     def forward(self, node_feat: torch.Tensor, positions: torch.Tensor,
                 edge_index: torch.Tensor,
@@ -296,15 +360,7 @@ class NequIP(nn.Module):
         n = node_feat.shape[0]
         src, dst = edge_index[0], edge_index[1]
         edge_mask = (src >= 0) & (dst >= 0)
-        srcc = src.clamp(min=0).long()
-        dstc = dst.clamp(min=0).long()
-
-        rel = positions[srcc] - positions[dstc]          # (E, 3)
-        r = torch.linalg.norm(rel + 1e-12, dim=-1)
-        rhat = rel / torch.clamp(r, min=1e-6)[:, None]
-        ys = {l: sph_harm(l, rhat).to(cfg.dtype) for l in cfg.ls}
-        rbf = bessel_rbf(r, cfg.n_rbf, cfg.cutoff).to(cfg.dtype)
-        emask = (edge_mask & (r <= cfg.cutoff)).to(cfg.dtype)
+        ys, rbf, emask = _edge_geometry(cfg, positions, src, dst, edge_mask)
         # The sums' and gathers' ids: padding edges dropped (their
         # messages are zero), validated and grouped by node once for
         # every sum and gather of the forward.
@@ -315,8 +371,8 @@ class NequIP(nn.Module):
                                 getattr(self, f"gaunt_{pi}"))
                    for pi, (_, lf, _) in enumerate(cfg.paths)]
 
-        feats = {l: torch.zeros((n, c, 2 * l + 1), dtype=cfg.dtype,
-                                device=node_feat.device) for l in cfg.ls}
+        feats = {l: _zeros_like_rows(node_feat, (n, c, 2 * l + 1),
+                                     cfg.dtype) for l in cfg.ls}
         feats[0] = self.embed(node_feat.to(cfg.dtype))[..., None]
         # The non-reentrant checkpoint also recomputes under the double
         # backward of the force term.
@@ -333,9 +389,10 @@ class NequIP(nn.Module):
             out = out * node_mask[:, None]
         if cfg.readout == "node_class":
             return out
-        gid = torch.as_tensor(graph_ids, device=out.device) \
-            if graph_ids is not None else torch.zeros(
-                (n,), dtype=torch.int32, device=out.device)
+        gid = graph_ids if isinstance(graph_ids, torch.Tensor) else \
+            torch.as_tensor(graph_ids, device=out.device) \
+            if graph_ids is not None else _zeros_like_rows(
+                node_feat, (n,), torch.int32)
         return segment_ops.segment_sum(
             out[:, :1].contiguous(), segment_ops.segment_plan(gid, n_graphs),
             n_graphs)[:, 0]

@@ -15,10 +15,21 @@ row for N and the last row for -1.  BERT4Rec is the decoder of
 ``models.transformer`` run without the causal mask, with learned
 positions; its embedding lookup is ``layers.embed``, as the LMs' is.
 
+On a mesh (DLRM, DeepFM and two-tower on ``DTensor`` parameters and
+batches under ``recsys_rules``: tables sharded on their rows over
+"model", MLPs replicated, the batch over the data axes) the lookups
+stay on each rank's own rows (``kernels.gather.ops.sharded_rows``): the
+ids of other ranks' rows are -1, which B6 drops and B1 reads as a zero
+row, and the ranks' partial results are summed over "model".  No rank
+holds or gathers another's rows.  The range check then spans every rank
+(one host read), and the in-batch softmax of two-tower runs on each
+rank's own rows (``layers.cross_entropy``).
+
 Every parameter is trainable.  The gradients of B6 and B1 are plain
-PyTorch (``ops``' autograd Functions): ``grad_out`` added into a dense
-zero table at the ids, as XLA takes the gradient of ``jnp.take`` in the
-JAX package, so an optimizer moves every row of a table every step.
+PyTorch (the backward ops of ``ops``' custom ops): ``grad_out`` added
+into a dense zero table at the ids, as XLA takes the gradient of
+``jnp.take`` in the JAX package, so an optimizer moves every row of a
+table every step.
 ``dlrm_loss`` and ``deepfm_loss`` are the stable binary cross-entropy
 of the logits, ``twotower_loss`` the in-batch softmax with the logQ
 correction, ``bert4rec_loss`` the cloze objective through the chunked
@@ -42,7 +53,9 @@ import torch
 from torch import nn
 
 from .._device import resolve_device, seeded_generator
+from ..distributed import sharding as shd
 from ..kernels._casting import ensure_i32_addressable
+from ..kernels._mesh import global_span
 from ..kernels.gather import ops as gather_ops
 from . import transformer as tf
 from .layers import (MLP, cross_entropy, cross_entropy_tied_chunked,
@@ -78,27 +91,41 @@ class EmbeddingBag(nn.Module):
                              f"(B, {n_tables}, L)")
         # Each table's ids must lie in [-1, rows): past ``rows`` an id
         # would read the next table's row of the flattened view.  This is
-        # the call's one range check (one read back from the card); it
-        # bounds every flat id below T·R, so B6 is called past ``ops``.
+        # the call's one range check (one read back from the card; on a
+        # mesh, over every rank at once); it bounds every flat id below
+        # T·R, so B6 is called past ``ops``.
         if bags.numel():
-            lo, hi = torch.stack(torch.aminmax(bags)).tolist()
+            lo, hi = global_span(bags) if shd.is_dtensor(bags) else \
+                torch.stack(torch.aminmax(bags)).tolist()
             if lo < -1 or hi >= rows:
                 raise IndexError(
                     f"EmbeddingBag: ids span [{lo}, {hi}], outside "
                     f"[-1, {rows}) of each table")
-        b, _, n_slots = bags.shape
-        base = torch.arange(n_tables, device=bags.device,
-                            dtype=torch.int32)[None, :, None] * rows
-        # The range check above bounds every id below ``rows`` and the
-        # constructor's ensure_i32_addressable bounds T·R below 2³¹.
-        flat = torch.where(bags >= 0, bags.int() + base, -1)  # lint-ok: unchecked-i32-cast
-        table = self.tables.view(n_tables * rows, dim)
-        out = gather_ops.gather_rows_bag_checked(
-            table, flat.view(b * n_tables, n_slots)).view(b, n_tables, dim)
+        if shd.is_dtensor(self.tables):
+            # On a mesh: each rank sums its own rows of every table (the
+            # ids of other ranks' rows as -1), and the ranks' sums add.
+            out = gather_ops.sharded_rows(self.tables, bags, 1, _bag_sums)
+        else:
+            out = _bag_sums(self.tables, bags)
         if combine == "mean":
             count = (bags >= 0).sum(dim=2).clamp(min=1)
             out = out / count[..., None]
         return out
+
+
+def _bag_sums(tables: torch.Tensor, bags: torch.Tensor) -> torch.Tensor:
+    """One B6 launch over stacked (T, R, D) tables viewed as one (T·R, D)
+    table: ``bags`` (B, T, L) in [-1, R) become flat ids t·R + id."""
+    n_tables, rows, dim = tables.shape
+    b, _, n_slots = bags.shape
+    base = torch.arange(n_tables, device=bags.device,
+                        dtype=torch.int32)[None, :, None] * rows
+    # The caller's range check bounds every id below ``rows`` and the
+    # constructor's ensure_i32_addressable bounds T·R below 2³¹.
+    flat = torch.where(bags >= 0, bags.int() + base, -1)  # lint-ok: unchecked-i32-cast
+    return gather_ops.gather_rows_bag_checked(
+        tables.view(n_tables * rows, dim),
+        flat.view(b * n_tables, n_slots)).view(b, n_tables, dim)
 
 
 # ---------------------------------------------------------------------------
@@ -131,11 +158,16 @@ class DLRM(nn.Module):
         self.bot = MLP([cfg.n_dense, *cfg.bot_mlp], **kw)
         n_pairs = (cfg.n_sparse + 1) * cfg.n_sparse // 2
         self.top = MLP([cfg.embed_dim + n_pairs, *cfg.top_mlp], **kw)
-        # jnp.triu_indices(T + 1, k=1): the pairs (i < j) in row-major order.
+        for name, buf in self.buffers_for(cfg, dev).items():
+            self.register_buffer(name, buf, persistent=False)
+
+    @staticmethod
+    def buffers_for(cfg: DLRMConfig, device) -> dict:
+        """The interaction's pairs (i < j) in row-major order, as
+        ``jnp.triu_indices(T + 1, k=1)``: ``pair_i`` and ``pair_j``."""
         iu, ju = torch.triu_indices(cfg.n_sparse + 1, cfg.n_sparse + 1, 1,
-                                    device=dev)
-        self.register_buffer("pair_i", iu, persistent=False)
-        self.register_buffer("pair_j", ju, persistent=False)
+                                    device=device)
+        return {"pair_i": iu, "pair_j": ju}
 
     def forward(self, dense: torch.Tensor,
                 bags: torch.Tensor) -> torch.Tensor:
@@ -144,7 +176,9 @@ class DLRM(nn.Module):
         e = self.bags(bags)                                    # (B, T, D)
         z = torch.cat([d[:, None, :], e], dim=1)               # (B, T+1, D)
         inter = torch.bmm(z, z.transpose(1, 2))                # (B, T+1, T+1)
-        flat = inter[:, self.pair_i, self.pair_j]              # (B, pairs)
+        # Each row's own pairs (on a mesh, on the rank holding the row).
+        pi, pj = shd.whole(self.pair_i), shd.whole(self.pair_j)
+        flat = shd.rowwise(lambda t: t[:, pi, pj], inter)      # (B, pairs)
         x = torch.cat([d, flat], dim=1)
         return self.top(x)[:, 0]
 
@@ -265,8 +299,7 @@ def twotower_loss(model: TwoTower, batch: dict) -> torch.Tensor:
     logq = batch.get("item_logq")
     if logq is not None:
         logits = logits - logq[None, :]
-    labels = torch.arange(u.shape[0], device=u.device)
-    return cross_entropy(logits, labels)
+    return cross_entropy(logits, shd.row_ids(u))
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,10 @@ replay it from memory.
 
 The state and the batch may be ``DTensor`` tensors on a mesh
 (``distributed.sharding.named``): the step is then the same plain torch
-ops, which ``torch.distributed.tensor`` runs shard by shard.  As in the
+ops, which ``torch.distributed.tensor`` runs shard by shard, and each
+gradient is reduced to its parameter's placements (a ``Partial`` sum
+over the batch's ranks all-reduced, or reduce-scattered onto a
+sharded parameter) before the optimizer reads it.  As in the
 JAX package, each microbatch is pinned back onto the batch axes
 (``distributed.context.constrain``), which the reshape would otherwise
 move to the small accumulation axis; on plain tensors that is a no-op.
@@ -28,6 +31,7 @@ from typing import Any, Callable
 
 import torch
 
+from ..distributed import sharding as shd
 from ..distributed.context import DP, constrain
 from .optimizer import OptimizerConfig, make_optimizer
 
@@ -56,7 +60,12 @@ def value_and_grad(loss_fn: Callable, params: dict, batch: Any
     for (k, p), g in zip(params.items(), raw):
         if g is None:
             g = torch.zeros_like(p)
-        elif id(g) in seen or not g.is_contiguous():
+        elif shd.is_dtensor(g) and tuple(g.placements) != tuple(
+                p.placements):
+            # On a mesh: a partial sum over the ranks that split the
+            # batch (or another layout) reduced to the parameter's own.
+            g = g.redistribute(p.device_mesh, p.placements)
+        if id(g) in seen or not g.is_contiguous():
             g = g.clone(memory_format=torch.contiguous_format)
         seen.add(id(g))
         grads[k] = g

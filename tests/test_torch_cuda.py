@@ -62,6 +62,7 @@ from torch_batched_cases import AXIS1 as BATCHED_AXIS1  # noqa: E402
 from torch_batched_cases import CASES as BATCHED_CASES  # noqa: E402
 from torch_batched_cases import random_layer as batched_random_layer  # noqa: E402,E501
 from torch_plan_cases import PLAN_SCAN_CASES, plan_scan_case  # noqa: E402
+import torch_spmd_cases as spmd_cases  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1687,3 +1688,126 @@ def test_quantized_psum_on_an_nccl_group_of_one(cuda_device, tmp_path):
         assert not _bytes_equal(got.cpu(), _quantized_psum_plain(x, 0.5))
     finally:
         dist.destroy_process_group()
+
+
+# -- B1, B6 and B7 as custom ops on a one-rank NCCL mesh ----------------------
+@pytest.fixture
+def nccl_mesh(cuda_device, tmp_path):
+    """A (1, 1) ("data", "model") mesh over an NCCL group of one rank."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _placed(mesh, t, spec):
+    from repro_torch.distributed.sharding import named
+
+    from torch.distributed.tensor import distribute_tensor
+
+    return distribute_tensor(t, *named(mesh, spec))
+
+
+@pytest.mark.parametrize("table_spec", ("rows", "replicated"))
+@pytest.mark.parametrize("op", ("gather_rows", "gather_rows_bag"))
+def test_gather_op_on_a_one_rank_mesh(nccl_mesh, op, table_spec):
+    """B1 and B6 on DTensors, through ``sharded_rows`` (a table sharded
+    on its rows, or replicated with batch-sharded ids): output and the
+    table's gradient byte-equal to the plain-tensor call, one launch of
+    the kernel each, on the card."""
+    from repro_torch.distributed.sharding import P
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    table = torch.randn(5000, 64, generator=gen, device=dev)
+    if op == "gather_rows":
+        ids = torch.randint(0, 5000, (512,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        fn, kname, ispec = gops.gather_rows, "gather_rows", P("data")
+    else:
+        ids = torch.randint(-1, 5000, (512, 4), generator=gen, device=dev,
+                            dtype=torch.int32)
+        fn, kname, ispec = gops.gather_rows_bag, "gather_rows_bag", \
+            P("data", None)
+    tspec = P("model", None) if table_spec == "rows" else P()
+    with _deterministic():
+        before = LAUNCHES[kname]
+        t = table.clone().requires_grad_(True)
+        want = fn(t, ids)
+        want.square().sum().backward()
+        assert LAUNCHES[kname] == before + 1
+        dt = _placed(nccl_mesh, table.clone(), tspec).requires_grad_(True)
+        got = fn(dt, _placed(nccl_mesh, ids, ispec))
+        assert LAUNCHES[kname] == before + 2
+        got.square().sum().backward()
+    assert _bytes_equal(got.full_tensor().detach().cpu(),
+                        want.detach().cpu())
+    assert _bytes_equal(dt.grad.full_tensor().cpu(), t.grad.cpu())
+
+
+def test_segment_ops_on_a_one_rank_mesh(nccl_mesh):
+    """B7 on DTensors: a plan of edge-sharded ids (one ``segment_plan``),
+    ``segment_gather`` of node-sharded rows and ``segment_sum`` back, the
+    rows' gradient through B7 again: byte-equal to the plain-tensor
+    calls, with the same launches."""
+    from repro_torch.distributed.sharding import P
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n, e, d = 3000, 20000, 40
+    ids = torch.randint(-1, n, (e,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    values = torch.randn(n, d, generator=gen, device=dev)
+    axes = ("data", "model")
+
+    def run(v, i):
+        plan = segops.segment_plan(i, n)
+        rows = segops.segment_gather(v, plan, n)
+        out = segops.segment_sum(rows * rows, plan, n)
+        out.sum().backward()
+        return out
+
+    with _deterministic():
+        before = dict(LAUNCHES)
+        v0 = values.clone().requires_grad_(True)
+        want = run(v0, ids)
+        plain = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        assert plain["segment_sum"] == 2 and plain["segment_plan"] == 1
+        before = dict(LAUNCHES)
+        v1 = _placed(nccl_mesh, values.clone(),
+                     P(axes, None)).requires_grad_(True)
+        got = run(v1, _placed(nccl_mesh, ids, P(axes)))
+        assert {k: LAUNCHES[k] - before[k] for k in LAUNCHES} == plain
+    assert _bytes_equal(got.full_tensor().detach().cpu(),
+                        want.detach().cpu())
+    assert _bytes_equal(v1.grad.full_tensor().cpu(), v0.grad.cpu())
+
+
+@pytest.mark.parametrize("arch_id,shape", spmd_cases.ONE_RANK_CELLS,
+                         ids=[f"{a}-{s}" for a, s in
+                              spmd_cases.ONE_RANK_CELLS])
+def test_cell_on_a_one_rank_nccl_mesh(nccl_mesh, arch_id, shape):
+    """Each of the 16 cells' ``Lowering.fn`` (smoke configurations, the
+    cases of ``tests/torch_spmd_cases.py``) on DTensors over the (1, 1)
+    NCCL mesh, against the same ``fn`` on plain tensors on the card:
+    every result bit for bit (deterministic mode) and the same kernel
+    launches, B1, B6 or B7 among them."""
+    low, model, args = spmd_cases.smoke_cell(arch_id, shape, nccl_mesh,
+                                             device="cuda")
+    launches = {}
+    with _deterministic():
+        plain, on_mesh = spmd_cases._run_cell(low, model, args, nccl_mesh,
+                                              launches=launches)
+    assert launches["plain"] == launches["mesh"]
+    kname = {"nequip": "segment_sum", "two-tower-retrieval": "gather_rows"
+             }.get(arch_id, "gather_rows_bag")
+    assert sum(v for k, v in launches["mesh"].items()
+               if k.startswith(kname)) > 0, launches
+    bad = [k for k in plain if plain[k].tobytes() != on_mesh[k].tobytes()]
+    assert not bad, bad

@@ -35,6 +35,7 @@ import os
 import subprocess
 import sys
 import textwrap
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -56,6 +57,7 @@ from repro_torch.distributed import context as port_ctx  # noqa: E402
 from repro_torch.distributed import sharding as port_shd  # noqa: E402
 from repro_torch.distributed.sharding import P  # noqa: E402
 from repro_torch.kernels.gather import ops as gops  # noqa: E402
+from repro_torch.kernels.segment import ops as segops  # noqa: E402
 from repro_torch.launch import dryrun as port_dryrun  # noqa: E402
 from repro_torch.launch import mesh as port_mesh  # noqa: E402
 from repro_torch.train.checkpoint import flatten_tree  # noqa: E402
@@ -146,13 +148,32 @@ def _jax_argument_bytes(low, mesh) -> int:
 def run_spmd_case(case: str, d: Path, world: int = SPMD_RANKS) -> dict:
     """One case of ``tests/torch_spmd_cases.py`` on ``world`` gloo ranks,
     in a subprocess with a time limit."""
+    return finish_spmd_case(start_spmd_case(case, d, world), d)
+
+
+def start_spmd_case(case: str, d: Path, world: int = SPMD_RANKS):
+    """``run_spmd_case`` started, for ``finish_spmd_case`` to wait on."""
     d.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    out = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, str(TESTS / "torch_spmd_cases.py"), case,
-         str(world), str(d)], env=env, capture_output=True, text=True,
-        timeout=SPMD_TIMEOUT_S)
-    assert out.returncode == 0, out.stderr[-3000:]
+         str(world), str(d)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    proc.started = time.monotonic()
+    return proc
+
+
+def finish_spmd_case(proc, d: Path) -> dict:
+    """The result of a started case, within ``SPMD_TIMEOUT_S`` of its
+    start; a case past it is killed and fails."""
+    try:
+        _, err = proc.communicate(timeout=max(
+            1.0, SPMD_TIMEOUT_S - (time.monotonic() - proc.started)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise
+    assert proc.returncode == 0, err[-3000:]
     return json.loads((d / "result.json").read_text())
 
 
@@ -271,6 +292,68 @@ def test_lowering_matches_jax(arch_id, shape, mesh_key):
             f"{arch_id} {shape} in_specs {i}")
     assert port_dryrun.argument_bytes(low, pm) == \
         _jax_argument_bytes(ref_low, jm)
+
+
+@pytest.mark.parametrize("arch_id,shape", CELLS,
+                         ids=[f"{a}-{s}" for a, s in CELLS])
+def test_lowering_fn_and_donate_match_jax(arch_id, shape):
+    """The 16 cells of DLRM-RM2, DeepFM, two-tower and NequIP carry a
+    callable ``fn`` and the JAX lowering's ``donate`` (the train step's
+    state, updated in place); the LM and BERT4Rec cells have no ``fn``
+    yet and donate nothing."""
+    ref_low = ref_configs.get_arch(arch_id).lowering(shape, _jax_mesh(False))
+    low = port_configs.get_arch(arch_id).lowering(
+        shape, port_mesh.make_production_mesh())
+    assert callable(ref_low.fn)
+    if arch_id in cases.RECSYS_KINDS or arch_id == "nequip":
+        assert callable(low.fn)
+        assert low.donate == ref_low.donate
+        assert low.donate == ((0,) if low.kind == "train" else ())
+    else:
+        assert low.fn is None and low.donate == ()
+
+
+def _fake_cases():
+    """(op, its arguments on the CPU) for each custom op of the port."""
+    from repro_torch.kernels.segment import ref as segref
+
+    table = torch.randn(50, 6)
+    ids = torch.tensor([3, 0, 49, 7], dtype=torch.int32)
+    bags = torch.tensor([[1, -1], [4, 4], [-1, -1]], dtype=torch.int32)
+    seg = torch.tensor([2, -1, 0, 2, 5], dtype=torch.int32)
+    plan = segref.build_plan(seg, 6)
+    plan_args = (plan.ids, plan.perm, plan.offsets, 6)
+    return {
+        "gather_rows": (gops.gather_rows_op, (table, ids)),
+        "gather_rows_backward": (gops.gather_rows_backward_op,
+                                 (torch.randn(4, 6), ids, 50)),
+        "gather_rows_bag": (gops.gather_rows_bag_op, (table, bags)),
+        "gather_rows_bag_backward": (gops.gather_rows_bag_backward_op,
+                                     (torch.randn(3, 6), bags, 50)),
+        "segment_sum": (segops.segment_sum_op,
+                        (torch.randn(5, 3, dtype=torch.float64),
+                         *plan_args)),
+        "segment_gather": (segops.segment_gather_op,
+                           (torch.randn(6, 3), *plan_args)),
+    }
+
+
+@pytest.mark.parametrize("name", ("gather_rows", "gather_rows_backward",
+                                  "gather_rows_bag",
+                                  "gather_rows_bag_backward", "segment_sum",
+                                  "segment_gather"))
+def test_custom_op_fake_matches_the_op(name):
+    """Each custom op on ``meta`` tensors (its fake) gives the shape and
+    dtype the op gives on the CPU, and the op passes
+    ``torch.library.opcheck``'s schema and fake checks."""
+    op, args = _fake_cases()[name]
+    real = op(*args)
+    fake = op(*(a.to("meta") if isinstance(a, torch.Tensor) else a
+                for a in args))
+    assert fake.device.type == "meta"
+    assert fake.shape == real.shape and fake.dtype == real.dtype
+    torch.library.opcheck(op, args, test_utils=(
+        "test_schema", "test_faketensor"))
 
 
 # -- (c) the registry ---------------------------------------------------------
@@ -415,6 +498,200 @@ class TestShardingRules:
             ref_shd.lm_rules(path, (2, 64, 32))
 
 
+# -- the models on the mesh ---------------------------------------------------
+# Tolerances.  The mesh run against the one-process run of the same
+# ``fn``: a bag, a segment or a product whose terms span ranks is summed
+# in another order (float32), ``MESH_F32``.  Against the JAX package's
+# ``fn``: outputs, losses and gradient norms at the float32 tolerance of
+# the port's model tests (``JAX_F32``), a step's parameters at that of
+# its train-step tests (``STEP_F32``).  AdamW's first moment, a tenth
+# of the clipped gradient (elements of 1e-5 to 1e-2), at ``MOMENT_F32``
+# against both: NequIP's force terms, summed in another order on the
+# mesh, move it by up to 1.2e-7.
+MESH_F32 = dict(rtol=1e-5, atol=1e-6)
+JAX_F32 = dict(rtol=2e-5, atol=2e-5)
+STEP_F32 = dict(rtol=1e-5, atol=1e-6)
+MOMENT_F32 = dict(rtol=1e-4, atol=1e-6)
+# What a lowering reads of a mesh: its axis names (the cells' (2, 2)).
+MODEL_MESH = SimpleNamespace(axis_names=("data", "model"),
+                             devices=np.empty((2, 2), dtype=np.uint8))
+
+
+def _np_paths(tree) -> dict:
+    return {k: np.asarray(v) for k, v in _jax_flat(tree).items()}
+
+
+@pytest.fixture(scope="module")
+def recsys_models(tmp_path_factory) -> dict:
+    """The JAX initialisers' smoke parameters of DLRM-RM2, DeepFM and
+    two-tower under ``dir/params``; the ``recsys_models`` case run on
+    them (one subprocess of 4 ranks), and meanwhile every cell's JAX
+    ``fn`` on the same parameters and batches (``"jax"``)."""
+    from repro.models import recsys as ref_rs
+
+    d = tmp_path_factory.mktemp("recsys_models")
+    (d / "params").mkdir()
+    init = {"dlrm": ref_rs.dlrm_init, "deepfm": ref_rs.deepfm_init,
+            "twotower": ref_rs.twotower_init}
+    for arch_id, kind in cases.RECSYS_KINDS.items():
+        np.savez(d / "params" / f"{arch_id}.npz", **_np_paths(
+            init[kind](jax.random.PRNGKey(cases.SEED),
+                       _ref_smoke_cfg(arch_id))))
+    proc = start_spmd_case("recsys_models", d, world=cases.MODEL_WORLD)
+    want = {(a, s): _jax_recsys_cell(d, a, s) for a in cases.RECSYS_KINDS
+            for s in cases.RECSYS_SHAPES}
+    return {"dir": d, "jax": want, "result": finish_spmd_case(proc, d)}
+
+
+@pytest.fixture(scope="module")
+def nequip_models(tmp_path_factory) -> dict:
+    """The JAX ``nequip_init`` parameters of each graph shape's smoke
+    configuration under ``dir/params``; the ``nequip_models`` case run
+    on them (one subprocess of 4 ranks), and meanwhile every cell's JAX
+    step (``"jax"``), the ``one_rank_models`` case (one rank:
+    ``"one_rank"``) and the ``production_graphs`` case (a fake process
+    group: ``"production"``)."""
+    from repro.models import nequip as ref_nq
+
+    d = tmp_path_factory.mktemp("nequip_models")
+    (d / "params").mkdir()
+    for shape in cases.GNN_SHAPES:
+        np.savez(d / "params" / f"nequip|{shape}.npz", **_np_paths(
+            ref_nq.nequip_init(jax.random.PRNGKey(cases.SEED),
+                               _ref_graph_cfg(shape))))
+    proc = start_spmd_case("nequip_models", d, world=cases.MODEL_WORLD)
+    one = start_spmd_case("one_rank_models", d / "one_rank", world=1)
+    prod = start_spmd_case("production_graphs", d / "production", world=1)
+    want = {s: _jax_nequip_cell(d, s) for s in cases.GNN_SHAPES}
+    return {"dir": d, "jax": want, "result": finish_spmd_case(proc, d),
+            "one_rank": finish_spmd_case(one, d / "one_rank"),
+            "production": finish_spmd_case(prod, d / "production")}
+
+
+def _ref_smoke_cfg(arch_id: str):
+    import importlib
+
+    return importlib.import_module(
+        f"repro.configs.{port_configs._MODULES[arch_id]}")._smoke()
+
+
+def _ref_graph_cfg(shape: str):
+    import dataclasses
+
+    from repro.configs import common as ref_common
+    from repro.configs import nequip as ref_nqc
+
+    info = ref_common.GNN_SHAPES[shape]
+    return dataclasses.replace(ref_nqc._smoke(), d_feat=info["d_feat"],
+                               n_out=info["n_out"], readout=info["readout"])
+
+
+def _ref_opt():
+    from repro.train.optimizer import OptimizerConfig
+
+    return OptimizerConfig(**cases.MODEL_OPT)
+
+
+def _cell_results(models: dict, name: str) -> dict:
+    """{"plain": {...}, "dist": {...}} of a cell from its subprocess."""
+    z = np.load(models["dir"] / f"{name}.npz")
+    out = {"plain": {}, "dist": {}}
+    for key in z.files:
+        run, _, leaf = key.partition("/")
+        out[run][leaf] = z[key]
+    return out
+
+
+def _jax_run(low, params, args: tuple) -> dict:
+    """The JAX lowering's ``fn`` (under ``jax.jit``) as ``_run_cell``
+    reports the port's."""
+    from repro.train.train_state import init_train_state
+
+    fn = jax.jit(low.fn)
+    if low.kind == "train":
+        new, metrics = fn(init_train_state(params, _ref_opt()), *args)
+        out = {f"params/{k}": v for k, v in _np_paths(new["params"]).items()}
+        out.update({f"m/{k}": v
+                    for k, v in _np_paths(new["opt"]["m"]).items()})
+        out["loss"] = np.asarray(metrics["loss"])
+        out["grad_norm"] = np.asarray(metrics["grad_norm"])
+        return out
+    return {"out": np.asarray(fn(params, *args))}
+
+
+def _jax_recsys_cell(d: Path, arch_id: str, shape: str) -> dict:
+    from repro.configs import common as ref_common
+
+    kind = cases.RECSYS_KINDS[arch_id]
+    cfg = _ref_smoke_cfg(arch_id)
+    low = ref_common.recsys_arch(arch_id, kind, cfg, cfg,
+                                 _ref_opt()).lowering(shape, MODEL_MESH)
+    params = _jax_params(d, arch_id)
+    batch = {k: jnp.asarray(v) for k, v in
+             cases.recsys_batch(kind, cfg, shape).items()}
+    args = (batch["user_ids"], batch["cand_ids"]) if "cand_ids" in batch \
+        else (batch,)
+    return _jax_run(low, params, args)
+
+
+def _jax_nequip_cell(d: Path, shape: str) -> dict:
+    from repro.configs import common as ref_common
+    from repro.configs import nequip as ref_nqc
+
+    smoke = ref_nqc._smoke()
+    low = ref_common.gnn_arch("nequip", smoke, smoke, _ref_opt()).lowering(
+        shape, MODEL_MESH)
+    batch = {k: jnp.asarray(v) for k, v in
+             cases.graph_batch(ref_common.GNN_SHAPES[shape]).items()}
+    return _jax_run(low, _jax_params(d, f"nequip|{shape}"), (batch,))
+
+
+def _jax_params(d: Path, name: str) -> dict:
+    """The saved parameters as the JAX tree the initialiser built."""
+    z = np.load(d / "params" / f"{name}.npz")
+    return _nested({k: jnp.asarray(z[k]) for k in z.files})
+
+
+def _nested(flat: dict) -> dict:
+    """{"a/0/b": x} as nested dicts, and lists where every key of a level
+    is an index of the JAX initialisers' layer lists (``layers``)."""
+    root: dict = {}
+    for path, leaf in flat.items():
+        node = root
+        *parts, last = path.split("/")
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+
+    def lists(node, key=None):
+        if not isinstance(node, dict):
+            return node
+        out = {k: lists(v, k) for k, v in node.items()}
+        if key == "layers":
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return lists(root)
+
+
+def _assert_cell(got: dict, want: dict, exact: bool) -> None:
+    plain, mesh = got["plain"], got["dist"]
+    assert set(plain) == set(mesh) == set(want), (sorted(plain),
+                                                   sorted(want))
+    for key, w in want.items():
+        if exact:
+            assert mesh[key].tobytes() == plain[key].tobytes(), key
+        else:
+            np.testing.assert_allclose(
+                mesh[key], plain[key], **(MOMENT_F32 if key.startswith("m/")
+                                          else MESH_F32),
+                err_msg=f"mesh vs plain {key}")
+        tol = STEP_F32 if key.startswith("params/") else MOMENT_F32 \
+            if key.startswith("m/") else JAX_F32
+        np.testing.assert_allclose(mesh[key], w, **tol,
+                                   err_msg=f"mesh vs JAX {key}")
+
+
 # -- (d) TestSPMDExecution counterparts on gloo -------------------------------
 class TestSPMDExecution:
     def test_sharded_train_step_matches_single_device(self, tmp_path):
@@ -444,6 +721,84 @@ class TestSPMDExecution:
         assert res["restarts"] == 1 and res["step"] == 6
         assert res["err"] < 1e-5
         assert res["placements"] == ["R", "S(1)"]
+
+    # -- the models on the mesh: one subprocess of 4 ranks a family --------
+    @pytest.mark.parametrize("shape", cases.RECSYS_SHAPES)
+    @pytest.mark.parametrize("arch_id", tuple(cases.RECSYS_KINDS))
+    def test_recsys_cell_on_the_mesh(self, recsys_models, arch_id, shape):
+        """The cell's ``fn`` on DTensors over a (2, 2) mesh against the
+        same ``fn`` on plain tensors in one process (bit for bit where no
+        reduction crosses ranks: DLRM and DeepFM serving, one id a bag;
+        else ``MESH_F32``), and against the JAX lowering's ``fn`` from the
+        same weights and batch (``STEP_F32`` for a step's parameters,
+        ``JAX_F32`` for outputs and the loss)."""
+        got = _cell_results(recsys_models, f"{arch_id}|{shape}")
+        want = recsys_models["jax"][arch_id, shape]
+        _assert_cell(got, want, exact=cases.RECSYS_KINDS[arch_id] !=
+                     "twotower" and shape != "train_batch")
+
+    def test_recsys_ranks_read_only_their_rows(self, recsys_models):
+        """Each rank's B6 and B1 calls on the mesh were handed its own
+        rows of each row-sharded table (half of them on the 2-way
+        "model" axis), and each rank holds only those."""
+        res = recsys_models["result"]
+        rows = {"dlrm-rm2": 4 * 128 // 2, "deepfm": 6 * 64 // 2,
+                "two-tower-retrieval": 128 // 2}
+        kernel = {"dlrm-rm2": "gather_rows_bag", "deepfm": "gather_rows_bag",
+                  "two-tower-retrieval": "gather_rows"}
+        for arch_id, per_rank in res["rows_seen"].items():
+            assert len(per_rank) == cases.MODEL_WORLD
+            for seen in per_rank:
+                assert seen == [[kernel[arch_id], rows[arch_id]]], \
+                    (arch_id, seen)
+        assert res["local_tables"] == {
+            "dlrm-rm2": {"bags/tables": [4, 64, 8]},
+            "deepfm": {"bags/tables": [6, 32, 4],
+                       "linear/tables": [6, 32, 1]},
+            "two-tower-retrieval": {"user_embed/table": [64, 16],
+                                    "item_embed/table": [64, 16]}}
+
+    @pytest.mark.parametrize("shape", cases.GNN_SHAPES)
+    def test_nequip_cell_on_the_mesh(self, nequip_models, shape):
+        """One NequIP train step on DTensors (nodes and edges sharded 4
+        ways, the message sums B7 on each rank's edges then
+        reduce-scattered) against the plain step (``MESH_F32``) and the
+        JAX step (``STEP_F32``; the loss ``JAX_F32``)."""
+        got = _cell_results(nequip_models, f"nequip|{shape}")
+        want = nequip_models["jax"][shape]
+        _assert_cell(got, want, exact=False)
+
+    def test_segments_on_rows_that_do_not_split_evenly(self,
+                                                        nequip_models):
+        """B7's sums and gathers on the (2, 2) mesh over 7 node rows
+        (2, 2, 2, 1 a rank, ``DTensor``'s layout), their gradient and its
+        gradient, in float64: within 1e-12 of the plain run (the ranks'
+        sums add in another order)."""
+        errs = nequip_models["result"]["uneven"]
+        assert set(errs) == {"sums", "grad", "grad_grad"}
+        assert max(errs.values()) < 1e-12, errs
+
+    @pytest.mark.parametrize("shape", cases.PRODUCTION_GRAPHS)
+    @pytest.mark.parametrize("sizes", ((16, 16), (2, 16, 16)))
+    def test_graph_cell_on_a_production_mesh(self, nequip_models, sizes,
+                                             shape):
+        """The cell's train step at its published node and edge counts
+        runs on the JAX production mesh (a fake process group of 256 or
+        512 ranks, one of them here): a molecule batch's 128 per-graph
+        energies over 256 ranks split unevenly.  The parameters keep
+        their local shapes and placements; loss and gradient norm are
+        scalars."""
+        got = nequip_models["production"][f"{tuple(sizes)}|{shape}"]
+        assert got == {"same_layout": True, "loss": [], "grad_norm": []}
+
+    def test_cells_on_a_one_rank_mesh_are_bit_equal(self, nequip_models):
+        """On a (1, 1) mesh no reduction crosses ranks: each of the 16
+        cells' ``fn`` on DTensors equals its plain-tensor run to the
+        bit (the contract the card's ``sharded_models`` phase holds at
+        published width)."""
+        res = nequip_models["one_rank"]
+        assert len(res["cells"]) == 16
+        assert res["differ"] == {}
 
     def test_elastic_checkpoint_reshard(self, tmp_path):
         """Save on a (4, 2) mesh, restore onto (2, 4)."""

@@ -1,7 +1,7 @@
 """NequIP training on the port == the JAX package's, on the CPU.
 
 On the CPU kernel B7 (``segment_sum``) runs its plain version.  Its
-backward is ``_SegmentGather`` (``grad_out[ids]``), whose own backward
+backward is the op ``segment_gather`` (``grad_out[ids]``), whose own backward
 is ``segment_sum`` again over the same ids or plan: ``gradgradcheck``
 holds both in float64 with ``-1`` ids.  ``nequip_loss`` is held against
 the JAX ``nequip_loss`` in all three branches (``node_class`` with a

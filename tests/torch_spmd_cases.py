@@ -14,6 +14,7 @@ counterparts of ``tests/test_distributed.py::TestSPMDExecution``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 from pathlib import Path
@@ -289,12 +290,456 @@ def case_save_for_foreign(rank: int, world: int, d: Path) -> dict:
     return {"saved": True}
 
 
+# -- the models on the mesh --------------------------------------------------
+# DLRM-RM2, DeepFM and two-tower (B6, B1) and NequIP (B7) at their smoke
+# configurations, every cell's ``Lowering.fn`` run once on a (2, 2)
+# ("data", "model") mesh of 4 ranks and once on plain tensors in the
+# same process, from parameters the test drew with the JAX initialisers
+# (``DIR/params/<name>.npz``, keyed by the JAX paths).  Rank 0 writes
+# both results of each cell to ``DIR/<arch>|<shape>.npz``.
+MODEL_WORLD = 4
+RECSYS_KINDS = {"dlrm-rm2": "dlrm", "deepfm": "deepfm",
+                "two-tower-retrieval": "twotower"}
+RECSYS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+# The rows of each recsys cell's batch (the candidates of
+# ``retrieval_cand``), and the nodes and edges of each graph.
+CELL_ROWS = {"train_batch": 8, "serve_p99": 8, "serve_bulk": 16,
+             "retrieval_cand": 16}
+GRAPH_NODES, GRAPH_EDGES = 32, 64
+# The train cells' optimizer: AdamW with a short warmup, so one step
+# moves every parameter well off its start.
+MODEL_OPT = dict(kind="adamw", lr=1e-3, warmup_steps=2, total_steps=10)
+
+
+def recsys_batch(kind: str, cfg, shape: str) -> dict:
+    """A numpy batch of a recsys cell, drawn from the seed; for two-tower
+    ``retrieval_cand``, ``user_ids`` (1,) and ``cand_ids``."""
+    rng = np.random.default_rng(SEED)
+    b = CELL_ROWS[shape]
+    if kind == "twotower":
+        if shape == "retrieval_cand":
+            return {"user_ids": rng.integers(0, cfg.n_users, 1).astype(
+                        np.int32),
+                    "cand_ids": rng.integers(0, cfg.n_items, b).astype(
+                        np.int32)}
+        out = {"user_ids": rng.integers(0, cfg.n_users, b).astype(np.int32),
+               "item_ids": rng.integers(0, cfg.n_items, b).astype(np.int32)}
+        out["item_logq"] = -np.log1p(out["item_ids"]).astype(np.float32)
+        return out
+    n_slots = getattr(cfg, "bag_size", 1)
+    out = {"bags": rng.integers(0, cfg.rows, (b, cfg.n_sparse, n_slots))
+           .astype(np.int32)}
+    if kind == "dlrm":
+        out["dense"] = rng.normal(size=(b, cfg.n_dense)).astype(np.float32)
+    if shape == "train_batch":
+        out["labels"] = rng.integers(0, 2, b).astype(np.float32)
+    return out
+
+
+def graph_batch(info: dict) -> dict:
+    """A numpy batch of a NequIP cell (``GNN_SHAPES[shape]``), drawn from
+    the seed: ``GRAPH_NODES`` nodes, ``GRAPH_EDGES`` edges of which the
+    last 5 are padding (-1), and the shape's readout's targets (an
+    energy cell's nodes in graphs of 4, its ``n_graphs`` kept)."""
+    rng = np.random.default_rng(SEED)
+    n, e = GRAPH_NODES, GRAPH_EDGES
+    out = {"node_feat": rng.normal(size=(n, info["d_feat"])).astype(
+               np.float32),
+           "positions": rng.uniform(0, 3, (n, 3)).astype(np.float32),
+           "edge_index": rng.integers(0, n, (2, e)).astype(np.int32)}
+    out["edge_index"][:, -5:] = -1
+    if info["readout"] == "node_class":
+        out["labels"] = rng.integers(0, info["n_out"], n).astype(np.int32)
+        out["label_mask"] = (rng.random(n) < 0.8).astype(np.float32)
+    else:
+        out["graph_ids"] = (np.arange(n) // 4).astype(np.int32)
+        out["energy"] = rng.normal(size=(info["n_graphs"],)).astype(
+            np.float32)
+        out["forces"] = rng.normal(size=(n, 3)).astype(np.float32)
+    return out
+
+
+def _load_model(cls, cfg, path: Path):
+    """A model on the CPU holding the parameters of ``path`` (JAX paths)."""
+    from repro_torch import carry
+
+    model = cls(cfg, device="cpu")
+    arrays = np.load(path)
+    params = carry.model_params(model)
+    assert set(arrays.files) == set(params), (sorted(arrays.files),
+                                              sorted(params))
+    with torch.no_grad():
+        for key, p in params.items():
+            p.copy_(torch.from_numpy(arrays[key]))
+    return model
+
+
+def _full(x) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
+    return x.detach().cpu().numpy()
+
+
+def _run_cell(low, model, args: tuple, mesh, seen: list | None = None,
+              launches: dict | None = None) -> tuple[dict, dict]:
+    """``low.fn`` on ``model``'s parameters (for a train cell, its fresh
+    AdamW state) and ``args``, on plain tensors and then as DTensors
+    under ``low.in_specs`` on ``mesh``: the two results as {name: numpy}
+    (a train cell's parameters after the step and its loss; a serving
+    cell's output).  A train cell's result also holds the step's
+    ``grad_norm`` and AdamW's first moment ``m/<name>`` of each parameter,
+    which a gradient scaled by a rank count would move.  With ``seen``,
+    the rows B1 and B6 are handed in the mesh run (``_rows_seen``); with
+    ``launches``, each run's kernel launches (``"plain"``, ``"mesh"``)."""
+    from repro_torch.kernels import LAUNCHES
+
+    import copy
+
+    from repro_torch import carry
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.train_state import init_train_state
+
+    params = {k: v.detach().clone()
+              for k, v in carry.model_params(model).items()}
+    if low.kind == "train":
+        # The same start for both runs, sharing no storage with each
+        # other or with the model.
+        state = init_train_state(params, OptimizerConfig(**MODEL_OPT))
+        placed = carry.distribute_state(copy.deepcopy(state), mesh,
+                                        low.in_specs[0])
+        args = (state,) + args
+        dargs = (placed,) + tuple(carry.distribute_state(a, mesh, s) for a, s
+                                  in zip(args[1:], low.in_specs[1:]))
+    else:
+        args = (params,) + args
+        dargs = tuple(carry.distribute_state(a, mesh, s)
+                      for a, s in zip(args, low.in_specs))
+    results = []
+    for run, run_args, ctx in (("plain", args, contextlib.nullcontext()),
+                               ("mesh", dargs, mesh_context(mesh))):
+        before = dict(LAUNCHES)
+        with ctx, (_rows_seen(seen) if seen is not None and
+                   run_args is dargs else contextlib.nullcontext()):
+            out = low.fn(*run_args)
+        if launches is not None:
+            launches[run] = {k: v - before[k] for k, v in LAUNCHES.items()
+                             if v != before[k]}
+        if low.kind == "train":
+            new, metrics = out
+            res = {f"params/{k}": _full(v) for k, v in new["params"].items()}
+            # AdamW's first step moves each element by lr·sign(g): the
+            # gradient's norm and first moment see its magnitude.
+            res.update({f"m/{k}": _full(v)
+                        for k, v in new["opt"]["m"].items()})
+            res["loss"] = _full(metrics["loss"])
+            res["grad_norm"] = _full(metrics["grad_norm"])
+        else:
+            res = {"out": _full(out)}
+        results.append(res)
+    return results[0], results[1]
+
+
+@contextlib.contextmanager
+def _rows_seen(seen: list):
+    """Record the rows of each table B1 and B6 are handed (their plain
+    versions on the CPU) while the block runs."""
+    from repro_torch.kernels.gather import ref
+
+    real = {name: getattr(ref, name) for name in ("gather_rows",
+                                                  "gather_rows_bag")}
+
+    def wrap(name):
+        def rec(table, ids):
+            seen.append((name, int(table.shape[0])))
+            return real[name](table, ids)
+        return rec
+
+    try:
+        for name in real:
+            setattr(ref, name, wrap(name))
+        yield seen
+    finally:
+        for name, fn in real.items():
+            setattr(ref, name, fn)
+
+
+def _write(d: Path, rank: int, name: str, plain: dict, dist_: dict) -> None:
+    if rank == 0:
+        np.savez(d / f"{name}.npz", **{f"plain/{k}": v
+                                       for k, v in plain.items()},
+                 **{f"dist/{k}": v for k, v in dist_.items()})
+
+
+def case_recsys_models(rank: int, world: int, d: Path) -> dict:
+    """Every cell of DLRM-RM2, DeepFM and two-tower on the (2, 2) mesh
+    and on plain tensors; the rows each rank's B1 and B6 calls were
+    handed on the mesh, and each table's local shape."""
+    from repro_torch import carry
+    from repro_torch.configs import common
+    from repro_torch.configs import train as tc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    mesh = make_host_mesh(data=2, model=2)
+    opt = OptimizerConfig(**MODEL_OPT)
+    out = {"rows_seen": {}, "local_tables": {}}
+    for arch_id, kind in RECSYS_KINDS.items():
+        cfg = tc.module_of(arch_id)._smoke()
+        arch = common.recsys_arch(arch_id, kind, cfg, cfg, opt)
+        model = _load_model(tc._MODELS[kind], cfg,
+                            d / "params" / f"{arch_id}.npz")
+        seen: list = []
+        for shape in RECSYS_SHAPES:
+            low = arch.lowering(shape, mesh)
+            batch = {k: torch.from_numpy(v)
+                     for k, v in recsys_batch(kind, cfg, shape).items()}
+            args = (batch["user_ids"], batch["cand_ids"]) \
+                if "cand_ids" in batch else (batch,)
+            plain, dist_ = _run_cell(low, model, args, mesh, seen)
+            _write(d, rank, f"{arch_id}|{shape}", plain, dist_)
+        everyone = [None] * world
+        dist.all_gather_object(everyone, sorted(set(seen)))
+        out["rows_seen"][arch_id] = everyone
+        low = arch.lowering("train_batch", mesh)
+        placed = carry.distribute_state(
+            {k: v.detach() for k, v in carry.model_params(model).items()},
+            mesh, low.in_specs[0]["params"])
+        out["local_tables"][arch_id] = {
+            k: list(v.to_local().shape) for k, v in placed.items()
+            if "table" in k}
+    return out
+
+
+def case_nequip_models(rank: int, world: int, d: Path) -> dict:
+    """Every NequIP cell (one train step each) on the (2, 2) mesh and on
+    plain tensors; the segment plans' local edge counts."""
+    from repro_torch.configs import common
+    from repro_torch.configs import nequip as nqc
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import nequip as nq
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    mesh = make_host_mesh(data=2, model=2)
+    smoke = nqc._smoke()
+    arch = common.gnn_arch("nequip", smoke, smoke,
+                           OptimizerConfig(**MODEL_OPT))
+    for shape in GNN_SHAPES:
+        model = _load_model(nq.NequIP, nqc.for_shape(shape, smoke=True),
+                            d / "params" / f"nequip|{shape}.npz")
+        low = arch.lowering(shape, mesh)
+        batch = {k: torch.from_numpy(v)
+                 for k, v in graph_batch(common.GNN_SHAPES[shape]).items()}
+        plain, dist_ = _run_cell(low, model, (batch,), mesh)
+        _write(d, rank, f"nequip|{shape}", plain, dist_)
+    return {"shapes": list(GNN_SHAPES), "uneven": _uneven_rows(mesh)}
+
+
+def _uneven_rows(mesh) -> dict:
+    """``segment_gather`` then ``segment_sum`` over 7 segments, rows that
+    split 2, 2, 2, 1 over the 4 ranks (as a readout's per-graph sums
+    may), and 36 edges, in float64; the mean square of the sums
+    differentiated with ``create_graph`` and the gradient's square sum
+    differentiated again.  The largest difference of each of the three
+    from the plain run."""
+    from repro_torch.distributed.sharding import P, named
+    from repro_torch.kernels.segment import ops as sops
+    from torch.distributed.tensor import distribute_tensor
+
+    gen = torch.Generator().manual_seed(SEED)
+    n, e = 7, 36
+    ids = torch.randint(-1, n, (e,), generator=gen, dtype=torch.int32)
+    values = torch.randn(n, 3, generator=gen, dtype=torch.float64)
+
+    def run(v, i):
+        plan = sops.segment_plan(i, n)
+        out = sops.segment_sum(sops.segment_gather(v, plan, n) ** 2,
+                               plan, n)
+        (gv,) = torch.autograd.grad(out.square().mean(), v,
+                                    create_graph=True)
+        (ggv,) = torch.autograd.grad(gv.square().sum(), v)
+        return out, gv, ggv
+
+    axes = ("data", "model")
+    plain = run(values.clone().requires_grad_(True), ids)
+    v = distribute_tensor(values, *named(mesh, P(axes, None)))
+    got = run(v.requires_grad_(True),
+              distribute_tensor(ids, *named(mesh, P(axes))))
+    return {name: float((g.full_tensor() - w).abs().max())
+            for name, g, w in zip(("sums", "grad", "grad_grad"), got, plain)}
+
+
+# The graphs run at their published sizes on the production meshes: one
+# of each readout.  full_graph_sm's layout is minibatch_lg's (node rows
+# that split evenly, a node-class readout), and ogb_products' 2.4 M node
+# rows, summed whole on one process, would take gigabytes of memory.
+PRODUCTION_GRAPHS = ("minibatch_lg", "molecule")
+
+
+def _local_leaf(key: str, spec, meta: torch.Tensor, mesh, info: dict,
+                gen: torch.Generator):
+    """A ``DTensor`` of ``meta``'s global shape and dtype placed under
+    ``spec`` on ``mesh``, holding only this rank's part, drawn for the
+    leaf ``key`` of a NequIP cell's (state, batch): node ids of its graph
+    for ``edge_index``, each node's graph for ``graph_ids``, classes for
+    ``labels``, zeros for the optimizer's state, else normal values."""
+    from repro_torch.distributed.sharding import named, shard_ranges
+    from torch.distributed.tensor import DTensor
+
+    sharding = named(mesh, spec)
+    ranges = [shard_ranges(size, sharding.device_mesh, sharding.placements,
+                           dim)[-1] for dim, size in enumerate(meta.shape)]
+    shape = tuple(hi - lo for lo, hi in ranges)
+    leaf = key.rsplit("/", 1)[-1]
+    if leaf == "edge_index":
+        local = torch.randint(0, info["n_nodes"], shape, generator=gen,
+                              dtype=meta.dtype)
+    elif leaf == "graph_ids":
+        lo, hi = ranges[0]
+        local = (torch.arange(lo, hi) * info["n_graphs"]
+                 // info["n_nodes"]).to(meta.dtype)
+    elif leaf == "labels":
+        local = torch.randint(0, info["n_out"], shape, generator=gen,
+                              dtype=meta.dtype)
+    elif key.startswith("opt/") or not meta.dtype.is_floating_point:
+        local = torch.zeros(shape, dtype=meta.dtype)
+    else:
+        local = 0.1 * torch.randn(shape, generator=gen, dtype=meta.dtype)
+    stride = torch.empty(meta.shape, device="meta").stride()
+    return DTensor.from_local(local, sharding.device_mesh,
+                              sharding.placements, run_check=False,
+                              shape=meta.shape, stride=stride)
+
+
+def _placed_tree(tree, specs, leaf_fn, path: str = ""):
+    """``leaf_fn(path, spec, leaf)`` for each leaf of a nested dict, its
+    path the keys joined by "/"."""
+    if isinstance(tree, dict):
+        return {k: _placed_tree(v, specs[k], leaf_fn,
+                                f"{path}/{k}" if path else k)
+                for k, v in tree.items()}
+    return leaf_fn(path, specs, tree)
+
+
+def case_production_graphs(rank: int, world: int, d: Path) -> dict:
+    """Each graph of ``PRODUCTION_GRAPHS``: one train step of its cell's
+    ``fn`` (smoke trunk, published node and edge counts and readout) on
+    the JAX production meshes, (16, 16) and (2, 16, 16), as rank 0 of a
+    fake process group of the mesh's size (collectives move nothing, so
+    no value is checked: what runs is the layout, every rank's shard
+    shapes, the uneven ones included).  The new parameters' local
+    shapes and placements against the given ones, and the loss's and
+    ``grad_norm``'s shapes, by mesh and graph."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs import common
+    from repro_torch.configs import nequip as nqc
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    smoke = nqc._smoke()
+    arch = common.gnn_arch("nequip", smoke, smoke,
+                           OptimizerConfig(**MODEL_OPT))
+    out = {}
+    for multi_pod in (False, True):
+        sizes = make_production_mesh(multi_pod=multi_pod).axis_sizes
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=int(np.prod(sizes)))
+        try:
+            mesh = make_host_mesh(*sizes[-2:],
+                                  pod=sizes[0] if multi_pod else None)
+            for shape in PRODUCTION_GRAPHS:
+                low = arch.lowering(shape, mesh)
+                gen = torch.Generator().manual_seed(SEED)
+                specs = shd.sanitize_specs(low.in_specs, low.args, mesh)
+                placed = [_placed_tree(
+                    t, s, lambda k, sp, m: _local_leaf(
+                        k, sp, m, mesh, common.GNN_SHAPES[shape], gen))
+                    for t, s in zip(low.args, specs)]
+                before = {k: (tuple(v.to_local().shape), str(v.placements))
+                          for k, v in placed[0]["params"].items()}
+                new, metrics = low.fn(*placed)
+                after = {k: (tuple(v.to_local().shape), str(v.placements))
+                         for k, v in new["params"].items()}
+                out[f"{sizes}|{shape}"] = {
+                    "same_layout": before == after,
+                    "loss": list(metrics["loss"].shape),
+                    "grad_norm": list(metrics["grad_norm"].shape)}
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+ONE_RANK_CELLS = tuple((a, s) for a in RECSYS_KINDS for s in RECSYS_SHAPES) \
+    + tuple(("nequip", s) for s in GNN_SHAPES)
+
+
+def smoke_cell(arch_id: str, shape: str, mesh, device: str = "cpu"):
+    """(the cell's lowering, a model of its smoke configuration with
+    seeded weights on ``device``, the arguments of its ``fn`` after the
+    parameters or state): the cells of ``ONE_RANK_CELLS``, with this
+    module's batches and ``MODEL_OPT``."""
+    from repro_torch.configs import common
+    from repro_torch.configs import nequip as nqc
+    from repro_torch.configs import train as tc
+    from repro_torch.models import nequip as nq
+    from repro_torch.train.optimizer import OptimizerConfig
+
+    opt = OptimizerConfig(**MODEL_OPT)
+    if arch_id == "nequip":
+        smoke = nqc._smoke()
+        arch = common.gnn_arch("nequip", smoke, smoke, opt)
+        model = nq.NequIP(nqc.for_shape(shape, smoke=True), device=device,
+                          seed=SEED)
+        host = graph_batch(common.GNN_SHAPES[shape])
+    else:
+        kind = RECSYS_KINDS[arch_id]
+        cfg = tc.module_of(arch_id)._smoke()
+        arch = common.recsys_arch(arch_id, kind, cfg, cfg, opt)
+        model = tc._MODELS[kind](cfg, device=device, seed=SEED)
+        host = recsys_batch(kind, cfg, shape)
+    batch = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+    args = (batch["user_ids"], batch["cand_ids"]) if "cand_ids" in batch \
+        else (batch,)
+    return arch.lowering(shape, mesh), model, args
+
+
+def case_one_rank_models(rank: int, world: int, d: Path) -> dict:
+    """Every cell of the four models (seeded smoke weights) on a (1, 1)
+    mesh of one rank and on plain tensors: the cells whose results
+    differ in any bit (a mesh of one reduces nothing)."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh(data=1, model=1)
+    differ = {}
+    for arch_id, shape in ONE_RANK_CELLS:
+        plain, on_mesh = _run_cell(*smoke_cell(arch_id, shape, mesh), mesh)
+        bad = sorted(k for k in plain
+                     if plain[k].tobytes() != on_mesh[k].tobytes())
+        if bad:
+            differ[f"{arch_id}|{shape}"] = bad
+    return {"cells": [f"{a}|{s}" for a, s in ONE_RANK_CELLS],
+            "differ": differ}
+
+
 CASES = {name[5:]: fn for name, fn in globals().items()
          if name.startswith("case_")}
 
 
+# Cases that set up their own process groups.
+OWN_GROUPS = ("production_graphs",)
+
+
 def _rank(rank: int, case: str, world: int, d: str) -> None:
     torch.set_num_threads(1)
+    if case in OWN_GROUPS:
+        result = CASES[case](rank, world, Path(d))
+        (Path(d) / "result.json").write_text(json.dumps(result))
+        return
     dist.init_process_group("gloo", init_method=f"file://{d}/store",
                             rank=rank, world_size=world)
     try:
