@@ -105,10 +105,12 @@ and then, printing one JSON line per phase:
                faults (ids shifted by one, no L2 norm) outside it; one
                profiled ``retrieval_cand`` call.  BERT4Rec: 1 + 8
                ``serve_p99`` calls ((512, 200) histories → (512, 2²⁰)
-               logits) and ``retrieval_cand`` calls ((1, 200)), plain
-               PyTorch and cuBLAS; 9 rows within ``BERT_F64_MAX`` of a
-               float64 CPU forward, two planted faults (a causal mask,
-               no learned positions) outside it; one profiled p99 call;
+               logits) and ``retrieval_cand`` calls ((1, 200)), each
+               two B1 launches (the items' and positions' embeddings),
+               the rest plain PyTorch and cuBLAS; 9 rows within
+               ``BERT_F64_MAX`` of a float64 CPU forward, two planted
+               faults (a causal mask, no learned positions) outside it;
+               one profiled p99 call;
                then 4 requests behind ``ServeEngine`` within the 200
                positions, each decode round one B8 launch a layer on
                its CUDA-core kernel (float32, G = 1, Dh = 32), the
@@ -202,7 +204,11 @@ and then, printing one JSON line per phase:
                prompts of 512-2048 tokens and 16-48 new tokens each, so
                admission runs mid-stream; every decode round is one
                paged_decode_attention (B8) launch per layer, every one of
-               them on B8's tensor-core kernel.  Every B8
+               them on B8's tensor-core kernel, and one gather_rows (B1)
+               launch a prefill and a round for the token embeddings,
+               each held byte for byte against B1's plain version when
+               it is made (the ids' span comes from the engine's host
+               copy: nothing is read back to check them).  Every B8
                call is held against B8's plain version inside the call
                (the pool changes after it) within the bf16 tolerance of
                the JAX kernel tests; the first round's logits with the
@@ -231,12 +237,14 @@ and then, printing one JSON line per phase:
                mid-stream.  Arctic's decode rounds are one B8 launch a
                layer, every one on the tensor-core kernel at G = 7 and
                held against B8's plain version inside the call;
-               DeepSeek's path launches no kernel of the port (MLA's
-               absorbed paged decode and the MoE layers are plain
-               PyTorch and cuBLAS).  The routing of every MoE layer at
-               the first prefill of each group branch and at the first
-               decode round is byte-equal to the same routing run on the
-               CPU from the card's float32 logits; the first decode
+               DeepSeek's path launches no kernel of the port but B1
+               (the token embeddings, one launch a prefill and a round,
+               each held against its plain version; MLA's absorbed
+               paged decode and the MoE layers are plain PyTorch and
+               cuBLAS).  The routing of every MoE layer at the first
+               prefill of each group branch and at the first decode
+               round is byte-equal to the same routing run on the CPU
+               from the card's float32 logits; the first decode
                round's MoE layers agree with a plain per-token
                formulation within ``MOE_LAYER_*`` and two planted faults
                (a dropped second choice, swapped gates) fall outside;
@@ -282,6 +290,26 @@ and then, printing one JSON line per phase:
                mesh runs' first step or forward held against its plain
                version when it is made; each run's seconds, step times
                and peak memory;
+11b3. sharded_lm — on another NCCL group of one rank, ``make_host_mesh(1,
+               1)``, the decoders' cells through their ``Lowering.fn``,
+               first on plain tensors and then on the same tensors
+               wrapped as DTensors (``on_one_rank``: no copy; a cache
+               or a train state drawn again from the seed), both in
+               deterministic mode: GLM-4 9B at published width, bf16
+               (``long_500k`` at full size, 524,288 positions and 21.5
+               GB of cache; ``decode_32k`` with 8 rows; ``prefill_32k``
+               with 1 row, on the first 8 layers; ``train_4k`` at 8
+               layers and 8 rows of 4,096),
+               DeepSeek-V3 and Arctic at the depths of phase 11
+               (``long_500k``, ``decode_32k`` 8 rows, ``prefill_32k`` 1
+               row with a q chunk of ``SHARDED_MOE_Q_CHUNK``;
+               ``train_4k`` at smoke width), BERT4Rec at published
+               width (``serve_p99``, ``retrieval_cand``, ``serve_bulk``
+               cut to ``SHARDED_BERT_BULK`` rows, ``train_batch`` at
+               ``BERT_TRAIN_ROWS``): logits, caches, scores or
+               parameters byte-equal, the same B1 launches, every B1
+               call of a mesh run held against its plain version when
+               it is made; each run's seconds and peak memory;
 11c. analysis — the port's CLI gate, ``python -m repro_torch.analysis
                --all --device cuda``, in process from a temporary working
                directory: the lint, the lock checker and the self-check,
@@ -341,11 +369,12 @@ The launch counters are reset just before each path (phases 2-3, the
 plain extract, 5, 6, 7, each model of 8, two-tower, BERT4Rec and
 BERT4Rec's engine in 8b, each model's supervised steps in 8c and 8d,
 each shape of 9, the engine and the launcher of 10, each model of 11,
-11b, each mesh run of 11b2, 11c, each example of 11d)
+11b, each mesh run of 11b2 and 11b3, 11c, each example of 11d)
 and read just after it, so the counts show that each path ran through
 its kernels; checks against the plain versions come after the counts
 are read, except B8's, which run inside each call (and phase 11's
-routing records), and 11b2's, made at each call of a first step.  ``chip_lm_moe.py`` runs phase 11 alone at several
+routing records), and 11b2's and 11b3's, made at each call of a mesh
+run's first step.  ``chip_lm_moe.py`` runs phase 11 alone at several
 seeds, ``chip_retrieval.py`` phase 8b.  The last line is
 ``{"ok": true, "device": {...}}``; any failure raises and the exit
 code is non-zero.
@@ -773,6 +802,20 @@ def swapped(module, name: str, fn):
         yield
     finally:
         setattr(module, name, old)
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches made while the block runs (a path step run again
+    to compare it with its plain version) left out of ``LAUNCHES``."""
+    from repro_torch.kernels import LAUNCHES
+
+    saved = dict(LAUNCHES)
+    try:
+        yield
+    finally:
+        for name in list(LAUNCHES):
+            LAUNCHES[name] = saved.get(name, 0)
 
 
 @contextlib.contextmanager
@@ -1527,8 +1570,11 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
             lambda: recsys.bert4rec_score(params, cfg, one),
             1 + RETRIEVAL_TIMED)
         path_launches["retrieval_bert4rec"] = dict(LAUNCHES)
-        # Plain PyTorch and cuBLAS: no kernel of the port on this path.
-        assert sum(LAUNCHES.values()) == 0, LAUNCHES
+        # B1 twice a forward (the items' and the positions' embeddings);
+        # the rest plain PyTorch and cuBLAS.
+        n_calls = 2 * (1 + RETRIEVAL_TIMED)
+        assert {k: v for k, v in LAUNCHES.items() if v} == \
+            {"gather_rows": 2 * n_calls}, LAUNCHES
         path_peak = torch.cuda.max_memory_allocated() - held_before
         logits = p99[1]
         del p99
@@ -2758,10 +2804,10 @@ def train_bert4rec(dev, seed: int, path_launches: dict) -> dict:
     logits_bytes = h_m.shape[0] * h_m.shape[1] * cfg.vocab * 4
     del ce_calls, h_m, table, lab, w
 
-    # The path has no kernel: no launch is expected.
+    # B1 twice a step (the items' and the positions' embeddings).
     state, run, _ = supervised_run(
         step, state, lambda i: batches[i], 1 + steps, "train_bert4rec",
-        path_launches, {}, failed)
+        path_launches, {"gather_rows": 2 * (1 + steps)}, failed)
     masked = min(rs.MAX_MASKED, cfg.max_seq)
     ce_flops = 4 * 2 * rows * masked * cfg.d_model * cfg.vocab
     flops = 3 * decoder_flops(cfg, rows, cfg.max_seq) + ce_flops
@@ -2885,7 +2931,8 @@ def train_glm4(dev, seed: int, check, path_launches: dict) -> tuple:
 
     state, run, calls = supervised_run(
         step, state, source, 1 + steps, "train_glm4", path_launches,
-        {"gather_union_slices": 1 + steps}, failed,
+        {"gather_union_slices": 1 + steps,
+         "gather_rows": accum * (1 + steps)}, failed,
         record=lambda: recording(gk, "gather_union_slices", results=True))
     state_bytes = sum(t.numel() * t.element_size() for t in
                       ckpt.flatten_tree(state).values())
@@ -3493,7 +3540,8 @@ def replayed_round_ms(params, cfg, engine, host_plan, dev, n: int
             logits = tf.decode_paged(
                 params, cfg, engine.k_pool, engine.v_pool,
                 flat[nb * pmax + nb:], seq_lens - 1,
-                flat[:nb * pmax].view(nb, pmax), seq_lens)
+                flat[:nb * pmax].view(nb, pmax), seq_lens,
+                token_span=(int(tokens_np.min()), int(tokens_np.max())))
         torch.argmax(logits, dim=-1).tolist()
         out.append((time.perf_counter() - t) * 1e3)
     return out
@@ -3510,6 +3558,27 @@ def logits_gap(got, want, max_bound: float = LM_LOGITS_MAX,
     return gap
 
 
+def b1_held(tally: dict):
+    """A stand-in for B1's kernel on a serving path: each call made and
+    held byte for byte against B1's plain version on the same inputs
+    when it is made.  ``tally`` counts the calls and the mismatches and
+    adds up the seconds the checks took, which the path's timings leave
+    out."""
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
+
+    fn = gk.gather_rows
+
+    def held(table, ids, *a, **kw):
+        out = fn(table, ids, *a, **kw)
+        t = time.perf_counter()
+        tally["calls"] += 1
+        tally["bad"] += not bytes_equal(out, gref.gather_rows(table, ids))
+        tally["check_s"] += time.perf_counter() - t
+        return out
+    return held
+
+
 def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
     """Phase 10: GLM-4 9B at its published width in bf16 behind
     ``ServeEngine``, 24 requests through 16 slots; every decode round is
@@ -3524,6 +3593,7 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
 
     from repro_torch.configs import glm4_9b
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk
     from repro_torch.kernels.paged_attn import kernel as pak
     from repro_torch.kernels.paged_attn import ref as paref
     from repro_torch.launch import serve as launcher
@@ -3585,22 +3655,23 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
             b8["first"] = b8["last"]
         return out
 
-    def decode_rec(params_, cfg_, k_pool, v_pool, *plan):
+    def decode_rec(params_, cfg_, k_pool, v_pool, *plan, **kw):
         first = not rounds and not first_round
         if first:
             t = time.perf_counter()
             snap = (k_pool.clone(), v_pool.clone())
             torch.cuda.synchronize()
             b8["check_s"] += time.perf_counter() - t
-        logits = decode_fn(params_, cfg_, k_pool, v_pool, *plan)
+        logits = decode_fn(params_, cfg_, k_pool, v_pool, *plan, **kw)
         if first:
             # The same round on the pool as it was, B8's plain version
             # in B8's place.  The snapshot and these logits are kept for
             # the planted faults after the path: each decode writes its
             # own new K/V rows before it reads them.
             t = time.perf_counter()
-            with swapped(pak, "paged_decode_attention", plain_b8):
-                plain = decode_fn(params_, cfg_, *snap, *plan)
+            with swapped(pak, "paged_decode_attention", plain_b8), \
+                    uncounted():
+                plain = decode_fn(params_, cfg_, *snap, *plan, **kw)
             first_round.update(batch=int(logits.shape[0]), plan=plan,
                                host_plan=[plan[i].cpu().numpy()
                                           for i in (2, 3, 0)],
@@ -3613,12 +3684,13 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
                 decode_logits[rid].append(logits[i].clone())
         return logits
 
-    def prefill_rec(*a):
+    def prefill_rec(*a, **kw):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = prefill_fn(*a)
+        before = b1["check_s"]
+        out = prefill_fn(*a, **kw)
         torch.cuda.synchronize()
-        prefill_s.append(time.perf_counter() - t)
+        prefill_s.append(time.perf_counter() - t - (b1["check_s"] - before))
         rid = len(prefill_s) - 1             # admission is first come
         if rid in decode_logits:
             prefill_logits[rid] = out[0].clone()
@@ -3628,20 +3700,22 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
         live_rids[:] = list(engine.live)
         if not live_rids:
             return round_fn()
-        checks = b8["check_s"]
+        checks = b8["check_s"] + b1["check_s"]
         torch.cuda.synchronize()
         t = time.perf_counter()
         round_fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        check = b8["check_s"] - checks
+        check = b8["check_s"] + b1["check_s"] - checks
         rounds.append({"ms": (wall - check) * 1e3, "check_ms": check * 1e3,
                        "batch": len(live_rids),
                        "util": engine.pager.utilization})
 
     engine._decode_round = round_rec
+    b1 = {"calls": 0, "bad": 0, "check_s": 0.0}
     reset_launches()
     with swapped(pak, "paged_decode_attention", b8_checked), \
+            swapped(gk, "gather_rows", b1_held(b1)), \
             swapped(tf, "decode_paged", decode_rec), \
             swapped(tf, "prefill_paged", prefill_rec):
         for req in requests:
@@ -3659,8 +3733,13 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
     # Every B8 call of the path went to the tensor-core kernel.
     assert launches["paged_decode_attention_simt"] == 0, \
         "lm_serve: B8 took the CUDA-core kernel"
+    # B1 embeds each prefill's and each decode round's tokens, once; the
+    # first round run again with B8's plain version is not counted.
+    assert launches["gather_rows"] == LM_REQUESTS + n_rounds, launches
+    assert b1["calls"] == launches["gather_rows"] + 1 and not b1["bad"], \
+        f"lm_serve: B1 calls against the plain version: {b1}"
     others = {k: n for k, n in launches.items()
-              if n and k != "paged_decode_attention"}
+              if n and k not in ("paged_decode_attention", "gather_rows")}
     assert not others, f"lm_serve launched other kernels: {others}"
     assert sorted(r.rid for r in done) == list(range(LM_REQUESTS))
     for r in done:
@@ -3715,10 +3794,11 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
     nb = host_plan[0].shape[0]
     replay_ms = replayed_round_ms(params, cfg, engine, host_plan, dev,
                                   LM_REPLAYS)
+    span = (int(host_plan[2].min()), int(host_plan[2].max()))
     with torch.no_grad():
         profiled = device_profile(
             lambda: tf.decode_paged(params, cfg, engine.k_pool,
-                                    engine.v_pool, *plan),
+                                    engine.v_pool, *plan, token_span=span),
             named=("b8_kernel_ms", "paged_attn_tc_kernel"))
     del plan
     replay_p50 = float(np.median(replay_ms))
@@ -3761,6 +3841,7 @@ def lm_serve(dev, seed: int, card: str, path_launches: dict) -> dict:
            "b8_calls_checked": b8["calls"],
            "b8_max_abs_err": b8["max_abs_err"], "b8_rel_err": b8["rel_err"],
            "b8_tol": {**B8_BF16, "rel": B8_REL},
+           "b1_calls_byte_equal": b1["calls"],
            "first_round_plain_b8": first_round,
            "teacher_forced": forced, "replayed_first_round": replayed,
            "profiled_first_round": profiled,
@@ -4043,7 +4124,8 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
     ``MOE_REQUESTS`` requests through ``ServeEngine`` (``MOE_ENGINE``),
     then the checks: launches (GQA's decode is one B8 launch a layer,
     each on the tensor-core kernel and held against its plain version
-    inside the call; MLA's launches no kernel of the port), routing on
+    inside the call; MLA's launches no kernel of the port but B1's
+    token embeddings), routing on
     the card byte-equal to the CPU's on the same logits, the first
     decode round's MoE layers against ``moe_plain_layer`` (and two
     planted faults outside the bound), and two requests served dropless
@@ -4056,6 +4138,7 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
     import torch
 
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk
     from repro_torch.kernels.paged_attn import kernel as pak
     from repro_torch.models import moe
     from repro_torch.models import transformer as tf
@@ -4118,7 +4201,7 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
             layers.append((params_, x.clone(), out[0].clone()))
         return out
 
-    def prefill_rec(params_, cfg_, tokens, *a):
+    def prefill_rec(params_, cfg_, tokens, *a, **kw):
         s = tokens.shape[1]
         branch = "32 groups" if s % 32 == 0 else "1 group"
         first = branch not in want_prefill
@@ -4127,38 +4210,41 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
         stage["name"] = f"first prefill, {branch}" if first else None
         torch.cuda.synchronize()
         t = time.perf_counter()
-        before = checks[0]
-        out = prefill_fn(params_, cfg_, tokens, *a)
+        before = checks[0] + b1["check_s"]
+        out = prefill_fn(params_, cfg_, tokens, *a, **kw)
         torch.cuda.synchronize()
-        prefill_s.append(time.perf_counter() - t - (checks[0] - before))
+        prefill_s.append(time.perf_counter() - t
+                         - (checks[0] + b1["check_s"] - before))
         stage["name"] = None
         return out
 
-    def decode_rec(params_, cfg_, k_pool, v_pool, *plan):
+    def decode_rec(params_, cfg_, k_pool, v_pool, *plan, **kw):
         if not first_plan:
             first_plan.update(plan=plan, host=[plan[i].cpu().numpy()
                                                for i in (2, 3, 0)])
-        return decode_fn(params_, cfg_, k_pool, v_pool, *plan)
+        return decode_fn(params_, cfg_, k_pool, v_pool, *plan, **kw)
 
     def round_rec():
         if not engine.live:
             return round_fn()
         stage["name"] = "first decode round" if not rounds else None
         batch = len(engine.live)
-        before = checks[0]
+        before = checks[0] + b1["check_s"]
         torch.cuda.synchronize()
         t = time.perf_counter()
         round_fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        check = checks[0] - before
+        check = checks[0] + b1["check_s"] - before
         rounds.append({"ms": (wall - check) * 1e3, "check_ms": check * 1e3,
                        "batch": batch})
         stage["name"] = None
 
     engine._decode_round = round_rec
+    b1 = {"calls": 0, "bad": 0, "check_s": 0.0}
     reset_launches()
     with swapped(pak, "paged_decode_attention", b8_checked), \
+            swapped(gk, "gather_rows", b1_held(b1)), \
             swapped(moe, "route", route_rec), \
             swapped(tf, "moe_ffn", moe_rec), \
             swapped(tf, "prefill_paged", prefill_rec), \
@@ -4176,8 +4262,13 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
         assert launches["paged_decode_attention"] == \
             cfg.n_layers * n_rounds == b8["calls"], (launches, n_rounds)
         assert b8["groups"] == {cfg.n_heads // cfg.n_kv_heads}
+    # B1 embeds each prefill's and each decode round's tokens, once.
+    assert launches["gather_rows"] == MOE_REQUESTS + n_rounds, launches
+    assert b1["calls"] == launches["gather_rows"] and not b1["bad"], \
+        f"lm_moe {cfg.name}: B1 calls against the plain version: {b1}"
     others = {k: n for k, n in launches.items()
-              if n and not (gqa and k == "paged_decode_attention")}
+              if n and k != "gather_rows"
+              and not (gqa and k == "paged_decode_attention")}
     assert not others, f"lm_moe {cfg.name} launched {others}"
     assert sorted(r.rid for r in done) == list(range(MOE_REQUESTS))
     for r in done:
@@ -4252,18 +4343,18 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
                           logits.reshape(-1, cfg_.n_experts).cpu()))
         return r
 
-    def tf_prefill(params_, cfg_, tokens, *a):
+    def tf_prefill(params_, cfg_, tokens, *a, **kw):
         rid = sum(1 for v in got_logits.values() if v)   # first come
         route_log.clear()
-        out = prefill_fn(params_, cfg_, tokens, *a)
+        out = prefill_fn(params_, cfg_, tokens, *a, **kw)
         got_logits[rid].append(out[0].float())
         last = tokens.shape[1] - 1
         served_routes[rid][last] = [ids[last] for ids, _ in route_log]
         return out
 
-    def tf_decode(*a):
+    def tf_decode(*a, **kw):
         route_log.clear()
-        out = decode_fn(*a)
+        out = decode_fn(*a, **kw)
         for i, (rid, pos) in enumerate(zip(tf_engine.live, a[5].tolist())):
             got_logits[rid].append(out[i].float())
             served_routes[rid][pos] = [ids[i] for ids, _ in route_log]
@@ -4336,11 +4427,12 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
     nb = first_plan["host"][0].shape[0]
     replay_ms = replayed_round_ms(params, cfg, engine, first_plan["host"],
                                   dev, MOE_REPLAYS)
-    plan = first_plan["plan"]
+    plan, host_tokens = first_plan["plan"], first_plan["host"][2]
+    span = (int(host_tokens.min()), int(host_tokens.max()))
     with torch.no_grad():
         profiled = device_profile(
             lambda: tf.decode_paged(params, cfg, engine.k_pool,
-                                    engine.v_pool, *plan),
+                                    engine.v_pool, *plan, token_span=span),
             named=("b8_kernel_ms", "paged_attn_tc_kernel"))
     replay_p50 = float(np.median(replay_ms))
     bound_ms = read_bytes / HBM_BYTES_PER_S * 1e3
@@ -4385,6 +4477,7 @@ def serve_moe_model(dev, seed: int, cfg, n_params: int | None,
            "teacher_forced": forced,
            "logits_bounds": {"max": MOE_LOGITS_MAX, "mean": MOE_LOGITS_MEAN},
            "peak_gb": peak / 1e9, "launches": launches, "failed": failed,
+           "b1_calls_byte_equal": b1["calls"],
            "b8_timing": b8_timed}
     del engine, params, plan, first_plan, first_b8
     row["seconds"] = time.perf_counter() - start
@@ -5023,6 +5116,398 @@ def sharded_nequip(dev, seed: int, mesh, check) -> dict:
                     "d_feat": int(host["node_feat"].shape[1])}
     out["steps"] = SHARDED_STEPS
     return out
+
+
+# The sharded_lm phase: the LM family's and BERT4Rec's cells' Lowering.fn
+# on DTensors over a (1, 1) mesh of an NCCL group of one, against the
+# same fn on plain tensors from the same seed (both in deterministic
+# mode), at published width and the cuts below (PERF.md §4).
+SHARDED_LM_DECODE_ROWS = 8        # decode_32k: 128 rows cut to 8
+SHARDED_LM_PREFILL_ROWS = 1       # prefill_32k: 32 rows cut to 1
+# prefill_32k's q chunk for DeepSeek-V3 and Arctic: their published
+# 1024-row tiles of float32 scores (17.2 GB for DeepSeek's 128 heads)
+# do not fit beside 53-55 GB of weights, nor did 256-row ones beside
+# what the earlier phases hold (2.9 GB); a chunk changes no value.
+SHARDED_MOE_Q_CHUNK = 128
+SHARDED_BERT_BULK = 4096          # serve_bulk: 262,144 rows cut to 4,096
+# DeepSeek-V3 and Arctic train_4k at smoke width (published width does
+# not fit one card): 8 microbatches of 2 rows of 64 tokens.
+SHARDED_SMOKE_TRAIN = dict(rows=16, seq=64)
+
+
+def draw_decoder(cfg, dev, seed: int) -> dict:
+    """A decoder's flat train-state parameters (``carry.decoder_params``'
+    keys, each group's layers stacked) drawn on the card from ``seed``,
+    each leaf in place where it lives: norms ones, embeddings normal ·
+    0.02, every weight normal · 1/√d_in (d_in its second-to-last dim),
+    in the configuration's dtypes (the router float32): ``init_params``'
+    scheme without the nested tree, whose stacking would hold the
+    weights twice."""
+    import math
+
+    import torch
+
+    from repro_torch import carry
+    from repro_torch.models import transformer as tf
+
+    meta = carry.decoder_params(tf.init_params(cfg, device="meta"), cfg)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for key, m in meta.items():
+        t = torch.empty(m.shape, dtype=m.dtype, device=dev)
+        parts = key.split("/")
+        if parts[-1] == "scale":
+            t.fill_(1.0)
+        elif parts[0] in ("embed", "pos_embed"):
+            t.normal_(0.0, 0.02, generator=gen)
+        else:
+            t.normal_(0.0, 1.0 / math.sqrt(m.shape[-2]), generator=gen)
+        out[key] = t
+    return out
+
+
+def draw_caches(cfg, rows: int, seq: int, dev, seed: int) -> list:
+    """A dense decode cache (``init_cache``'s layout) of normal values
+    drawn on the card from ``seed``: the same bytes at every call."""
+    import torch
+
+    from repro_torch.models import transformer as tf
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    return [{k: torch.empty(v.shape, dtype=v.dtype, device=dev).normal_(
+                generator=gen) for k, v in group.items()}
+            for group in tf.init_cache(cfg, rows, seq, device="meta")]
+
+
+def on_one_rank(tree, mesh, specs):
+    """The tensors of ``tree`` as DTensors on a one-rank ``mesh`` under
+    ``specs`` (made legal for it): each wraps its tensor, never a copy,
+    since every shard of one rank is the whole tensor."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed import sharding as shd
+
+    assert mesh.size == 1, mesh
+    specs = shd.sanitize_specs(specs, tree, mesh)
+
+    def wrap(t, spec):
+        return DTensor.from_local(
+            t, mesh.device_mesh, shd.placements(mesh.axis_names, spec),
+            run_check=False, shape=t.shape, stride=t.stride())
+
+    return shd.tree_map(wrap, tree, specs, is_leaf=shd.is_spec_leaf)
+
+
+def local_tree(tree) -> dict:
+    """{path: tensor} of a result tree, each DTensor as its local tensor
+    (the whole tensor on a one-rank mesh), detached, where it lies."""
+    from repro_torch.distributed.sharding import is_dtensor
+    from repro_torch.train.checkpoint import flatten_tree
+
+    return {k: (v.to_local() if is_dtensor(v) else v).detach()
+            for k, v in flatten_tree(tree).items()}
+
+
+def lm_pair(mesh, check, low, plain_args, mesh_args, keep, what: str
+            ) -> dict:
+    """``low.fn`` on ``plain_args()`` and then, within the mesh's context,
+    on ``mesh_args()`` (DTensors), both in deterministic mode, each
+    building its arguments inside its run: the two ``keep(result)``
+    trees byte-equal, the same launches, every B1 call of the mesh run
+    held against B1's plain version when it is made; each run's
+    seconds, launches and peak memory."""
+    import torch
+
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.kernels.gather import kernel as gk, ref as gref
+
+    def run_plain():
+        return keep(low.fn(*plain_args()))
+
+    def run_mesh():
+        args = mesh_args()
+        with mesh_context(mesh), checked_calls(
+                gk, "gather_rows", gref.gather_rows, check,
+                f"sharded_lm {what}") as calls:
+            return keep(low.fn(*args)), calls
+
+    with deterministic():
+        plain = counted_run(run_plain)
+        gc.collect()
+        torch.cuda.empty_cache()
+        on_mesh = counted_run(run_mesh)
+    on_mesh["out"], calls = on_mesh["out"]
+    row = compare_runs(plain, on_mesh, what)
+    assert calls, f"{what}: no B1 call on the mesh"
+    for run in ("plain", "mesh"):
+        row[run]["peak_gb"] = row[run].pop("peak_bytes") / 1e9
+    row["b1_calls_checked"] = len(calls)
+    del plain, on_mesh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_serving_runs(dev, seed: int, mesh, check, arch_id: str, cfg,
+                    params: dict, prefill_cfg, prefill_params: dict
+                    ) -> dict:
+    """A decoder's ``long_500k`` (at full size) and ``decode_32k`` (rows
+    cut to ``SHARDED_LM_DECODE_ROWS``) at ``cfg`` on ``params``, and
+    ``prefill_32k`` (cut to ``SHARDED_LM_PREFILL_ROWS``) at
+    ``prefill_cfg`` on ``prefill_params``, through their cells' ``fn``;
+    the mesh runs read the same tensors wrapped as DTensors, and each
+    run's cache is drawn again from the seed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import common, train as train_cfgs
+
+    mod = train_cfgs.module_of(arch_id)
+    fsdp = arch_id not in ("glm4-9b", "granite-3-8b")
+    arch = common.lm_arch(arch_id, cfg, cfg, mod._opt(), fsdp=fsdp)
+    rows = {}
+    for shape, n in (("long_500k", 1),
+                     ("decode_32k", SHARDED_LM_DECODE_ROWS)):
+        low = arch.lowering(shape, mesh)
+        seq = common.LM_SHAPES[shape]["seq"]
+        rng = np.random.default_rng(seed)
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, n).astype(
+            np.int32)).to(dev)
+        # The last position reads every cache row of a sequence.
+        pos = torch.from_numpy(np.concatenate([[seq - 1], rng.integers(
+            0, seq, n - 1)]).astype(np.int32)).to(dev)
+        placed = on_one_rank(params, mesh, low.in_specs[0])
+        rows[shape] = lm_pair(
+            mesh, check, low,
+            lambda n=n, seq=seq, tok=tok, pos=pos: (
+                params, draw_caches(cfg, n, seq, dev, seed), tok, pos),
+            lambda n=n, seq=seq, tok=tok, pos=pos, low=low, placed=placed: (
+                placed, *(on_one_rank(a, mesh, s) for a, s in zip(
+                    (draw_caches(cfg, n, seq, dev, seed), tok, pos),
+                    low.in_specs[1:]))),
+            local_tree, f"{arch_id} {shape}")
+        rows[shape].update(rows=n, seq=seq)
+    parch = common.lm_arch(arch_id, prefill_cfg, prefill_cfg, mod._opt(),
+                           fsdp=fsdp)
+    low = parch.lowering("prefill_32k", mesh)
+    seq = common.LM_SHAPES["prefill_32k"]["seq"]
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SHARDED_LM_PREFILL_ROWS, seq)).astype(np.int32)).to(
+        dev)
+    placed = on_one_rank(prefill_params, mesh, low.in_specs[0])
+    rows["prefill_32k"] = lm_pair(
+        mesh, check, low, lambda: (prefill_params, toks),
+        lambda: (placed, on_one_rank(toks, mesh, low.in_specs[1])),
+        local_tree, f"{arch_id} prefill_32k")
+    rows["prefill_32k"].update(rows=SHARDED_LM_PREFILL_ROWS, seq=seq,
+                               q_chunk=prefill_cfg.q_chunk,
+                               layers=prefill_cfg.n_layers)
+    return rows
+
+
+def lm_train_run(dev, seed: int, mesh, check, arch_id: str, cfg,
+                 rows: int, seq: int) -> dict:
+    """One ``train_4k`` step of a decoder at ``cfg`` through the cell's
+    ``fn`` (8 microbatches): the plain state drawn from the seed, then
+    the same state drawn again and wrapped as DTensors; the parameters
+    after the step byte-equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import common, train as train_cfgs
+    from repro_torch.train.train_state import init_train_state
+
+    mod = train_cfgs.module_of(arch_id)
+    opt = mod._opt()
+    arch = common.lm_arch(arch_id, cfg, cfg, opt,
+                          fsdp=arch_id not in ("glm4-9b", "granite-3-8b"))
+    low = arch.lowering("train_4k", mesh)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (rows, seq + 1)).astype(np.int32)
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+
+    def params_of(out):
+        return local_tree(out[0]["params"])
+
+    row = lm_pair(
+        mesh, check, low,
+        lambda: (init_train_state(draw_decoder(cfg, dev, seed), opt), batch),
+        lambda: tuple(on_one_rank(a, mesh, s) for a, s in zip(
+            (init_train_state(draw_decoder(cfg, dev, seed), opt), batch),
+            low.in_specs)),
+        params_of, f"{arch_id} train_4k")
+    row.update(rows=rows, seq=seq, layers=cfg.n_layers,
+               d_model=cfg.d_model, optimizer=opt.kind)
+    return row
+
+
+def sharded_glm4(dev, seed: int, mesh, check) -> dict:
+    """GLM-4 9B at published width in bf16 (18.8 GB of weights): its
+    serving cells, ``prefill_32k`` on its first ``LM_TRAIN["layers"]``
+    layers (views of the same weights: 40 layers of 32,768 positions in
+    float32 attention take 39 s a run), then ``train_4k`` at the
+    ``train_more`` phase's cut (``LM_TRAIN``: 8 layers, 8 rows of 4,096
+    tokens)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import glm4_9b
+
+    cfg = glm4_9b._cfg()
+    params = draw_decoder(cfg, dev, seed)
+    n = LM_TRAIN["layers"]
+    runs = lm_serving_runs(
+        dev, seed, mesh, check, "glm4-9b", cfg, params,
+        dataclasses.replace(cfg, n_layers=n),
+        {k: v[:n] if k.startswith("groups/") else v
+         for k, v in params.items()})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train_4k"] = lm_train_run(
+        dev, seed, mesh, check, "glm4-9b",
+        dataclasses.replace(cfg, n_layers=LM_TRAIN["layers"]),
+        LM_TRAIN["rows"], LM_TRAIN["seq"])
+    return runs
+
+
+def sharded_moe_lm(dev, seed: int, mesh, check, arch_id: str,
+                   n_layers: int) -> dict:
+    """DeepSeek-V3 or Arctic at published width, the serving depth of
+    ``MOE_MODELS`` (5 and 2 layers, 52.8 and 54.9 GB of bf16 weights):
+    its serving cells (prefill's q chunk ``SHARDED_MOE_Q_CHUNK``), then
+    ``train_4k`` at smoke width (``SHARDED_SMOKE_TRAIN``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+
+    cfg = dataclasses.replace(configs.get_config(arch_id),
+                              n_layers=n_layers)
+    params = draw_decoder(cfg, dev, seed)
+    runs = lm_serving_runs(
+        dev, seed, mesh, check, arch_id, cfg, params,
+        dataclasses.replace(cfg, q_chunk=SHARDED_MOE_Q_CHUNK), params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["train_4k"] = lm_train_run(
+        dev, seed, mesh, check, arch_id,
+        configs.get_config(arch_id, smoke=True),
+        SHARDED_SMOKE_TRAIN["rows"], SHARDED_SMOKE_TRAIN["seq"])
+    return runs
+
+
+def sharded_bert4rec(dev, seed: int, mesh, check) -> dict:
+    """BERT4Rec at published width (2²⁰ items × 64): ``serve_p99`` (512
+    rows), ``retrieval_cand``, ``serve_bulk`` (cut to
+    ``SHARDED_BERT_BULK`` rows: each row's scores over 2²⁰ items are
+    4 MB) and ``train_batch`` (cut to ``BERT_TRAIN_ROWS``, one step)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import bert4rec, get_arch
+    from repro_torch.configs.common import RECSYS_SHAPES
+    from repro_torch.train.train_state import init_train_state
+
+    cfg = bert4rec._cfg()
+    arch = get_arch("bert4rec")
+    params = draw_decoder(cfg, dev, seed)
+    rng = np.random.default_rng(seed)
+    runs = {}
+    for shape, n in (("serve_p99", RECSYS_SHAPES["serve_p99"]["batch"]),
+                     ("retrieval_cand", 1),
+                     ("serve_bulk", SHARDED_BERT_BULK)):
+        low = arch.lowering(shape, mesh)
+        items = torch.from_numpy(rng.integers(
+            0, cfg.vocab - 2, (n, cfg.max_seq)).astype(np.int32)).to(dev)
+        arg = items if shape == "retrieval_cand" else {"items": items}
+        placed = on_one_rank(params, mesh, low.in_specs[0])
+        runs[shape] = lm_pair(
+            mesh, check, low, lambda arg=arg: (params, arg),
+            lambda arg=arg, low=low, placed=placed: (
+                placed, on_one_rank(arg, mesh, low.in_specs[1])),
+            lambda out: {"scores": local_tree({"s": out})["s"]},
+            f"bert4rec {shape}")
+        runs[shape]["rows"] = n
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    low = arch.lowering("train_batch", mesh)
+    (host,) = bert4rec_train_batches(cfg, 1, BERT_TRAIN_ROWS, seed)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    opt = bert4rec._opt()
+    runs["train_batch"] = lm_pair(
+        mesh, check, low,
+        lambda: (init_train_state(draw_decoder(cfg, dev, seed), opt), batch),
+        lambda: tuple(on_one_rank(a, mesh, s) for a, s in zip(
+            (init_train_state(draw_decoder(cfg, dev, seed), opt), batch),
+            low.in_specs)),
+        lambda out: local_tree(out[0]["params"]), "bert4rec train_batch")
+    runs["train_batch"]["rows"] = BERT_TRAIN_ROWS
+    return runs
+
+
+def sharded_lm(dev, seed: int, card: str, check,
+               path_launches: dict) -> None:
+    """Phase 11b3: the LM family's and BERT4Rec's cells through their
+    ``Lowering.fn`` on DTensors over a (1, 1) ("data", "model") mesh of
+    a new NCCL group of one, each run first on the plain-tensor path
+    from the same seed: GLM-4 9B, DeepSeek-V3 and Arctic
+    (``sharded_glm4``, ``sharded_moe_lm``) and BERT4Rec
+    (``sharded_bert4rec``), one model at a time, each freed before the
+    next.  Outputs, caches or parameters byte-equal, the same B1
+    launches, every B1 call of the mesh runs held against its plain
+    version when it is made; each run's seconds and peak memory.  The
+    counters of the mesh runs alone are the path's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.mesh import make_host_mesh
+
+    t_phase = time.perf_counter()
+    matmul = tf32_off("sharded_lm")
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"phase": "sharded_lm", "card": card, "matmul": matmul,
+           "held_before_gb": torch.cuda.memory_allocated() / 1e9}
+    mesh_launches = {k: 0 for k in LAUNCHES}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(str(Path(d) / "store"), 1), rank=0,
+            world_size=1)
+        try:
+            mesh = make_host_mesh(1, 1)
+            assert mesh.device_mesh.device_type == "cuda"
+            models = [("glm4-9b", lambda: sharded_glm4(dev, seed, mesh,
+                                                       check))]
+            models += [(arch, functools.partial(
+                sharded_moe_lm, dev, seed, mesh, check, arch, n))
+                for arch, n, _ in MOE_MODELS]
+            models.append(("bert4rec", lambda: sharded_bert4rec(
+                dev, seed, mesh, check)))
+            for name, fn in models:
+                t0 = time.perf_counter()
+                row[name] = fn()
+                row[name]["seconds"] = time.perf_counter() - t0
+                for run in row[name].values():
+                    if isinstance(run, dict):
+                        for k, v in run["mesh"]["launches"].items():
+                            mesh_launches[k] += v
+                gc.collect()
+                torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+    path_launches["sharded_lm"] = mesh_launches
+    assert mesh_launches["gather_rows"] > 0, "gather_rows: not on the path"
+    row["launches"] = {k: v for k, v in mesh_launches.items() if v}
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
 
 
 def analysis(dev, card, check, path_launches: dict) -> None:
@@ -5839,6 +6324,10 @@ def main(argv=None) -> int:
     # -- 11b2. sharded_models: DLRM-RM2, two-tower and NequIP through
     # their cells' Lowering.fn on DTensors (B6, B1, B7 on the mesh) ------
     sharded_models(dev, args.seed, card, check, path_launches)
+
+    # -- 11b3. sharded_lm: GLM-4, DeepSeek-V3, Arctic and BERT4Rec through
+    # their cells' Lowering.fn on DTensors (B1 on the mesh) ---------------
+    sharded_lm(dev, args.seed, card, check, path_launches)
 
     # -- 11c. analysis: the port's CLI gate, B3 planning its self-check -
     analysis(dev, card, check, path_launches)

@@ -11,17 +11,22 @@ allocated), and the spec trees of those arguments, the JAX lowering's
 own: what the dry run (``launch.dryrun``) reads.
 
 ``fn`` is the cell's function and ``donate`` the arguments it updates in
-place, the JAX lowering's: for DLRM-RM2, DeepFM and two-tower (all four
-shapes) and NequIP (all four graphs), the train step ``fn(state,
+place, the JAX lowering's, for all 40 cells: the train step ``fn(state,
 batch)`` (``donate=(0,)``: the port's optimizer writes the state in
-place) or the serving forward ``fn(params, batch)`` (two-tower's
-``retrieval_cand``: ``fn(params, user_ids, cand_ids)``).  ``fn`` takes
-the ``args`` tree as real tensors or as ``DTensor`` tensors under
+place; the LMs' with ``accum`` microbatches), the serving forward
+``fn(params, batch)`` (two-tower's and BERT4Rec's ``retrieval_cand``:
+``fn(params, user_ids, cand_ids)``, ``fn(params, items)``), an LM's
+``prefill`` ``fn(params, tokens)`` and its ``decode_step`` ``fn(params,
+caches, token, position)`` (``donate=(1,)``: the dense cache written in
+place).  A decoder's ``params`` are its flat train-state dict
+(``carry.decoder_params``), run through ``carry.decoder_tree``.  ``fn``
+takes the ``args`` tree as real tensors or as ``DTensor`` tensors under
 ``in_specs`` (``carry.distribute_state``; inside
 ``distributed.context.mesh_context``), and runs the hand-written kernels
-B1, B6 and B7 on each rank's own shards.  The LM cells and BERT4Rec's
-keep ``fn=None`` and ``donate=()`` until their decoder runs on DTensors
-(ROADMAP §A, the next slice).
+B1, B6 and B7 on each rank's own shards: the decoders' token and
+position lookups B1 on each rank's vocabulary rows, their heads and
+losses on its vocabulary columns, MoE layers on its own experts and the
+decode on its own rows of a cache sharded on S.
 
 ``probes`` stays None: the JAX package's cost probes exist because XLA's
 ``cost_analysis`` counts a scan body once; the port's layers run in a
@@ -46,6 +51,7 @@ from .. import carry
 from ..distributed import sharding as shd
 from ..distributed.sharding import PartitionSpec as P
 from ..models import nequip as nq
+from ..models import recsys as rs
 from ..models import transformer as tf
 from ..train.optimizer import OptimizerConfig, make_optimizer
 from ..train.train_state import make_train_step
@@ -91,7 +97,7 @@ GNN_SHAPES = {
 
 @dataclass
 class Lowering:
-    fn: Callable | None         # step or forward (None: LM, BERT4Rec)
+    fn: Callable                # the step, forward, prefill or decode
     args: tuple                 # meta tensors, in the JAX lowering's tree
     in_specs: tuple             # matching PartitionSpec trees
     donate: tuple = ()          # arguments ``fn`` updates in place
@@ -148,17 +154,15 @@ def _abstract_opt(opt_cfg: OptimizerConfig, params: dict) -> dict:
 
 
 def _train_lowering(params: dict, pspecs: dict, opt_cfg: OptimizerConfig,
-                    batch: dict, bspecs: dict,
-                    step: Callable | None = None) -> Lowering:
+                    batch: dict, bspecs: dict, step: Callable) -> Lowering:
     """The train step's lowering: ``step(state, batch)`` over
-    ``({"params", "opt"}, batch)``, the state donated (updated in place);
-    no step (``None``, nothing donated) for a family the port does not
-    yet run sharded."""
+    ``({"params", "opt"}, batch)``, the state donated (updated in
+    place)."""
     state = {"params": params, "opt": _abstract_opt(opt_cfg, params)}
     sspecs = {"params": pspecs,
               "opt": _opt_specs(opt_cfg.kind, params, pspecs)}
-    return Lowering(step, (state, batch), (sspecs, bspecs),
-                    donate=(0,) if step is not None else (), kind="train")
+    return Lowering(step, (state, batch), (sspecs, bspecs), donate=(0,),
+                    kind="train")
 
 
 def _bind(module: nn.Module, tensors: dict) -> None:
@@ -234,31 +238,34 @@ def lm_arch(arch_id: str, cfg: tf.TransformerConfig,
             batch = {"tokens": _sds((b, s), torch.int32),
                      "labels": _sds((b, s), torch.int32)}
             bspecs = {"tokens": P(dpa, None), "labels": P(dpa, None)}
-            return _train_lowering(params, pspecs, opt_cfg, batch, bspecs)
+            step = make_train_step(train_cfgs.loss_for("lm", None, cfg),
+                                   opt_cfg, accum_steps=accum)
+            return _train_lowering(params, pspecs, opt_cfg, batch, bspecs,
+                                   step)
 
         if info["kind"] == "prefill":
-            return Lowering(None, (params, _sds((b, s), torch.int32)),
+            def prefill(flat, tokens):
+                return tf.prefill(carry.decoder_tree(flat, cfg), cfg,
+                                  tokens, max_seq=s)
+
+            return Lowering(_serving(prefill),
+                            (params, _sds((b, s), torch.int32)),
                             (pspecs, P(dpa, None)), kind="prefill")
 
-        # decode: one new token against an S-token cache
+        # decode: one new token against an S-token cache, updated in place
         caches = tf.init_cache(cfg, b, s, device="meta")
-        if b == 1:
-            seq_ax = tuple(a for a in ("data", "model")
-                           if a in mesh.axis_names)
-            cspec_batch, cspec_seq = None, seq_ax
-        else:
-            cspec_batch, cspec_seq = dpa, "model"
-
-        def cache_spec(leaf):
-            # (L, B, S, …)
-            extra = (None,) * (leaf.ndim - 3)
-            return P(None, cspec_batch, cspec_seq, *extra)
-
-        cspecs = shd.tree_map(cache_spec, caches)
+        cspecs = tf.cache_specs(cfg, b, mesh.axis_names)
         tspec = P(dpa) if b > 1 else P()
-        return Lowering(None, (params, caches, _sds((b,), torch.int32),
-                               _sds((b,), torch.int32)),
-                        (pspecs, cspecs, tspec, tspec), kind="decode")
+
+        def decode(flat, caches, token, position):
+            return tf.decode_step(carry.decoder_tree(flat, cfg), cfg,
+                                  caches, token, position)
+
+        return Lowering(_serving(decode),
+                        (params, caches, _sds((b,), torch.int32),
+                         _sds((b,), torch.int32)),
+                        (pspecs, cspecs, tspec, tspec), donate=(1,),
+                        kind="decode")
 
     def correction() -> dict:
         groups = cfg.layer_groups()
@@ -383,8 +390,10 @@ def recsys_arch(arch_id: str, kind: str, cfg: Any, smoke_cfg: Any,
                 batch["mask"] = _sds((b, 200), f32)
                 bspecs["labels"] = P(dpa, None)
                 bspecs["mask"] = P(dpa, None)
+                step = make_train_step(train_cfgs.loss_for(
+                    "bert4rec", None, cfg), opt_cfg)
                 return _train_lowering(params, pspecs, opt_cfg, batch,
-                                       bspecs)
+                                       bspecs, step)
             loss = model_fn(model_cls, cfg, train_cfgs._LOSSES[kind])
             step = make_train_step(lambda p, bt: (loss(p, bt), {}), opt_cfg)
             return _train_lowering(params, pspecs, opt_cfg, batch, bspecs,
@@ -398,13 +407,18 @@ def recsys_arch(arch_id: str, kind: str, cfg: Any, smoke_cfg: Any,
                     (params, _sds((1,), i32), _sds((info["n_cand"],), i32)),
                     (pspecs, P(), P(tuple(mesh.axis_names))), kind="serve")
             if kind == "bert4rec":
-                return Lowering(None, (params, _sds((1, 200), i32)),
+                return Lowering(_serving(lambda flat, items: rs.bert4rec_score(
+                                    carry.decoder_tree(flat, cfg), cfg, items)),
+                                (params, _sds((1, 200), i32)),
                                 (pspecs, P(None, None)), kind="serve")
             # dlrm / deepfm: bulk-score 10⁶ candidate rows for one user
             b = info["n_cand"]
         batch = batch_of(b)
-        fn = None if kind == "bert4rec" else _serving(
-            model_fn(model_cls, cfg, _SERVE[kind]))
+        if kind == "bert4rec":
+            fn = _serving(lambda flat, bt: rs.bert4rec_score(
+                carry.decoder_tree(flat, cfg), cfg, bt["items"]))
+        else:
+            fn = _serving(model_fn(model_cls, cfg, _SERVE[kind]))
         return Lowering(fn, (params, batch), (pspecs, batch_specs(batch)),
                         kind="serve")
 

@@ -13,12 +13,13 @@ and comes back as it was.
 from __future__ import annotations
 
 import contextlib
+import math
 from contextvars import ContextVar
 
 import torch
 
 from .sharding import PartitionSpec as P
-from .sharding import placements
+from .sharding import entry_axes, placements
 
 _AXES: ContextVar[tuple[str, ...]] = ContextVar("repro_torch_mesh_axes",
                                                 default=())
@@ -53,7 +54,8 @@ def _filter(entry, axes):
 
 def constrain(x: torch.Tensor, *spec_dims) -> torch.Tensor:
     """``x`` placed as ``P(*spec_dims)``, dropping axis names not on the
-    active mesh (or on ``x``'s own).  No-op without a mesh, and on a
+    active mesh (or on ``x``'s own), and leaving whole a dim of one or
+    one that their ranks do not divide.  No-op without a mesh, and on a
     tensor that is not a ``DTensor``."""
     axes = mesh_axes()
     if not axes:
@@ -67,8 +69,15 @@ def constrain(x: torch.Tensor, *spec_dims) -> torch.Tensor:
         return x
     mesh = x.device_mesh
     names = mesh.mesh_dim_names or ()
-    spec = P(*(_filter(d, names) for d in dims))
-    want = placements(names, spec)
+    sizes = dict(zip(names, mesh.shape))
+    kept = []
+    for n, d in zip(x.shape, dims):
+        d = _filter(d, names)
+        parts = math.prod(sizes[a] for a in entry_axes(d))
+        # As ``sanitize_specs`` does for inputs: a dim that does not
+        # split evenly, or a single row, stays whole.
+        kept.append(None if n == 1 or n % parts else d)
+    want = placements(names, P(*kept))
     if tuple(x.placements) == want:
         return x
     return x.redistribute(mesh, want)

@@ -423,15 +423,18 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
-def shard_ranges(n: int, mesh, placements, dim: int = 0) -> list:
+def shard_ranges(n: int, mesh, placements, dim: int = 0,
+                 coord=None) -> list:
     """The global indices ``[lo, hi)`` along ``dim`` (of size ``n``) of
     this rank's part of a ``DTensor`` placed ``placements`` on ``mesh``
-    (a ``DeviceMesh``): first ``(0, n)``, then the range after each mesh
-    dim that shards ``dim``, in mesh order.  Each such mesh dim cuts the
-    current range into ``torch.chunk`` pieces (ceil-sized, the last ones
-    shorter or empty), as ``DTensor`` lays shards out."""
+    (a ``DeviceMesh``), or of the part of the rank at mesh coordinate
+    ``coord``: first ``(0, n)``, then the range after each mesh dim that
+    shards ``dim``, in mesh order.  Each such mesh dim cuts the current
+    range into ``torch.chunk`` pieces (ceil-sized, the last ones shorter
+    or empty), as ``DTensor`` lays shards out."""
     ranges = [(0, int(n))]
-    coord = mesh.get_coordinate()
+    if coord is None:
+        coord = mesh.get_coordinate()
     for j, pl in enumerate(placements):
         if pl.is_shard(dim):
             lo, hi = ranges[-1]
@@ -501,6 +504,87 @@ def rowwise(fn, x, *rest):
                       (int(x.shape[0]),) + tuple(out.shape[1:]))
 
 
+def unflatten(x, dim: int, sizes: tuple):
+    """``x`` with dim ``dim`` split into ``sizes`` (a reshape).  On a
+    ``DTensor`` whose ``dim`` is sharded over mesh dims whose product
+    does not divide ``sizes[0]`` (heads that do not split evenly over
+    "model": GLM-4's 2 KV heads over 4 ranks, Yi's 7), that dim is made
+    whole on those mesh dims first, as ``DTensor`` cannot place such a
+    split; else the shards stay where they are."""
+    dim = dim % x.ndim
+    shape = tuple(x.shape[:dim]) + tuple(sizes) + tuple(x.shape[dim + 1:])
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        mesh = x.device_mesh
+        parts = math.prod(mesh.size(j) for j, p in enumerate(x.placements)
+                          if p.is_shard(dim))
+        if sizes[0] % parts:
+            want = [Replicate() if p.is_shard(dim) else p
+                    for p in x.placements]
+            x = x.redistribute(mesh, want)
+    return x.reshape(shape)
+
+
+def shard_as(x, dim: int, w, w_dim: int):
+    """``x`` with ``dim`` sharded on each mesh dim that shards ``w``'s
+    ``w_dim`` and replicates ``x`` there (when the ranks divide it): the
+    input of a product ``x @ w`` contracted over those dims, split where
+    the weight is (a local slice).  Its gradient is gathered back on
+    that dim, as the reshape before it needs where it had to keep the
+    dim whole (heads that do not split, ``unflatten``).  Plain tensors
+    pass through."""
+    if not (is_dtensor(x) and is_dtensor(w)):
+        return x
+    from torch.distributed.tensor import Shard
+
+    dim = dim % x.ndim
+    mesh = x.device_mesh
+    want, parts = list(x.placements), 1
+    for j, (xp, wp) in enumerate(zip(x.placements, w.placements)):
+        if wp.is_shard(w_dim) and xp.is_replicate():
+            want[j] = Shard(dim)
+            parts *= mesh.size(j)
+    if parts == 1 or x.shape[dim] % parts:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def at_use(t):
+    """A parameter as a layer uses it: a ``DTensor`` sharded on the FSDP
+    axes ("data", "pod") all-gathered over them (its other placements
+    kept), so that the layer's products run on the weight whole over
+    the batch's ranks and the activations stay where they are; its
+    gradient is reduce-scattered back onto those axes in the backward.
+    Any other tensor as it is."""
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    names = t.device_mesh.mesh_dim_names or ()
+    want = tuple(Replicate() if n in FSDP_AXES and p.is_shard() else p
+                 for n, p in zip(names, t.placements))
+    return t if want == tuple(t.placements) else t.redistribute(
+        t.device_mesh, want)
+
+
+def placed_zeros(shape: tuple, dtype, device_mesh, spec: P):
+    """Zeros of global ``shape`` as a ``DTensor`` on ``device_mesh``
+    placed by ``spec``, first made legal for the mesh (axes it lacks, or
+    whose product does not divide the dim, dropped: ``sanitize_specs``);
+    each rank allocates only its own part."""
+    import torch
+    from torch.distributed.tensor import zeros
+
+    from ..launch.mesh import Mesh
+
+    names = tuple(device_mesh.mesh_dim_names)
+    spec = sanitize_specs(spec, torch.empty(shape, device="meta"),
+                          Mesh(names, tuple(device_mesh.shape)))
+    return zeros(tuple(shape), dtype=dtype, device_mesh=device_mesh,
+                 placements=placements(names, spec))
+
+
 def whole(t):
     """The whole of a replicated ``DTensor`` as this rank's tensor (its
     local tensor); any other tensor as it is."""
@@ -536,16 +620,21 @@ def _boundary():
             stride = [1] * len(shape)
             for i in range(len(shape) - 2, -1, -1):
                 stride[i] = stride[i + 1] * shape[i + 1]
-            return DTensor.from_local(local.detach(), mesh, placements,
+            return DTensor.from_local(local.detach().contiguous(), mesh,
+                                      placements,
                                       run_check=False, shape=shape,
                                       stride=tuple(stride))
 
         @staticmethod
         def backward(ctx, grad):
+            from torch.distributed.tensor import Replicate
+
             mesh, pls = ctx.meta
-            # A replicated gradient of a partial sum is each rank's own.
-            want = tuple(g if p.is_partial() and g.is_replicate() else p
-                         for p, g in zip(pls, grad.placements))
+            # Each rank's term of a partial sum takes the whole gradient:
+            # a gradient that arrives as a partial sum (or sharded) is
+            # summed (gathered) first.
+            want = tuple(Replicate() if p.is_partial() else p
+                         for p in pls)
             if want != tuple(grad.placements):
                 grad = grad.redistribute(mesh, want)
             return ToLocal.apply(grad, want), None, None, None

@@ -2,11 +2,12 @@
 over every rank at once, and node rows moved between ranks around B7.
 
 ``checked_ids`` is the range check of ``DTensor`` ids (one all-reduce
-of each rank's min and max, one host read).  ``whole_rows`` and
-``scatter_rows`` are the two row collectives of an edge-sharded
-segment sum: every rank's rows of a ``DTensor`` gathered whole, and
-every rank's sums into all rows reduce-scattered back to the rows'
-ranks.  Both follow ``DTensor``'s layout of rows that do not split
+of each rank's min and max, one host read), and of the decoders' ids
+on one card (``id_spans`` reads several spans back at once).
+``whole_rows`` and ``scatter_rows`` are the two row collectives of an
+edge-sharded segment sum: every rank's rows of a ``DTensor`` gathered
+whole, and every rank's sums into all rows reduce-scattered back to the
+rows' ranks.  Both follow ``DTensor``'s layout of rows that do not split
 evenly (``torch.chunk`` pieces, the last ones short or empty), and
 each is an autograd Function whose backward is the other, so a graph
 through them differentiates again (a force's gradient).
@@ -27,32 +28,45 @@ from ..distributed import sharding as shd
 from ._casting import ensure_i32_addressable
 
 
-def global_span(x) -> tuple[int, int]:
-    """(min, max) of the elements of a non-empty ``DTensor`` over every
-    rank of its mesh: each rank's own, then a max over each mesh dim's
-    group, and one read back to the host, so every rank sees the same."""
-    local = x.to_local()
-    if local.numel():
-        lo, hi = torch.aminmax(local)
-        t = torch.stack([-lo.to(torch.int64), hi.to(torch.int64)])
-    else:
-        t = torch.full((2,), -(2 ** 62), dtype=torch.int64,
-                       device=local.device)
-    mesh = x.device_mesh
-    for j in range(mesh.ndim):
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.get_group(j))
-    neg_lo, hi = t.tolist()
-    return -neg_lo, hi
+def id_spans(*ids) -> list:
+    """The (lowest, highest) element of each of ``ids`` (``None`` for an
+    empty one), all read back to the host at once: over every rank of
+    the mesh for ``DTensor`` ids (each rank's own, then a max over each
+    mesh dim's group), so every rank sees the same.  The ids may mix
+    plain tensors, the same on every rank, and ``DTensor`` ids of one
+    mesh."""
+    vals, mesh = [], None
+    for x in ids:
+        if shd.is_dtensor(x):
+            mesh, x = x.device_mesh, x.to_local()
+        if x.numel():
+            lo, hi = torch.aminmax(x)
+            vals += [-lo.to(torch.int64), hi.to(torch.int64)]
+        else:
+            vals += [torch.full((), -(2 ** 62), dtype=torch.int64,
+                                device=x.device)] * 2
+    t = torch.stack(vals)
+    if mesh is not None:
+        for j in range(mesh.ndim):
+            dist.all_reduce(t, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(j))
+    out = t.tolist()
+    return [(-out[2 * i], out[2 * i + 1]) if x.numel() else None
+            for i, x in enumerate(ids)]
 
 
 def checked_ids(ids, *, what: str, n_rows: int,
-                allow_negative_one: bool = False):
-    """``ids``, a ``DTensor`` of row ids, checked against ``[0, n_rows)``
-    (``[-1, n_rows)`` with ``allow_negative_one``) on every rank at once
-    (``global_span``; each rank raises alike) and returned as int32."""
+                allow_negative_one: bool = False,
+                span: "tuple[int, int] | None" = None):
+    """``ids``, a ``DTensor`` of row ids or a plain tensor, checked
+    against ``[0, n_rows)`` (``[-1, n_rows)`` with
+    ``allow_negative_one``) on every rank at once (``id_spans``; each
+    rank raises alike) and returned as int32.  ``span`` is their
+    (lowest, highest) where the caller has read it: then nothing is
+    read back here."""
     ensure_i32_addressable(n_rows, what=f"{what}: index space")
     if ids.numel():
-        lo, hi = global_span(ids)
+        lo, hi = span if span is not None else id_spans(ids)[0]
         if hi >= n_rows or lo < (-1 if allow_negative_one else 0):
             raise IndexError(f"{what}: ids span [{lo}, {hi}], outside "
                              f"[{-1 if allow_negative_one else 0}, "
@@ -146,16 +160,18 @@ def _row_collectives():
     return AllGatherRows, ReduceScatterRows
 
 
-def whole_rows(x):
+def whole_rows(x, grad_placements=None):
     """Every row of a ``DTensor`` sharded on dim 0 (or replicated), as
     this rank's plain tensor: all-gathered over each mesh dim that shards
     the rows, minor first.  Its backward reduce-scatters the rows'
-    gradient back to their ranks, and differentiates again."""
+    gradient back to their ranks, and differentiates again.
+    ``grad_placements`` are those of the gradient of ``x``'s local
+    tensor (``sharding.local_of``; by default ``x``'s own)."""
     gather, _ = _row_collectives()
     mesh = x.device_mesh
     dims = _row_dims(x.placements)
     ranges = shd.shard_ranges(x.shape[0], mesh, x.placements)
-    local = shd.local_of(x)
+    local = shd.local_of(x, grad_placements)
     for k in reversed(range(len(dims))):
         lo, hi = ranges[k]
         local = gather.apply(local, mesh.get_group(dims[k]), hi - lo)
@@ -173,3 +189,47 @@ def scatter_rows(partial, mesh, placements, shape: tuple):
     for j in _row_dims(placements):
         partial = scatter.apply(partial, mesh.get_group(j))
     return shd.dtensor_of(partial, mesh, placements, shape)
+
+
+def sharding_groups(x, dim: int) -> list:
+    """The process groups of the mesh dims that shard ``dim`` of the
+    ``DTensor`` ``x``, in mesh order (none for a plain tensor)."""
+    if not shd.is_dtensor(x):
+        return []
+    dim = dim % x.ndim
+    mesh = x.device_mesh
+    return [mesh.get_group(j) for j, p in enumerate(x.placements)
+            if p.is_shard(dim)]
+
+
+def all_reduce_(t: torch.Tensor, groups: list, op: str = "sum"
+                ) -> torch.Tensor:
+    """``t`` reduced in place over each of ``groups`` in turn (``"sum"``
+    or ``"max"``), untracked by autograd: the collectives inside the
+    split-softmax merges (a sharded vocabulary's log-sum-exp, a sharded
+    cache's decode), whose callers write their own backward.  No
+    groups: ``t`` as it is."""
+    red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for group in groups:
+        dist.all_reduce(t, op=red, group=group)
+    return t
+
+
+def merge_split_softmax(m: torch.Tensor, parts: tuple, groups: list
+                        ) -> tuple:
+    """The split-softmax merge over ``groups``: each rank's running
+    maximum ``m`` (...) over its share of the keys and its ``parts``,
+    sums over the same keys scaled by ``exp(x - m)`` (a softmax's
+    denominator (...), its weighted values (..., D)), rescaled to the
+    maximum over all ranks and summed over them: (that maximum, the
+    merged parts).  On one rank each part is multiplied by
+    ``exp(0) = 1``, unchanged; with no groups nothing runs."""
+    if not groups:
+        return m, parts
+    top = all_reduce_(m.clone(), groups, "max")
+    f = torch.exp(m - top)
+    out = []
+    for p in parts:
+        scaled = p * (f if p.ndim == f.ndim else f[..., None])
+        out.append(all_reduce_(scaled, groups, "sum"))
+    return top, tuple(out)

@@ -215,28 +215,41 @@ def sharded_rows(table, ids, row_dim: int, local_fn):
 
 def _local_gather_rows(table: torch.Tensor,
                        ids: torch.Tensor) -> torch.Tensor:
-    """B1 on this rank's rows: a -1 id reads a zero row."""
-    rows = gather_rows_op(table, ids.clamp(min=0))
-    return torch.where((ids >= 0)[:, None], rows,
+    """B1 on this rank's rows over ids of any shape: a -1 id reads a zero
+    row."""
+    flat = ids.reshape(-1)
+    rows = gather_rows_op(table, flat.clamp(min=0))
+    rows = torch.where((flat >= 0)[:, None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return rows.reshape(*ids.shape, table.shape[1])
 
 
 def gather_rows(table: torch.Tensor, indices, use_pallas: bool = False,
                 interpret: bool = True) -> torch.Tensor:
-    """``table[indices]`` for an (N, D) table; kernel B1 on the card.
-    A ``DTensor`` table is read through ``sharded_rows`` (each rank B1 on
-    its own rows)."""
+    """``table[indices]`` for an (N, D) table and ids of any shape,
+    (*indices.shape, D): kernel B1 over the flattened ids on the card
+    (one launch).  The ids are checked against the table first (once
+    for all ranks on a mesh), then read by ``gather_rows_checked``."""
     _route(table)           # a table on any other device raises
+    what, n = "gather_rows indices", table.shape[0]
     if shd.is_dtensor(indices):
-        idx = checked_ids(indices, what="gather_rows indices",
-                          n_rows=table.shape[0])
+        idx = checked_ids(indices, what=what, n_rows=n)
     else:
-        idx = _index_tensor(indices, table.device,
-                            what="gather_rows indices",
-                            n_elements=table.shape[0])
+        idx = _index_tensor(indices, table.device, what=what, n_elements=n)
+    return gather_rows_checked(table, idx)
+
+
+def gather_rows_checked(table: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """``gather_rows`` on int32 ids of any shape already on the table's
+    device and known to lie in [0, N): no check, no host read.  A
+    ``DTensor`` table is read through ``sharded_rows`` (each rank B1 on
+    its own rows, other ranks' ids read as zero rows, the ranks' results
+    summed)."""
     if shd.is_dtensor(table):
-        return sharded_rows(table, idx, 0, _local_gather_rows)
-    return gather_rows_op(table, idx)
+        return sharded_rows(table, ids, 0, _local_gather_rows)
+    return gather_rows_op(table, ids.reshape(-1)).reshape(
+        *ids.shape, table.shape[1])
 
 
 def gather_plan_rows(flat: torch.Tensor, offsets, row: int,

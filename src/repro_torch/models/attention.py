@@ -25,16 +25,24 @@ Scores and softmax are float32, with the JAX package's finite mask value
 agrees with the dense decode's ``pos <= position`` when
 ``seq_lens = position + 1``.  JAX arrays are immutable; here the dense
 decodes' ``_scatter_time`` and the paged decodes' row writes update the
-cache in place, and return it.
+cache in place, and return it.  The dense decodes' softmax is the
+split-KV scheme (``_split_softmax``): on one card nothing is merged; on
+a mesh, whose cache is sharded on S, each rank writes and attends over
+its own rows and the ranks merge their partial statistics, so no rank
+gathers the cache.  The forward's attention runs on each rank's rows
+and heads (``_sdpa_local``).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Any, NamedTuple
 
 import torch
 
+from ..distributed import sharding as shd
+from ..kernels._mesh import merge_split_softmax, sharding_groups
 from ..kernels.paged_attn import ops as paged_ops
 from .layers import (apply_rope, dense_init, rmsnorm, rmsnorm_init,
                      rope_freqs)
@@ -77,7 +85,11 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           causal: bool, q_chunk: int | None) -> torch.Tensor:
     """q (B,Sq,H,Dh), k/v (B,Skv,KVH,Dh) → (B,Sq,H,Dh).  Exact softmax
     in float32; chunking over Sq (a ragged last chunk allowed) keeps the
-    live score tiles bounded."""
+    live score tiles bounded.  On a mesh each rank attends over its own
+    rows and heads (``_sdpa_local``)."""
+    if shd.is_dtensor(q):
+        return _sdpa_local(q, k, v, positions_q, positions_kv, causal,
+                           q_chunk)
     b, sq, h, dh = q.shape
     kvh = k.shape[2]
     dv = v.shape[-1]
@@ -104,14 +116,50 @@ def _sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, dv).to(q.dtype)
 
 
+def _sdpa_local(q, k, v, positions_q, positions_kv, causal: bool,
+                q_chunk: int | None):
+    """``_sdpa`` of ``DTensor`` q, k, v, run on each rank's local blocks:
+    the batch split as q's rows are, the heads split over the mesh dims
+    that divide both H and KVH (GQA's groups stay whole on a rank) and
+    whole elsewhere (GLM-4's 2 KV heads over 4 ranks, Yi's 7 heads: each
+    of those ranks attends over every head), the sequences whole.  The
+    output is placed as those blocks; the inputs' gradients come back
+    on them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = q.device_mesh
+    h, kvh = q.shape[2], k.shape[2]
+    want = []
+    for j, p in enumerate(q.placements):
+        n = mesh.size(j)
+        if p.is_shard(0):
+            want.append(Shard(0))
+        elif p.is_shard(2) and h % n == 0 and kvh % n == 0:
+            want.append(Shard(2))
+        else:
+            want.append(Replicate())
+    rows = [p if p.is_shard(0) else Replicate() for p in want]
+    local = []
+    for t, pl in ((q, want), (k, want), (v, want), (positions_q, rows),
+                  (positions_kv, rows)):
+        t = shd.replicate_like(t, q)
+        if tuple(t.placements) != tuple(pl):
+            t = t.redistribute(mesh, pl)
+        local.append(shd.local_of(t) if t.is_floating_point()
+                     else t.to_local())
+    out = _sdpa(*local, causal, q_chunk)
+    return shd.dtensor_of(out, mesh, want, tuple(q.shape[:3]) +
+                          (v.shape[-1],))
+
+
 def _qkv(params: dict, cfg: AttnConfig, x: torch.Tensor,
          positions: torch.Tensor):
     """q (B,S,H,Dh), k and v (B,S,KVH,Dh), RoPE applied to q and k."""
     b, s, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, h, dh)
-    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, kvh, dh)
-    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, kvh, dh)
+    q = shd.unflatten(x @ params["wq"].to(x.dtype), 2, (h, dh))
+    k = shd.unflatten(x @ params["wk"].to(x.dtype), 2, (kvh, dh))
+    v = shd.unflatten(x @ params["wv"].to(x.dtype), 2, (kvh, dh))
     cos, sin = rope_freqs(positions, dh, cfg.rope_theta)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -124,8 +172,8 @@ def gqa_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
     b, s, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
     out = _sdpa(q, k, v, positions, positions, causal, q_chunk)
-    out = out.reshape(b, s, cfg.n_heads * cfg.d_head) @ \
-        params["wo"].to(x.dtype)
+    out = shd.shard_as(out.reshape(b, s, cfg.n_heads * cfg.d_head), -1,
+                       params["wo"], 0) @ params["wo"].to(x.dtype)
     if return_cache:
         return out, {"k": k, "v": v}
     return out
@@ -135,33 +183,124 @@ def gqa_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
                cache: dict, position: torch.Tensor):
     """x (B,1,D); cache k/v (B,S_max,KVH,Dh); position (B,) current index.
     Returns out (B,1,D) and the cache, updated in place at
-    ``position``."""
+    ``position``.  A ``DTensor`` cache sharded on S is read where it
+    lies (``_at_cache``, ``_split_softmax``)."""
     b = x.shape[0]
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q, k_new, v_new = _qkv(params, cfg, x, position[:, None])
-    k = _scatter_time(cache["k"], k_new, position)
-    v = _scatter_time(cache["v"], v_new, position)
-    s_max = k.shape[1]
-    g = h // kvh
-    qg = q.reshape(b, kvh, g, dh)
+    at = _at_cache(cache["k"], q, k_new, v_new, position)
+    q, k_new, v_new, pos = at.tensors
+    k = _scatter_time(at.local(cache["k"]), k_new, pos, at.lo)
+    v = _scatter_time(at.local(cache["v"]), v_new, pos, at.lo)
+    qg = q[:, 0].reshape(q.shape[0], kvh, h // kvh, dh)
     scale = 1.0 / math.sqrt(dh)
     scores = torch.einsum("bkgd,bskd->bkgs", qg.float(), k.float()) * scale
-    live = torch.arange(s_max, device=x.device)[None, :] <= \
-        position.long()[:, None]
+    live = at.lo + torch.arange(k.shape[1], device=k.device)[None, :] <= \
+        pos.long()[:, None]
     scores = torch.where(live[:, None, None, :], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgs,bskd->bkgd", p, v.float())
-    out = out.reshape(b, 1, h * dh).to(x.dtype) @ params["wo"].to(x.dtype)
-    return out, {"k": k, "v": v}
+    out = _split_softmax(scores, lambda e: torch.einsum(
+        "bkgs,bskd->bkgd", e, v.float()), at.groups)
+    out = at.placed(out.reshape(-1, 1, h * dh).to(x.dtype), (b, 1, h * dh))
+    return out @ params["wo"].to(x.dtype), cache
+
+
+class _CacheView(NamedTuple):
+    """``_at_cache``'s result: the decode's tensors as local tensors
+    beside this rank's cache rows, the cache's first sequence index
+    here, the groups that split its sequence, and how to place a
+    result."""
+    tensors: tuple
+    lo: int
+    groups: list
+    mesh: Any
+    placements: tuple
+
+    def local(self, cache: torch.Tensor) -> torch.Tensor:
+        """This rank's part of ``cache`` (a view: writes land in it)."""
+        return cache.to_local() if self.mesh is not None else cache
+
+    def placed(self, t: torch.Tensor, shape: tuple):
+        """A local (B', ...) result, whole on every rank but for the
+        cache's batch split, as a ``DTensor`` of global ``shape``."""
+        if self.mesh is None:
+            return t
+        return shd.dtensor_of(t, self.mesh, self.placements, shape)
+
+
+def _at_cache(cache: torch.Tensor, *tensors) -> _CacheView:
+    """The decode's ``tensors`` (B, ...) beside a dense cache (B, S, ...):
+    on one card as they are; on a mesh, each made whole but for the
+    cache's batch split (sharded on the mesh dims that shard the
+    cache's B, replicated on the others: the new token's q, k and v are
+    a few rows) and taken as this rank's local tensor.  The cache is
+    never gathered: each rank attends over its own S rows and the
+    ranks that split S merge their softmax partials
+    (``_split_softmax``)."""
+    if not shd.is_dtensor(cache):
+        return _CacheView(tensors, 0, [], None, ())
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = cache.device_mesh
+    want = tuple(Shard(0) if p.is_shard(0) else Replicate()
+                 for p in cache.placements)
+    local = []
+    for t in tensors:
+        t = shd.replicate_like(t, cache)
+        if tuple(t.placements) != want:
+            t = t.redistribute(mesh, want)
+        local.append(t.to_local())
+    return _CacheView(tuple(local), shd.local_range(cache, 1)[0],
+                      sharding_groups(cache, 1), mesh, want)
+
+
+def store_prefix(cache: torch.Tensor, value: torch.Tensor) -> None:
+    """cache (B, S_max, ...) ← value (B, S, ...) at [:, :S], in place (a
+    prefill's rows).  On a mesh each rank writes the rows of its own
+    part of the cache, from ``value`` made whole but for the cache's
+    batch split (``_at_cache``)."""
+    at = _at_cache(cache, value)
+    (v,) = at.tensors
+    local = at.local(cache)
+    n = max(0, min(v.shape[1] - at.lo, local.shape[1]))
+    local[:, :n] = v[:, at.lo:at.lo + n]
+
+
+def _split_softmax(scores: torch.Tensor, weigh, groups: list
+                   ) -> torch.Tensor:
+    """``softmax(scores) · V`` over this rank's keys (the last dim), by
+    the split-KV scheme: the running maximum, the sum of ``exp(s - m)``
+    and ``weigh(exp(s - m))`` (the exponentials times V), merged over
+    ``groups`` (the ranks that split the keys,
+    ``merge_split_softmax``), then the weighted values over the sum.
+    One card, or one rank, runs the same operations with nothing to
+    merge."""
+    if scores.shape[-1]:
+        m = scores.amax(dim=-1)
+    else:                   # no keys here: this rank's parts weigh 0
+        m = torch.full(scores.shape[:-1], NEG_INF, dtype=scores.dtype,
+                       device=scores.device)
+    e = torch.exp(scores - m[..., None])
+    _, (den, num) = merge_split_softmax(m, (e.sum(dim=-1), weigh(e)),
+                                        groups)
+    return num / den[..., None]
 
 
 def _scatter_time(cache: torch.Tensor, new: torch.Tensor,
-                  position: torch.Tensor) -> torch.Tensor:
-    """cache (B,S,…) ← new (B,1,…) at per-batch position, in place: a
+                  position: torch.Tensor, lo: int = 0) -> torch.Tensor:
+    """cache (B,S,…), sequence rows [lo, lo + S), ← new (B,1,…) at
+    per-batch position where it falls in those rows, in place: a
     one-slot write per sequence, as the JAX package's donated
-    dynamic-update-slice is."""
+    dynamic-update-slice is (a sequence whose position lies on another
+    rank's rows keeps its slot)."""
+    if cache.shape[1] == 0:
+        return cache
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, position.long()] = new[:, 0].to(cache.dtype)
+    at = position.long() - lo
+    mine = (at >= 0) & (at < cache.shape[1])
+    at = at.clamp(0, cache.shape[1] - 1)
+    mine = mine.reshape((-1,) + (1,) * (cache.ndim - 2))
+    cache[rows, at] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                  cache[rows, at])
     return cache
 
 
@@ -227,7 +366,7 @@ def _mla_q(params: dict, cfg: AttnConfig, x: torch.Tensor):
         q = ql @ params["wq_b"].to(x.dtype)
     else:
         q = x @ params["wq"].to(x.dtype)
-    q = q.reshape(b, s, h, dn + dr)
+    q = shd.unflatten(q, 2, (h, dn + dr))
     return q[..., :dn], q[..., dn:]
 
 
@@ -256,12 +395,13 @@ def mla_forward(params: dict, cfg: AttnConfig, x: torch.Tensor,
     q_rope = apply_rope(q_rope, cos, sin)
     c_kv, k_rope = _mla_latent(params, cfg, x, cos, sin)
 
-    k_nope = (c_kv @ params["wk_b"].to(x.dtype)).reshape(b, s, h, dn)
-    v = (c_kv @ params["wv_b"].to(x.dtype)).reshape(b, s, h, dv)
+    k_nope = shd.unflatten(c_kv @ params["wk_b"].to(x.dtype), 2, (h, dn))
+    v = shd.unflatten(c_kv @ params["wv_b"].to(x.dtype), 2, (h, dv))
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, dr)], dim=-1)
     out = _sdpa(q, k, v, positions, positions, causal, q_chunk)
-    out = out.reshape(b, s, h * dv) @ params["wo"].to(x.dtype)
+    out = shd.shard_as(out.reshape(b, s, h * dv), -1, params["wo"], 0) @ \
+        params["wo"].to(x.dtype)
     if return_cache:
         return out, {"c_kv": c_kv, "k_rope": k_rope}
     return out
@@ -275,21 +415,43 @@ def _mla_absorbed(params: dict, cfg: AttnConfig, x: torch.Tensor,
     (B,H,dn), q_rope (B,H,dr) rotated, c_kv (B,S,kv_rank), k_rope
     (B,S,dr), live (B,S) → (B,1,D).  W_kb is absorbed into q and W_vb
     applied after the latent output, all in float32."""
-    b = x.shape[0]
-    h, dn, dr, dv, kvr = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
-                          cfg.v_head_dim, cfg.kv_lora_rank)
+    o_lat = _mla_attend(cfg, _mla_q_latent(params, cfg, q_nope), q_rope,
+                        c_kv, k_rope, live, [])
+    return _mla_out(params, cfg, x, o_lat)
+
+
+def _mla_q_latent(params: dict, cfg: AttnConfig,
+                  q_nope: torch.Tensor) -> torch.Tensor:
+    """q_nope (B,H,dn) with W_kb absorbed: (B,H,kv_rank) float32."""
+    wkb = shd.unflatten(params["wk_b"].float(), 1, (cfg.n_heads,
+                                                    cfg.qk_nope_dim))
+    return torch.einsum("bhd,rhd->bhr", q_nope.float(), wkb)
+
+
+def _mla_attend(cfg: AttnConfig, q_lat: torch.Tensor, q_rope: torch.Tensor,
+                c_kv: torch.Tensor, k_rope: torch.Tensor, live: torch.Tensor,
+                groups: list) -> torch.Tensor:
+    """The latent output (B,H,kv_rank) float32 of the absorbed scores
+    over this rank's latent rows, merged over ``groups``
+    (``_split_softmax``)."""
     c32 = c_kv.float()
-    wkb = params["wk_b"].float().reshape(kvr, h, dn)
-    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), wkb)
     s_lat = torch.einsum("bhr,bsr->bhs", q_lat, c32)        # (B,H,S)
     s_rope = torch.einsum("bhd,bsd->bhs", q_rope.float(), k_rope.float())
-    scores = (s_lat + s_rope) * (1.0 / math.sqrt(dn + dr))
+    scores = (s_lat + s_rope) * (1.0 / math.sqrt(cfg.qk_nope_dim
+                                                 + cfg.qk_rope_dim))
     scores = torch.where(live[:, None, :], scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    o_lat = torch.einsum("bhs,bsr->bhr", p, c32)
-    wvb = params["wv_b"].float().reshape(kvr, h, dv)
+    return _split_softmax(scores, lambda e: torch.einsum(
+        "bhs,bsr->bhr", e, c32), groups)
+
+
+def _mla_out(params: dict, cfg: AttnConfig, x: torch.Tensor,
+             o_lat: torch.Tensor) -> torch.Tensor:
+    """The latent output (B,H,kv_rank) through W_vb and W_o: (B,1,D)."""
+    h, dv = cfg.n_heads, cfg.v_head_dim
+    wvb = shd.unflatten(params["wv_b"].float(), 1, (h, dv))
     out = torch.einsum("bhr,rhd->bhd", o_lat, wvb)          # absorb W_vb
-    return out.reshape(b, 1, h * dv).to(x.dtype) @ params["wo"].to(x.dtype)
+    return out.reshape(x.shape[0], 1, h * dv).to(x.dtype) @ \
+        params["wo"].to(x.dtype)
 
 
 def _mla_decode_q(params: dict, cfg: AttnConfig, x: torch.Tensor,
@@ -308,14 +470,22 @@ def mla_decode(params: dict, cfg: AttnConfig, x: torch.Tensor,
     """Absorbed-matmul MLA decode over a dense cache: x (B,1,D); cache
     ``c_kv`` (B,S_max,kv_rank) and ``k_rope`` (B,S_max,dr); position
     (B,).  Returns out (B,1,D) and the cache, updated in place at
-    ``position``."""
+    ``position``.  A ``DTensor`` cache sharded on S is read where it
+    lies: W_kb is absorbed with the heads split, the latent query
+    (B,H,kv_rank) made whole, and each rank attends over its own rows
+    (``_at_cache``)."""
+    b = x.shape[0]
     q_nope, q_rope, c_new, kr_new = _mla_decode_q(params, cfg, x, position)
-    c_kv = _scatter_time(cache["c_kv"], c_new, position)
-    k_rope = _scatter_time(cache["k_rope"], kr_new, position)
-    live = torch.arange(c_kv.shape[1], device=x.device)[None, :] <= \
-        position.long()[:, None]
-    out = _mla_absorbed(params, cfg, x, q_nope, q_rope, c_kv, k_rope, live)
-    return out, {"c_kv": c_kv, "k_rope": k_rope}
+    at = _at_cache(cache["c_kv"], _mla_q_latent(params, cfg, q_nope),
+                   q_rope, c_new, kr_new, position)
+    q_lat, q_rope, c_new, kr_new, pos = at.tensors
+    c_kv = _scatter_time(at.local(cache["c_kv"]), c_new, pos, at.lo)
+    k_rope = _scatter_time(at.local(cache["k_rope"]), kr_new, pos, at.lo)
+    live = at.lo + torch.arange(c_kv.shape[1], device=c_kv.device)[
+        None, :] <= pos.long()[:, None]
+    o_lat = _mla_attend(cfg, q_lat, q_rope, c_kv, k_rope, live, at.groups)
+    o_lat = at.placed(o_lat, (b, cfg.n_heads, cfg.kv_lora_rank))
+    return _mla_out(params, cfg, x, o_lat), cache
 
 
 def mla_decode_paged(params: dict, cfg: AttnConfig, x: torch.Tensor,

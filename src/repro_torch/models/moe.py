@@ -35,6 +35,7 @@ load balance plus router z-loss) is each group's, averaged over groups.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -42,6 +43,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed import sharding as shd
 from .layers import dense_init, normal
 
 
@@ -124,14 +126,107 @@ def moe_ffn(params: dict, cfg: MoEConfig, x: torch.Tensor,
     """x (B, S, D) → (out (B, S, D), aux_loss float32 scalar).
 
     ``dropless=True`` sizes each expert buffer to hold every token of
-    its group (capacity = t): the decode path."""
+    its group (capacity = t): the decode path.  On a mesh (``x`` a
+    ``DTensor``) each rank runs only its own experts (``_moe_mesh``)."""
     b, s, d = x.shape
     t = b * s
     g = min(cfg.n_groups, t)
     if t % g:
         g = 1
-    out, aux = _moe_group(params, cfg, x.reshape(g, t // g, d), dropless)
-    return out.reshape(b, s, d), aux.mean()
+    if shd.is_dtensor(x):
+        return _moe_mesh(params, cfg, x, g, dropless)
+    acc, aux = _routed(params["router"], params["w_gate"], params["w_up"],
+                       params["w_down"], cfg, x.reshape(g, t // g, d),
+                       dropless, 0)
+    return _with_shared(params, cfg, x, acc.to(x.dtype).reshape(b, s, d)), \
+        aux.mean()
+
+
+def _with_shared(params: dict, cfg: MoEConfig, x, out):
+    """``out`` plus the shared experts' output on ``x`` (DeepSeek)."""
+    if not cfg.n_shared:
+        return out
+    sh = params["shared"]
+    return out + swiglu(sh["w_gate"], sh["w_up"], sh["w_down"], x)
+
+
+def _moe_mesh(params: dict, cfg: MoEConfig, x, g: int, dropless: bool):
+    """``moe_ffn`` of a ``DTensor`` ``x`` with ``g`` groups, expert-local.
+
+    Each mesh dim plays one role: "rows" where ``x`` is sharded on its
+    rows (the data axes), "experts" where the expert weights are sharded
+    on E (``"model"``), "same" where both are whole (every rank there
+    computes alike).  Each rank routes whole groups of the plain path
+    with the replicated router: its own rows' groups where every rank's
+    rows hold whole groups, else every group (the rows gathered over the
+    "rows" dims, ``whole_rows``: groups that straddle a shard, and the
+    ``t % g`` fallback's one group).  It fills the buffer rows of its
+    own E / model experts only, runs the grouped GEMM on them, combines
+    their gated outputs in float32 and keeps its own rows; the (T, D)
+    partial sums are summed over the "experts" dims, then cast, so no
+    rank holds another's experts or their (E, C, D) buffer.  The aux
+    loss is the mean over all groups, counted once: a partial sum over
+    the "rows" dims where each rank routed its own groups, and only the
+    first rank's of the dims where ranks repeat it (the "experts" dims,
+    and the "rows" dims after a gather).  Gradients follow the roles
+    (``local_of``'s ``grad_placements``): partial sums over "experts"
+    for ``x`` and the router, over "rows" for the router and experts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from ..kernels._mesh import whole_rows
+
+    b, s, d = x.shape
+    t = b * s
+    tg = t // g
+    mesh = x.device_mesh
+    w_gate = params["w_gate"]
+    roles = []
+    for xp, wp in zip(x.placements, w_gate.placements):
+        roles.append("experts" if wp.is_shard(0) else
+                     "rows" if xp.is_shard(0) else "same")
+    want = [Shard(0) if r == "rows" else Replicate() for r in roles]
+    if tuple(x.placements) != tuple(want):
+        x = x.redistribute(mesh, want)
+    wants = [Shard(0) if r == "experts" else Replicate() for r in roles]
+    experts = [w if tuple(w.placements) == tuple(wants) else
+               w.redistribute(mesh, wants)
+               for w in (params[k] for k in ("w_gate", "w_up", "w_down"))]
+
+    def grads(rows, experts_):
+        return [rows if r == "rows" else experts_ if r == "experts"
+                else Replicate() for r in roles]
+
+    r_lo, r_hi = shd.local_range(x, 0)
+    pieces = (shd.shard_ranges(b, mesh, x.placements, 0, c)[-1]
+              for c in itertools.product(*map(range, mesh.shape)))
+    aligned = all(lo * s % tg == 0 and hi * s % tg == 0
+                  for lo, hi in pieces)
+    x_grad = grads(Shard(0), Partial())
+    if aligned:
+        xl = shd.local_of(x, x_grad)
+    else:
+        xl = whole_rows(x, x_grad)
+    router = shd.local_of(params["router"], grads(Partial(), Partial()))
+    w_loc = [shd.local_of(w, grads(Partial(), Shard(0))) for w in experts]
+    e_lo = shd.local_range(experts[0], 0)[0]
+    xg = xl.reshape(-1, tg, d)
+    acc, aux = _routed(router, *w_loc, cfg, xg, dropless, e_lo)
+    if not aligned:
+        acc = acc.reshape(t, d)[r_lo * s:r_hi * s]
+    out = shd.dtensor_of(acc.reshape(r_hi - r_lo, s, d), mesh,
+                         grads(Shard(0), Partial()), (b, s, d))
+    out = _with_shared(params, cfg, x, out.redistribute(mesh, want).to(
+        x.dtype))
+
+    # The aux loss: this rank's share of the mean over the g groups.
+    aux = aux.mean() if xg.shape[0] == g else aux.sum() / g
+    coord = mesh.get_coordinate()
+    repeats = [j for j, r in enumerate(roles)
+               if r == "experts" or (r == "rows" and not aligned)]
+    if any(coord[j] for j in repeats):
+        aux = torch.zeros_like(aux)
+    aux = shd.dtensor_of(aux, mesh, grads(Partial(), Partial()), ())
+    return out, aux.redistribute(mesh, [Replicate()] * mesh.ndim)
 
 
 def router_logits(params: dict, xg: torch.Tensor) -> torch.Tensor:
@@ -148,43 +243,46 @@ def swiglu(w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
     return torch.matmul(F.silu(h) * u, w_down.to(x.dtype))
 
 
-def _moe_group(params: dict, cfg: MoEConfig, xg: torch.Tensor,
-               dropless: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every group at once: xg (G, T, D) → (out (G, T, D), aux (G,))."""
+def _routed(router: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor, cfg: MoEConfig, xg: torch.Tensor,
+            dropless: bool, e_lo: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed experts of every group at once: xg (G, T, D) → (the
+    gated sum of each token's kept slots (G, T, D) float32, aux (G,)).
+    The weights hold experts [e_lo, e_lo + E'), E' = ``w_gate.shape[0]``
+    (all E on one card, a rank's own on a mesh): only their slots are
+    dispatched, computed and combined, the others' count as zero."""
     g, t, d = xg.shape
     e, k = cfg.n_experts, cfg.top_k
+    e_n = w_gate.shape[0]
     dev = xg.device
-    logits = router_logits(params, xg)                        # (G, T, E)
+    logits = router_logits({"router": router}, xg)          # (G, T, E)
     r = route(logits, cfg, dropless)
     rows = g * r.capacity                   # each expert's rows, all groups
 
     # dispatch: expert e's row (group, position) holds its (token, choice);
-    # dropped slots write a spare row past the experts'.
+    # dropped slots, and other ranks' experts', write a spare row past
+    # the experts'.
     eid = r.expert_ids.reshape(g, t * k)
+    own = r.keep & (eid >= e_lo) & (eid < e_lo + e_n)
     group = torch.arange(g, device=dev)[:, None]
-    slot = eid * rows + group * r.capacity + r.positions       # (G, T·k)
-    slot = torch.where(r.keep, slot, e * rows)
+    slot = (eid - e_lo) * rows + group * r.capacity + r.positions
+    slot = torch.where(own, slot, e_n * rows)                  # (G, T·k)
     token = (group * t + torch.arange(t * k, device=dev)[None, :] // k)
-    buf = xg.new_zeros((e * rows + 1, d))
+    buf = xg.new_zeros((e_n * rows + 1, d))
     buf[slot.reshape(-1)] = xg.reshape(g * t, d)[token.reshape(-1)]
-    expert_in = buf[:e * rows].view(e, rows, d)
+    expert_in = buf[:e_n * rows].view(e_n, rows, d)
 
     # the grouped GEMM: one batched product over experts
-    expert_out = swiglu(params["w_gate"], params["w_up"], params["w_down"],
-                        expert_in).reshape(e * rows, d)
+    expert_out = swiglu(w_gate, w_up, w_down,
+                        expert_in).reshape(e_n * rows, d)
 
     # combine: each token's kept slots, weighted, summed in choice order
-    taken = expert_out[torch.where(r.keep, slot, 0).reshape(-1)]
+    taken = expert_out[torch.where(own, slot, 0).reshape(-1)]
     weighted = taken.view(g, t, k, d) * r.gates[..., None].to(xg.dtype)
-    weighted = torch.where(r.keep.view(g, t, k, 1), weighted, 0)
+    weighted = torch.where(own.view(g, t, k, 1), weighted, 0)
     acc = weighted[:, :, 0].float()
     for j in range(1, k):
         acc = acc + weighted[:, :, j].float()
-    out = acc.to(xg.dtype)
-
-    if cfg.n_shared:
-        sh = params["shared"]
-        out = out + swiglu(sh["w_gate"], sh["w_up"], sh["w_down"], xg)
 
     # aux losses (float32), per group
     density = F.one_hot(r.expert_ids[..., 0], e).float().mean(dim=-2)
@@ -192,4 +290,4 @@ def _moe_group(params: dict, cfg: MoEConfig, xg: torch.Tensor,
     lb_loss = e * (density * router_prob).sum(-1)
     z_loss = torch.square(torch.logsumexp(logits, dim=-1)).mean(-1)
     aux = cfg.aux_loss_weight * lb_loss + cfg.z_loss_weight * z_loss
-    return out, aux
+    return acc, aux

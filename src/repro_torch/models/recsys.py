@@ -55,11 +55,11 @@ from torch import nn
 from .._device import resolve_device, seeded_generator
 from ..distributed import sharding as shd
 from ..kernels._casting import ensure_i32_addressable
-from ..kernels._mesh import global_span
+from ..kernels._mesh import id_spans
 from ..kernels.gather import ops as gather_ops
 from . import transformer as tf
 from .layers import (MLP, cross_entropy, cross_entropy_tied_chunked,
-                     embedding_init, unembed)
+                     embedding_init)
 
 
 class EmbeddingBag(nn.Module):
@@ -95,8 +95,7 @@ class EmbeddingBag(nn.Module):
         # mesh, over every rank at once); it bounds every flat id below
         # T·R, so B6 is called past ``ops``.
         if bags.numel():
-            lo, hi = global_span(bags) if shd.is_dtensor(bags) else \
-                torch.stack(torch.aminmax(bags)).tolist()
+            (lo, hi), = id_spans(bags)
             if lo < -1 or hi >= rows:
                 raise IndexError(
                     f"EmbeddingBag: ids span [{lo}, {hi}], outside "
@@ -299,7 +298,8 @@ def twotower_loss(model: TwoTower, batch: dict) -> torch.Tensor:
     logq = batch.get("item_logq")
     if logq is not None:
         logits = logits - logq[None, :]
-    return cross_entropy(logits, shd.row_ids(u))
+    return cross_entropy(logits, shd.row_ids(u),
+                         label_span=(0, u.shape[0] - 1))
 
 
 # ---------------------------------------------------------------------------
@@ -330,13 +330,16 @@ def bert4rec_loss(params: tf.Params, cfg: tf.TransformerConfig,
     top ``MAX_MASKED`` masked positions of each row (a stable sort of
     ``-mask``, ties by position), and the chunked tied cross-entropy
     over them (chunks of 4096 items), weighted by the mask; the
-    (B, S, V) logits are never formed."""
+    (B, S, V) logits are never formed.  On a mesh the picks run on each
+    rank's own rows and the cross-entropy on its own vocabulary rows."""
     h, _ = tf.trunk(params, cfg, batch["items"])          # (B, S, D)
     mask = batch["mask"]
-    order = torch.argsort(-mask, dim=1, stable=True)[:, :MAX_MASKED]
-    h_m = torch.take_along_dim(h, order[..., None], dim=1)
-    lab_m = torch.take_along_dim(batch["labels"], order, dim=1)
-    w_m = torch.take_along_dim(mask, order, dim=1)
+    order = shd.rowwise(lambda m: torch.argsort(
+        -m, dim=1, stable=True)[:, :MAX_MASKED], mask)
+    h_m = shd.rowwise(lambda x, o: torch.take_along_dim(
+        x, o[..., None], dim=1), h, order)
+    lab_m, w_m = (shd.rowwise(lambda x, o: torch.take_along_dim(
+        x, o, dim=1), t, order) for t in (batch["labels"], mask))
     return cross_entropy_tied_chunked(h_m, params["embed"]["table"], lab_m,
                                       w_m, chunk=4096)
 
@@ -345,15 +348,12 @@ def bert4rec_score(params: tf.Params, cfg: tf.TransformerConfig,
                    items: torch.Tensor) -> torch.Tensor:
     """Next-item scores at the last position: items (B, S) → (B, V).
     Only the final position is unembedded, (B, V) and not (B, S, V).
-    An item id outside [0, V) raises ``IndexError`` (one read back from
-    the card), as a position outside the table does (ROADMAP C12)."""
-    if items.numel():
-        lo, hi = torch.stack(torch.aminmax(items)).tolist()
-        if lo < 0 or hi >= cfg.vocab:
-            raise IndexError(f"{cfg.name}: item ids span [{lo}, {hi}], "
-                             f"outside [0, {cfg.vocab})")
+    An item id outside [0, V) raises ``IndexError`` (the trunk's one
+    read back from the card, over every rank on a mesh), as a position
+    outside the table does (ROADMAP C12).  On a mesh the scores are
+    sharded on V."""
     h, _ = tf.trunk(params, cfg, items)
-    return unembed(params["embed"], h[:, -1])
+    return tf.head_logits(params, cfg, h[:, -1])
 
 
 def _bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -48,12 +48,20 @@ prefill and decode the engine serves through.  A position outside
 [0, max_seq) raises ``IndexError`` before the table is read (ROADMAP
 C12), where the JAX package's ``jnp.take`` would return a NaN row.
 
-The JAX package's ``constrain`` calls (``distributed.context``, sharding
-hints for the pod) are not made here: the paged decode calls kernel
-B8 (``kernels.paged_attn``) on local tensors through raw pointers,
-which has no ``DTensor`` sharding rule, so the decoder runs on one
-card's tensors, as NequIP does.  ``configs.common.lm_arch`` gives its shardings for the
-dry run.
+On a mesh (the parameters, batches and caches ``DTensor`` tensors under
+their cells' specs, ``configs.common.lm_arch``) the same functions run
+sharded.  The JAX package's ``constrain(x, DP, None, None)`` pins the
+batch to the data axes at its three places (a layer's input, the trunk's
+and the prefill's embeddings), and the head's input before the logits.
+The token and position lookups are B1 on each rank's vocabulary rows
+(``layers.embed``), the ids checked once a forward; FSDP-sharded weights
+are gathered at use, layer by layer (``_at_use``); attention runs on
+each rank's rows and heads, a dense decode on its own rows of a cache
+sharded on S (``attention._at_cache``); MoE layers on its own experts
+(``moe._moe_mesh``); the head's logits and the losses on its own
+vocabulary columns (``layers.cross_entropy``).  The serving engine's
+paged decode calls kernel B8 on one card's tensors through raw pointers
+and is not a cell: it stays on one card.
 """
 
 from __future__ import annotations
@@ -64,9 +72,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .._device import resolve_device, seeded_generator
+from ..distributed import sharding as shd
+from ..distributed.context import DP, constrain
+from ..distributed.sharding import PartitionSpec as P
+from ..kernels._mesh import checked_ids, id_spans
 from .attention import (AttnConfig, gqa_decode, gqa_decode_paged,
                         gqa_forward, gqa_init, mla_decode, mla_decode_paged,
-                        mla_forward, mla_init)
+                        mla_forward, mla_init, store_prefix)
 from .layers import (cross_entropy, dense_init, embed, embedding_init,
                      glu_ffn, glu_ffn_init, rmsnorm, rmsnorm_init, unembed)
 from .moe import MoEConfig, moe_ffn, moe_init
@@ -200,32 +212,45 @@ def count_params(params: Params) -> int:
 
 
 # -- forward -------------------------------------------------------------
-def check_positions(cfg: TransformerConfig, positions: torch.Tensor,
-                    span: tuple[int, int] | None = None) -> None:
-    """Raise ``IndexError`` unless every position lies in [0, max_seq)
-    of a learned position table (ROADMAP C12).  ``span`` is the (lowest,
-    highest) position where the caller knows it; else it is read from
-    ``positions`` (one read back from the card)."""
-    if not cfg.learned_pos or positions.numel() == 0:
-        return
-    if span is None:
-        span = tuple(torch.stack(torch.aminmax(positions)).tolist())
-    lo, hi = span
-    if lo < 0 or hi >= cfg.max_seq:
-        raise IndexError(f"{cfg.name}: positions span [{lo}, {hi}], "
-                         f"outside the [0, {cfg.max_seq}) of its learned "
-                         f"position table")
+def _token_ids(cfg: TransformerConfig, tokens: torch.Tensor,
+               span: tuple[int, int] | None = None) -> torch.Tensor:
+    """``tokens`` as int32 rows of the embedding table, after the check
+    that they lie in [0, vocab) (``IndexError``, as for positions in
+    ROADMAP C12).  ``span`` is their (lowest, highest) where the caller
+    has read it; else it is read here (one read back from the card,
+    over every rank of a mesh)."""
+    return checked_ids(tokens, what=f"{cfg.name}: token/item ids",
+                       n_rows=cfg.vocab, span=span)
 
 
 def _embed(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
-           positions: torch.Tensor, span: tuple[int, int] | None = None):
-    """The token embeddings, plus the learned position embeddings where
-    the configuration has them (``check_positions`` first)."""
-    x = embed(params["embed"], tokens).to(cfg.dtype)
+           positions: torch.Tensor, span: tuple[int, int] | None = None,
+           token_span: tuple[int, int] | None = None):
+    """The token embeddings (B1: ``layers.embed``), plus the learned
+    position embeddings where the configuration has them.  The ids, and
+    the positions against the learned position table (ROADMAP C12), are
+    checked before either table is read: against the spans given
+    (``span`` the positions', ``token_span`` the tokens'), or else read
+    here, both in one read: one check a forward, never one a layer."""
+    if cfg.learned_pos and span is None and token_span is None:
+        token_span, span = id_spans(tokens, positions)
+    ids = _token_ids(cfg, tokens, token_span)
     if cfg.learned_pos:
-        check_positions(cfg, positions, span)
-        x = x + embed(params["pos_embed"], positions).to(cfg.dtype)
+        pos = checked_ids(positions, what=f"{cfg.name}: positions of its "
+                          f"learned position table", n_rows=cfg.max_seq,
+                          span=span)
+    x = embed(params["embed"], ids).to(cfg.dtype)
+    if cfg.learned_pos:
+        x = x + embed(params["pos_embed"], pos).to(cfg.dtype)
     return x
+
+
+def _at_use(tree):
+    """A layer's parameters as it uses them: each FSDP-sharded weight
+    gathered over the data axes (``sharding.at_use``), layer by layer."""
+    if isinstance(tree, dict):
+        return {k: _at_use(v) for k, v in tree.items()}
+    return shd.at_use(tree)
 
 
 def _ffn_block(cfg: TransformerConfig, use_moe: bool, lp: Params,
@@ -242,15 +267,20 @@ def _ffn_block(cfg: TransformerConfig, use_moe: bool, lp: Params,
     return x + out, aux
 
 
-def _logits(params: Params, cfg: TransformerConfig, h: torch.Tensor):
+def head_logits(params: Params, cfg: TransformerConfig, h: torch.Tensor):
+    """The head's logits of ``h`` (B, ..., D), whose rows are first
+    pinned to the batch axes and D made whole on a mesh: each rank then
+    forms only its own vocabulary columns."""
+    h = constrain(h, DP, *([None] * (h.ndim - 1)))
     if cfg.tied_embeddings:
         return unembed(params["embed"], h)
-    return h @ params["head"]["w"].to(h.dtype)
+    return h @ shd.at_use(params["head"]["w"]).to(h.dtype)
 
 
 def _positions(tokens: torch.Tensor) -> torch.Tensor:
     b, s = tokens.shape
-    return torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    pos = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    return shd.replicate_like(pos, tokens)
 
 
 def _forward_attn(cfg: TransformerConfig):
@@ -260,7 +290,11 @@ def _forward_attn(cfg: TransformerConfig):
 def _layer_apply(cfg: TransformerConfig, use_moe: bool, lp: Params,
                  x: torch.Tensor, positions: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """One layer: (its output, the MoE aux loss or None)."""
+    """One layer: (its output, the MoE aux loss or None).  On a mesh its
+    input is pinned to the batch axes and its weights gathered over the
+    FSDP axes here, inside any recomputation."""
+    lp = _at_use(lp)
+    x = constrain(x, DP, None, None)
     h = _forward_attn(cfg)(lp["attn"], cfg.attn_config(),
                            rmsnorm(lp["attn_norm"], x), positions,
                            causal=cfg.causal, q_chunk=cfg.q_chunk)
@@ -275,15 +309,18 @@ def _needs_remat(cfg: TransformerConfig, params: Params) -> bool:
 
 
 def trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
-          positions: torch.Tensor | None = None
+          positions: torch.Tensor | None = None,
+          token_span: tuple[int, int] | None = None
           ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (hidden (B, S, D) after final norm, aux_loss, the
-    MoE layers' summed)."""
+    MoE layers' summed).  ``token_span``: the tokens' (lowest, highest)
+    where the caller has read it (``_embed``)."""
     span = None
     if positions is None:
         positions, span = _positions(tokens), (0, tokens.shape[1] - 1)
-    x = _embed(params, cfg, tokens, positions, span)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _embed(params, cfg, tokens, positions, span, token_span)
+    x = constrain(x, DP, None, None)
+    aux = None
     remat = _needs_remat(cfg, params)
     for lp, use_moe in zip(params["layers"], cfg.layer_uses_moe()):
         if remat:
@@ -292,16 +329,20 @@ def trunk(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
         else:
             x, a = _layer_apply(cfg, use_moe, lp, x, positions)
         if a is not None:
-            aux = aux + a
+            aux = a if aux is None else aux + a
+    if aux is None:
+        aux = shd.replicate_like(torch.zeros((), dtype=torch.float32,
+                                             device=x.device), x)
     return rmsnorm(params["final_norm"], x), aux
 
 
 def forward(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
-            positions: torch.Tensor | None = None
+            positions: torch.Tensor | None = None,
+            token_span: tuple[int, int] | None = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) → (logits (B, S, V), aux_loss)."""
-    h, aux = trunk(params, cfg, tokens, positions)
-    return _logits(params, cfg, h), aux
+    h, aux = trunk(params, cfg, tokens, positions, token_span)
+    return head_logits(params, cfg, h), aux
 
 
 # -- training ----------------------------------------------------------------
@@ -310,41 +351,59 @@ def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             ) -> tuple[torch.Tensor, dict]:
     """(cross-entropy of ``labels`` + the MoE aux loss + ``mtp_loss_weight``
     × the MTP loss where the configuration has it, {"ce", "aux",
-    "mtp_ce"}), as the JAX package's ``loss_fn``."""
-    logits, aux = forward(params, cfg, tokens)
-    ce = cross_entropy(logits, labels, mask)
+    "mtp_ce"}), as the JAX package's ``loss_fn``.  The tokens and the
+    labels are checked in one read back from the card, for every
+    lookup and loss of the step (``_token_ids``, ``cross_entropy``)."""
+    tok_span, lab_span = id_spans(tokens, labels)
+    logits, aux = forward(params, cfg, tokens, token_span=tok_span)
+    ce = cross_entropy(logits, labels, mask, label_span=lab_span)
     loss = ce + aux
     metrics = {"ce": ce, "aux": aux}
     if cfg.mtp:
-        mtp_ce = _mtp_loss(params, cfg, tokens, labels)
+        mtp_ce = _mtp_loss(params, cfg, tokens, labels, tok_span,
+                           lab_span)
         loss = loss + cfg.mtp_loss_weight * mtp_ce
         metrics["mtp_ce"] = mtp_ce
     return loss, metrics
 
 
 def _mtp_loss(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
-              labels: torch.Tensor) -> torch.Tensor:
+              labels: torch.Tensor,
+              token_span: tuple[int, int] | None = None,
+              label_span: tuple[int, int] | None = None) -> torch.Tensor:
     """DeepSeek-V3's depth-1 multi-token prediction as the JAX package
     writes it: the token's embedding and the next token's (``roll`` by
     one), each RMS-normed, concatenated and projected, one dense layer,
     the final norm and the tied unembedding, predicting the label after
-    next (``roll`` of the labels); the last two positions are masked."""
+    next (``roll`` of the labels); the last two positions are masked.
+    The spans are ``loss_fn``'s, where it gives them: the rolled ids
+    are the same ids."""
     b, s = tokens.shape
     positions = _positions(tokens)
-    x = embed(params["embed"], tokens).to(cfg.dtype)
-    nxt = torch.roll(tokens, -1, dims=1)
+    ids = _token_ids(cfg, tokens, token_span)
+    x = embed(params["embed"], ids).to(cfg.dtype)
+    nxt = shd.rowwise(_next_token, ids)
     mp = params["mtp"]
     hcat = torch.cat([
         rmsnorm(mp["norm_h"], x),
         rmsnorm(mp["norm_e"], embed(params["embed"], nxt).to(cfg.dtype)),
     ], dim=-1)
-    h = hcat @ mp["proj"]["w"].to(cfg.dtype)
+    h = hcat @ shd.at_use(mp["proj"]["w"]).to(cfg.dtype)
     h, _ = _layer_apply(cfg, False, mp["layer"], h, positions)
-    logits = unembed(params["embed"], rmsnorm(params["final_norm"], h))
-    mtp_labels = torch.roll(labels, -1, dims=1)
+    h = rmsnorm(params["final_norm"], h)
+    logits = unembed(params["embed"], constrain(h, DP, None, None))
+    mtp_labels = shd.rowwise(_next_token, labels)
     mask = (torch.arange(s, device=tokens.device)[None, :] < s - 2).to(
         torch.float32).expand(b, s)
-    return cross_entropy(logits, mtp_labels, mask)
+    return cross_entropy(logits, mtp_labels,
+                         shd.replicate_like(mask, tokens), label_span)
+
+
+def _next_token(t: torch.Tensor) -> torch.Tensor:
+    """Each row rolled by one to the left (``torch.roll(t, -1, 1)``): run
+    on each rank's own rows on a mesh (``rowwise``), since PyTorch 2.11
+    has no ``DTensor`` rule for ``roll``."""
+    return torch.roll(t, -1, dims=1)
 
 
 def stack_groups(params: Params, cfg: TransformerConfig) -> Params:
@@ -396,13 +455,39 @@ def _cache_shapes(cfg: TransformerConfig, batch: int, max_seq: int
     return {"k": kv, "v": kv}
 
 
+def cache_specs(cfg: TransformerConfig, batch: int,
+                axis_names: tuple) -> list:
+    """The dense cache's specs on a mesh of ``axis_names``, the JAX decode
+    lowering's: (L, B, S, ...) with B on the batch axes and S on
+    "model" (``decode_32k``), or a batch of one with S on ("data",
+    "model") (``long_500k``); one dict per layer group."""
+    dpa = tuple(a for a in ("pod", "data") if a in axis_names)
+    if batch == 1:
+        b_ax = None
+        s_ax = tuple(a for a in ("data", "model") if a in axis_names)
+    else:
+        b_ax, s_ax = dpa, "model"
+    return [{key: P(None, b_ax, s_ax, *((None,) * (len(shape) - 2)))
+             for key, shape in _cache_shapes(cfg, batch, 1).items()}
+            for _ in cfg.layer_groups()]
+
+
 def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
-               dtype: torch.dtype | None = None, device=None) -> list:
+               dtype: torch.dtype | None = None, device=None,
+               device_mesh=None) -> list:
     """Dense decode cache, one dict per layer group stacked (L_group, B,
     S_max, ...): ``{"k", "v"}`` (GQA) or ``{"c_kv", "k_rope"}`` (MLA),
-    zeros."""
-    kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
+    zeros.  With ``device_mesh`` (a ``DeviceMesh``), ``DTensor`` zeros
+    placed by ``cache_specs``, each rank allocating its own part."""
+    dtype = dtype or cfg.dtype
     shapes = _cache_shapes(cfg, batch, max_seq)
+    if device_mesh is not None:
+        specs = cache_specs(cfg, batch, device_mesh.mesh_dim_names)
+        return [{key: shd.placed_zeros((n, *shape), dtype, device_mesh,
+                                       spec[key])
+                 for key, shape in shapes.items()}
+                for (n, _), spec in zip(cfg.layer_groups(), specs)]
+    kw = dict(dtype=dtype, device=resolve_device(device))
     return [{key: torch.zeros((n, *shape), **kw)
              for key, shape in shapes.items()}
             for n, _ in cfg.layer_groups()]
@@ -416,35 +501,44 @@ def _layer_caches(cfg: TransformerConfig, caches: list) -> list[dict]:
 
 
 def _prefill_trunk(params: Params, cfg: TransformerConfig,
-                   tokens: torch.Tensor, store) -> torch.Tensor:
+                   tokens: torch.Tensor, store,
+                   token_span: tuple[int, int] | None = None
+                   ) -> torch.Tensor:
     """Run the prompt, hand each layer's cache entries (``{"k", "v"}``
     (B, S, KVH, Dh) or ``{"c_kv", "k_rope"}`` (B, S, ·)) to
-    ``store(layer, entries)``, and return the last position's logits."""
+    ``store(layer, entries)``, and return the last position's logits.
+    ``token_span`` as ``trunk``'s."""
     positions = _positions(tokens)
     acfg, attn = cfg.attn_config(), _forward_attn(cfg)
-    x = _embed(params, cfg, tokens, positions, (0, tokens.shape[1] - 1))
+    x = _embed(params, cfg, tokens, positions, (0, tokens.shape[1] - 1),
+               token_span)
+    x = constrain(x, DP, None, None)
     for i, (lp, use_moe) in enumerate(zip(params["layers"],
                                           cfg.layer_uses_moe())):
+        lp = _at_use(lp)
         h, kv = attn(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x),
                      positions, causal=cfg.causal, q_chunk=cfg.q_chunk,
                      return_cache=True)
         store(i, kv)
         x, _ = _ffn_block(cfg, use_moe, lp, x + h)
     h = rmsnorm(params["final_norm"], x[:, -1:])
-    return _logits(params, cfg, h)[:, 0]
+    return head_logits(params, cfg, h)[:, 0]
 
 
 def prefill(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
             max_seq: int) -> tuple[torch.Tensor, list]:
     """Run the full prompt; return last-position logits (B, V) and the
-    filled dense cache, padded with zeros to ``max_seq``."""
+    filled dense cache, padded with zeros to ``max_seq``.  On a mesh the
+    cache is placed as the decode cell's (``cache_specs``) and each rank
+    writes the prompt's rows it holds."""
     b, s = tokens.shape
-    caches = init_cache(cfg, b, max_seq, device=tokens.device)
+    caches = init_cache(cfg, b, max_seq, device=tokens.device,
+                        device_mesh=getattr(tokens, "device_mesh", None))
     layers = _layer_caches(cfg, caches)
 
     def store(i, kv):
         for key, value in kv.items():
-            layers[i][key][:, :s] = value
+            store_prefix(layers[i][key], value)
 
     return _prefill_trunk(params, cfg, tokens, store), caches
 
@@ -454,17 +548,27 @@ def decode_step(params: Params, cfg: TransformerConfig, caches: list,
                 ) -> tuple[torch.Tensor, list]:
     """One decode step over the dense cache.  token (B,), position (B,)
     → logits (B, V); the caches are updated in place and returned.  MoE
-    layers route dropless."""
+    layers route dropless.  The tokens and positions are read back once
+    and checked: a position outside the cache's [0, S_max) raises
+    ``IndexError``, as do the tokens and learned positions that
+    ``_embed`` checks."""
     acfg = cfg.attn_config()
     dec = mla_decode if cfg.attn_type == "mla" else gqa_decode
-    x = _embed(params, cfg, token[:, None], position[:, None])
+    tok_span, pos_span = id_spans(token, position)
+    s_max = next(iter(caches[0].values())).shape[2]
+    if pos_span is not None and (pos_span[0] < 0 or pos_span[1] >= s_max):
+        raise IndexError(f"{cfg.name}: decode positions span {pos_span}, "
+                         f"outside the [0, {s_max}) of its cache")
+    x = _embed(params, cfg, token[:, None], position[:, None], pos_span,
+               tok_span)
     for lp, lc, use_moe in zip(params["layers"], _layer_caches(cfg, caches),
                                cfg.layer_uses_moe()):
+        lp = _at_use(lp)
         h, _ = dec(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), lc,
                    position)
         x, _ = _ffn_block(cfg, use_moe, lp, x + h, dropless=True)
     h = rmsnorm(params["final_norm"], x)
-    return _logits(params, cfg, h)[:, 0], caches
+    return head_logits(params, cfg, h)[:, 0], caches
 
 
 # -- serving over the page pool ------------------------------------------
@@ -485,13 +589,15 @@ def init_paged_cache(cfg: TransformerConfig, n_pages: int, page_size: int,
 
 def prefill_paged(params: Params, cfg: TransformerConfig,
                   tokens: torch.Tensor, k_pool: torch.Tensor,
-                  v_pool: torch.Tensor, pages: torch.Tensor
+                  v_pool: torch.Tensor, pages: torch.Tensor,
+                  token_span: tuple[int, int] | None = None
                   ) -> torch.Tensor:
     """Prefill one prompt (1, S) and write its cache rows into ``pages``
     (the pager's table for it, ceil(S / PS) page ids) of every layer's
     pools (``init_paged_cache``'s pair), in place: token t goes to page
     ``pages[t // PS]``, slot ``t % PS``.  Returns the last position's
-    logits (1, V)."""
+    logits (1, V).  ``token_span`` as ``trunk``'s (the engine's, from
+    the prompt on the host)."""
     s = tokens.shape[1]
     ps = k_pool.shape[-2]
     t = torch.arange(s, device=tokens.device)
@@ -505,28 +611,31 @@ def prefill_paged(params: Params, cfg: TransformerConfig,
             k_pool[i, page, :, slot] = kv["k"][0]
             v_pool[i, page, :, slot] = kv["v"][0]
 
-    return _prefill_trunk(params, cfg, tokens, store)
+    return _prefill_trunk(params, cfg, tokens, store, token_span)
 
 
 def decode_paged(params: Params, cfg: TransformerConfig,
                  k_pool: torch.Tensor, v_pool: torch.Tensor,
                  token: torch.Tensor, position: torch.Tensor,
-                 block_table: torch.Tensor, seq_lens: torch.Tensor
+                 block_table: torch.Tensor, seq_lens: torch.Tensor,
+                 token_span: tuple[int, int] | None = None
                  ) -> torch.Tensor:
     """One batched decode step over the page pools: token (B,), position
     (B,), block_table (B, PMAX), seq_lens (B,) = position + 1 →
     logits (B, V).  Each layer writes the new cache row into its pools
     in place; GQA then launches B8 once over all B sequences, MLA runs
     its absorbed decode over the gathered latent pages.  MoE layers
-    route dropless.  With learned positions, ``position`` is read back
-    once to check it (``check_positions``)."""
+    route dropless.  The tokens are checked against ``token_span`` (the
+    engine's, from its host copy of them), or else read back once, with
+    the learned positions where there are any (``_embed``)."""
     acfg = cfg.attn_config()
     dec = mla_decode_paged if cfg.attn_type == "mla" else gqa_decode_paged
-    x = _embed(params, cfg, token[:, None], position[:, None])
+    x = _embed(params, cfg, token[:, None], position[:, None], None,
+               token_span)
     for i, (lp, use_moe) in enumerate(zip(params["layers"],
                                           cfg.layer_uses_moe())):
         h = dec(lp["attn"], acfg, rmsnorm(lp["attn_norm"], x), k_pool[i],
                 v_pool[i], position, block_table, seq_lens)
         x, _ = _ffn_block(cfg, use_moe, lp, x + h, dropless=True)
     h = rmsnorm(params["final_norm"], x)
-    return _logits(params, cfg, h)[:, 0]
+    return head_logits(params, cfg, h)[:, 0]

@@ -27,7 +27,9 @@ pages.  MoE layers route dropless in a decode round, with capacity at
 prefill, as in the JAX package.  The JAX engine
 decodes each sequence alone over a dense cache and keeps the pager as
 bookkeeping only; the token streams and the pager's decisions are the
-same.
+same.  The tokens a prefill or a round embeds are on the host already:
+their span is taken there and handed to the decoder, which checks it
+against the vocabulary without a read back from the device.
 """
 
 from __future__ import annotations
@@ -41,6 +43,11 @@ import torch
 from .._device import resolve_device
 from ..models import transformer as tf
 from .kv_cache import PagedKVCache
+
+
+def _span(tokens: np.ndarray) -> "tuple[int, int] | None":
+    """(lowest, highest) of host token ids, ``None`` if there are none."""
+    return (int(tokens.min()), int(tokens.max())) if tokens.size else None
 
 
 @dataclass
@@ -119,12 +126,13 @@ class ServeEngine:
                 break                        # admission control
             self.queue.pop(0)
             pages = self.pager.allocate(req.rid, len(req.prompt))
-            prompt = torch.from_numpy(
-                np.asarray(req.prompt, np.int64)[None, :]).to(self.device)
+            host = np.asarray(req.prompt, np.int64)[None, :]
+            prompt = torch.from_numpy(host).to(self.device)
             with torch.no_grad():
                 logits = tf.prefill_paged(
                     self.params, self.cfg, prompt, self.k_pool, self.v_pool,
-                    torch.tensor(pages, device=self.device))
+                    torch.tensor(pages, device=self.device),
+                    token_span=_span(host))
             req.out_tokens.append(int(torch.argmax(logits[0])))
             self.pager.extend(req.rid)
             self.live[req.rid] = req
@@ -144,7 +152,8 @@ class ServeEngine:
         with torch.no_grad():
             logits = tf.decode_paged(
                 self.params, self.cfg, self.k_pool, self.v_pool,
-                plan[b * pmax + b:], seq_lens - 1, block_table, seq_lens)
+                plan[b * pmax + b:], seq_lens - 1, block_table, seq_lens,
+                token_span=_span(tokens))
         for rid, nxt in zip(rids, torch.argmax(logits, dim=-1).tolist()):
             req = self.live[rid]
             req.out_tokens.append(nxt)

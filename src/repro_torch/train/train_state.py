@@ -77,7 +77,8 @@ def _microbatches(batch: Any, accum_steps: int) -> Any:
     axis, each microbatch kept on the batch axes."""
     if isinstance(batch, dict):
         return {k: _microbatches(v, accum_steps) for k, v in batch.items()}
-    micro = batch.reshape((accum_steps, -1) + tuple(batch.shape[1:]))
+    micro = shd.unflatten(batch, 0, (accum_steps,
+                                     batch.shape[0] // accum_steps))
     return constrain(micro, None, DP, *([None] * (batch.ndim - 1)))
 
 

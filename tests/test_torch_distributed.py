@@ -297,20 +297,17 @@ def test_lowering_matches_jax(arch_id, shape, mesh_key):
 @pytest.mark.parametrize("arch_id,shape", CELLS,
                          ids=[f"{a}-{s}" for a, s in CELLS])
 def test_lowering_fn_and_donate_match_jax(arch_id, shape):
-    """The 16 cells of DLRM-RM2, DeepFM, two-tower and NequIP carry a
-    callable ``fn`` and the JAX lowering's ``donate`` (the train step's
-    state, updated in place); the LM and BERT4Rec cells have no ``fn``
-    yet and donate nothing."""
+    """Every one of the 40 cells carries a callable ``fn`` and the JAX
+    lowering's ``donate``: the train step's state (``(0,)``), an LM
+    decode's cache (``(1,)``), nothing for a prefill or a serving
+    forward."""
     ref_low = ref_configs.get_arch(arch_id).lowering(shape, _jax_mesh(False))
     low = port_configs.get_arch(arch_id).lowering(
         shape, port_mesh.make_production_mesh())
     assert callable(ref_low.fn)
-    if arch_id in cases.RECSYS_KINDS or arch_id == "nequip":
-        assert callable(low.fn)
-        assert low.donate == ref_low.donate
-        assert low.donate == ((0,) if low.kind == "train" else ())
-    else:
-        assert low.fn is None and low.donate == ()
+    assert callable(low.fn)
+    assert low.donate == ref_low.donate
+    assert low.donate == {"train": (0,), "decode": (1,)}.get(low.kind, ())
 
 
 def _fake_cases():
