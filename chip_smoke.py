@@ -107,10 +107,13 @@ and then, printing one JSON line per phase:
                ``serve_p99`` calls ((512, 200) histories → (512, 2²⁰)
                logits) and ``retrieval_cand`` calls ((1, 200)), each
                two B1 launches (the items' and positions' embeddings),
-               the rest plain PyTorch and cuBLAS; 9 rows within
-               ``BERT_F64_MAX`` of a float64 CPU forward, two planted
-               faults (a causal mask, no learned positions) outside it;
-               one profiled p99 call;
+               the rest plain PyTorch and cuBLAS; every B1 call
+               byte-equal to its plain version, and so the logits with
+               the plain version in B1's place; 9 rows within
+               ``BERT_F64_MAX`` of a float64 CPU forward (a gap over it
+               fails, after both forwards run once more to say which
+               side moved), two planted faults (a causal mask, no
+               learned positions) outside it; one profiled p99 call;
                then 4 requests behind ``ServeEngine`` within the 200
                positions, each decode round one B8 launch a layer on
                its CUDA-core kernel (float32, G = 1, Dh = 32), the
@@ -272,10 +275,20 @@ and then, printing one JSON line per phase:
                tensor byte-equal to the source; after it is freed, fault
                C14: one run (0, 2³¹) of a 2³¹-element uint8 payload
                through ``gather_plan_runs`` (one B2 launch, the path's
-               count) byte-equal to the payload, and timed; the dry run
-               of all 40 cells on both production meshes (80 records,
-               all ``ok``), with the largest per-device
-               ``argument_bytes`` of each family; each piece's seconds;
+               count) byte-equal to the payload, and timed; each
+               piece's seconds.  After the group is gone: the dry run
+               of all 40 cells on both production meshes with its trace
+               (``python -m repro_torch.launch.dryrun --all
+               --both-meshes --cost``, started after the build in a
+               process of its own beside the card's phases, each decoder
+               cut to one layer a layer group, 3 cells at once): 80
+               records, all ``ok``, each with FLOPs and bytes accessed
+               per device above 0, the five collective kinds and the
+               temporary, output and alias bytes; the largest
+               per-device ``argument_bytes`` of each family and
+               DeepSeek-V3's and Arctic's ``train_4k``, each with its
+               ``flops_per_device``, ``temp_bytes`` and collective
+               bytes;
 11b2. sharded_models — on a new NCCL group of one rank, ``make_host_mesh(1,
                1)``: DLRM-RM2 ``train_batch`` (published width, 65,536
                rows, 3 steps), two-tower ``serve_p99`` (512) and
@@ -289,7 +302,10 @@ and then, printing one JSON line per phase:
                B6, B1, B7 and ``segment_plan``, every kernel call of the
                mesh runs' first step or forward held against its plain
                version when it is made; each run's seconds, step times
-               and peak memory;
+               and peak memory; then one more DLRM-RM2 step, traced on
+               fake copies of its shards by the dry run's counting (its
+               peak of live bytes) and run (uncounted) beside
+               ``torch.cuda.max_memory_allocated``, and their ratio;
 11b3. sharded_lm — on another NCCL group of one rank, ``make_host_mesh(1,
                1)``, the decoders' cells through their ``Lowering.fn``,
                first on plain tensors and then on the same tensors
@@ -383,11 +399,13 @@ code is non-zero.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import functools
 import gc
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -1515,11 +1533,17 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
     next-item logits) and ``retrieval_cand`` calls ((1, 200) → (1, 2²⁰)),
     plain PyTorch and cuBLAS; then 4 requests within the 200 positions
     behind ``ServeEngine``, each decode round one B8 launch a layer on
-    its CUDA-core kernel.  Checks: ``BERT_SAMPLE_ROWS`` rows of the p99
-    logits and the retrieval logits within ``BERT_F64_MAX`` of the
-    float64 CPU forward, and two planted faults (a causal mask, the
-    learned positions left out) outside it; the engine's tokens equal to
-    a run with B8's plain version in its place.  Returns (the row, [])."""
+    its CUDA-core kernel.  Checks: every B1 call of the timed calls
+    byte-equal to its plain version, and the logits with the plain
+    version in B1's place byte-equal; ``BERT_SAMPLE_ROWS`` rows of the
+    p99 logits and the retrieval logits within ``BERT_F64_MAX`` of the
+    float64 CPU forward (each row's gap kept), and two planted faults (a
+    causal mask, the learned positions left out) outside it; the
+    engine's tokens equal to a run with B8's plain version in its place.
+    A gap over the bound fails, and both forwards then run once more on
+    the same inputs (``f64_recheck``: whether the card's and the host's
+    logits came out the same bytes again, and the gap then), so that the
+    row says which side moved.  Returns (the row, [])."""
     import dataclasses
 
     import numpy as np
@@ -1529,6 +1553,8 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
     from repro_torch.configs.common import RECSYS_SHAPES
     from repro_torch.dataplane.recsys import InteractionStream
     from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.gather import kernel as gk
+    from repro_torch.kernels.gather import ref as gref
     from repro_torch.kernels.paged_attn import kernel as pak
     from repro_torch.kernels.paged_attn import ref as paref
     from repro_torch.models import recsys
@@ -1563,19 +1589,26 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
 
         reset_launches()
         # Only the first timed call's (512, 2²⁰) logits are kept.
-        p99, p99_ms = timed_calls(
-            lambda: recsys.bert4rec_score(params, cfg, next(p99_iter)),
-            1 + RETRIEVAL_TIMED, keep=1)
-        cands, cand_ms = timed_calls(
-            lambda: recsys.bert4rec_score(params, cfg, one),
-            1 + RETRIEVAL_TIMED)
+        with recording(gk, "gather_rows", results=True) as b1_calls:
+            p99, p99_ms = timed_calls(
+                lambda: recsys.bert4rec_score(params, cfg, next(p99_iter)),
+                1 + RETRIEVAL_TIMED, keep=1)
+            cands, cand_ms = timed_calls(
+                lambda: recsys.bert4rec_score(params, cfg, one),
+                1 + RETRIEVAL_TIMED)
         path_launches["retrieval_bert4rec"] = dict(LAUNCHES)
         # B1 twice a forward (the items' and the positions' embeddings);
         # the rest plain PyTorch and cuBLAS.
         n_calls = 2 * (1 + RETRIEVAL_TIMED)
         assert {k: v for k, v in LAUNCHES.items() if v} == \
-            {"gather_rows": 2 * n_calls}, LAUNCHES
+            {"gather_rows": 2 * n_calls} and \
+            len(b1_calls) == 2 * n_calls, (LAUNCHES, len(b1_calls))
         path_peak = torch.cuda.max_memory_allocated() - held_before
+        # Every B1 call of the path against the plain version.
+        for i, (a, kw, out) in enumerate(b1_calls):
+            check("gather_rows", out, gref.gather_rows(*a, **kw),
+                  f"bert4rec call {i}, M = {a[1].numel()}")
+        del b1_calls
         logits = p99[1]
         del p99
         assert tuple(logits.shape) == (n_p99, cfg.vocab)
@@ -1584,6 +1617,12 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
             bool(torch.isfinite(cands[1]).all()), "bert4rec: non-finite"
         assert all(bytes_equal(c, cands[1]) for c in cands), \
             "bert4rec: retrieval_cand logits differ between calls"
+        # The same calls with the plain version in B1's place.
+        with swapped(gk, "gather_rows", gref.gather_rows):
+            assert bytes_equal(recsys.bert4rec_score(
+                params, cfg, p99_in[1]), logits), "bert4rec p99: B1 != plain"
+            assert bytes_equal(recsys.bert4rec_score(params, cfg, one),
+                               cands[1]), "bert4rec cand: B1 != plain"
         # Against the float64 CPU forward; then the planted faults.
         rows = np.sort(np.random.default_rng(seed).choice(
             n_p99, BERT_SAMPLE_ROWS, replace=False))
@@ -1599,6 +1638,21 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
             return float((card.double().cpu() - host).abs().max())
 
         f64 = gap(got)
+        f64_rows = [float(g) for g in
+                    (got.double().cpu() - host).abs().amax(dim=1)]
+        recheck = None
+        if not f64 <= BERT_F64_MAX:
+            # Both forwards once more on the same inputs: which moved.
+            again = torch.cat([
+                recsys.bert4rec_score(params, cfg, p99_in[1])[rows_t],
+                recsys.bert4rec_score(params, cfg, one)])
+            host_again = recsys.bert4rec_score(params64, cfg64,
+                                               sample.cpu())
+            recheck = {"card_bytes_equal": bytes_equal(again, got),
+                       "host_bytes_equal": bytes_equal(host_again, host),
+                       "gap": float((again.double().cpu() - host_again)
+                                    .abs().max())}
+            del again, host_again
         causal = dataclasses.replace(cfg, causal=True)
         no_pos = dataclasses.replace(cfg, learned_pos=False)
         faults = {
@@ -1661,6 +1715,7 @@ def serve_bert4rec(dev, seed: int, check, path_launches: dict):
            "retrieval_cand": latency(cand_ms, bound(1)),
            "cut": "serve_bulk: (262,144 x 2^20) float32 logits, 1.1 TB",
            "host_f64_max_abs_err": f64, "host_f64_rows": len(rows) + 1,
+           "host_f64_by_row": f64_rows, "f64_recheck": recheck,
            "bound": BERT_F64_MAX, "faults": faults, "failed": failed,
            "engine": {**BERT_ENGINE, "requests": BERT_REQUESTS,
                       "prompt_tokens": [int(n) for n in lens],
@@ -4674,35 +4729,107 @@ def c14_read(dev, seed: int, timer, path_launches: dict) -> dict:
                                         "runs_handed_to_b2": n_runs}}
 
 
-def dryrun_all() -> dict:
-    """The dry run of every cell on both production meshes, in process:
-    all 80 records ``ok``; the largest per-device ``argument_bytes`` of
-    each family, and DeepSeek-V3's and Arctic's ``train_4k``."""
-    from repro_torch.configs import all_cells, get_arch
-    from repro_torch.launch import dryrun
+# The dry run's trace of all 80 records runs beside the card's phases, in
+# a process of its own started after the build (it needs no card), each
+# decoder cut to DRYRUN_LAYERS layers a layer group (a full-depth trace
+# of a decoder's train step takes minutes of host time), DRYRUN_JOBS
+# cells at once.
+DRYRUN_LAYERS = 1
+DRYRUN_JOBS = 3
+DRYRUN_LIMIT_S = 900
 
-    t0 = time.perf_counter()
-    recs = [dryrun.run_cell(a, s, mp) for a, s in all_cells()
-            for mp in (False, True)]
+
+def start_dryrun() -> tuple:
+    """``python -m repro_torch.launch.dryrun --all --both-meshes --cost``
+    started (no card: ``CUDA_VISIBLE_DEVICES`` empty), its records to
+    ``build/dryrun_cost.json`` and its output to a log beside them:
+    (the process, the records' path, the log's path, its start)."""
+    out = ROOT / "build" / "dryrun_cost.json"
+    log = out.with_suffix(".log")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.unlink(missing_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--both-meshes", "--cost", "--layers", str(DRYRUN_LAYERS),
+             "--jobs", str(DRYRUN_JOBS), "--out", str(out)],
+            env=env, cwd=str(ROOT), stdout=f, stderr=subprocess.STDOUT,
+            process_group=0)
+    # However this script ends, the dry run and its workers end with it.
+    atexit.register(stop_group, proc)
+    return proc, out, log, time.perf_counter()
+
+
+def stop_group(proc) -> None:
+    """Kill ``proc``'s process group (it and the workers it started)."""
+    import signal
+
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+
+
+def dryrun_all(started: tuple) -> dict:
+    """The dry run's 80 traced records (``start_dryrun``), waited for:
+    all ``ok``, each with the JAX dry run's cost, collective and memory
+    keys (FLOPs and bytes accessed above 0, ``code_bytes`` None); the
+    largest per-device ``argument_bytes`` of each family and DeepSeek-V3's
+    and Arctic's ``train_4k``, each with its traced FLOPs, temporary
+    bytes and collective bytes."""
+    from repro_torch.configs import get_arch
+
+    proc, out, log, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_LIMIT_S -
+                                   (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        stop_group(proc)
+        raise AssertionError(f"the dry run passed {DRYRUN_LIMIT_S} s: "
+                             f"{log.read_text()[-2000:]}")
+    assert rc == 0, f"the dry run failed: {log.read_text()[-3000:]}"
+    done = [ln for ln in log.read_text().splitlines()
+            if ln.startswith("done:")][-1]
+    recs = list(json.loads(out.read_text()).values())
     assert len(recs) == 80 and all(r["ok"] for r in recs)
+    kinds = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+             "collective-permute")
+    for r in recs:
+        assert r["cost"]["flops_per_device"] > 0, r["arch"]
+        assert r["cost"]["bytes_accessed_per_device"] > 0, r["arch"]
+        assert r["memory"]["code_bytes"] is None
+        assert set(r["collectives"]) == set(kinds) | {"total_bytes"}
+
+    def traced(r):
+        return {"argument_bytes": r["memory"]["argument_bytes"],
+                "flops_per_device": r["cost"]["flops_per_device"],
+                "temp_bytes": r["memory"]["temp_bytes"],
+                "collective_bytes": r["collectives"]["total_bytes"]}
+
     largest: dict = {}
     for r in recs:
         fam = get_arch(r["arch"]).family
         b = r["memory"]["argument_bytes"]
         if b > largest.get(fam, {}).get("argument_bytes", -1):
-            largest[fam] = {"argument_bytes": b, "arch": r["arch"],
+            largest[fam] = {**traced(r), "arch": r["arch"],
                             "shape": r["shape"], "mesh": r["mesh"]}
-    return {"records": len(recs), "seconds": time.perf_counter() - t0,
+    return {"records": len(recs), "traced": True,
+            "layers": DRYRUN_LAYERS, "jobs": DRYRUN_JOBS,
+            "seconds": float(done.rsplit(",", 1)[1].split()[0]),
+            "read_at_s": time.perf_counter() - t0,
+            "trace_s_sum": sum(r["compile_s"] for r in recs),
             "largest_by_family": largest,
-            "train_4k": {f"{r['arch']}|{r['mesh']}":
-                         r["memory"]["argument_bytes"] for r in recs
-                         if r["shape"] == "train_4k"
+            "train_4k": {f"{r['arch']}|{r['mesh']}": traced(r)
+                         for r in recs if r["shape"] == "train_4k"
                          and r["arch"] in ("deepseek-v3-671b",
                                            "arctic-480b")}}
 
 
-def distributed(dev, seed: int, card: str, path_launches: dict) -> dict:
-    """Phase 11b; returns B2's C14 variant for the kernels line."""
+def distributed(dev, seed: int, card: str, path_launches: dict,
+                dryrun_started: tuple) -> dict:
+    """Phase 11b; returns B2's C14 variant for the kernels line.  The dry
+    run (``start_dryrun``) is read after the NCCL group is gone."""
     import torch
     import torch.distributed as dist
 
@@ -4752,10 +4879,9 @@ def distributed(dev, seed: int, card: str, path_launches: dict) -> dict:
             t0 = time.perf_counter()
             c14 = c14_read(dev, seed, timer, path_launches)
             row["c14"] = {**c14, "seconds": time.perf_counter() - t0}
-
-            row["dryrun"] = dryrun_all()
         finally:
             dist.destroy_process_group()
+    row["dryrun"] = dryrun_all(dryrun_started)
     row["seconds"] = time.perf_counter() - t_phase
     emit(row)
     return c14
@@ -4940,12 +5066,62 @@ def sharded_dlrm(dev, seed: int, mesh, check) -> dict:
             return host_copy(st["params"]), times, first
 
         on_mesh = counted_run(mesh_steps)
+        peak = traced_peak(low, mesh, state, batches[0])
     on_mesh["out"], on_mesh["step_s"], first = on_mesh["out"]
     out = compare_runs(plain, on_mesh, "dlrm-rm2 train_batch")
     out["b6_calls_checked"] = len(first)
     out["rows"] = int(host[0]["bags"].shape[0])
     out["steps"] = SHARDED_STEPS
+    out["traced_peak"] = peak
     return out
+
+
+def traced_peak(low, mesh, state, batch) -> dict:
+    """One more step of a cell's ``fn`` on ``mesh``: first traced by the
+    dry run's counting (``launch.cost.trace``) on fake copies of the
+    state's and batch's shards, then run for real (unchecked, its
+    launches uncounted) with the card's peak reset before it.  The
+    trace's peak of live bytes (arguments, temporaries and the outputs
+    not written in place) beside ``torch.cuda.max_memory_allocated`` over
+    the real step, less what was held before it but the step's own
+    arguments; their ratio (no bound)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.distributed.context import mesh_context
+    from repro_torch.distributed.sharding import tree_map
+    from repro_torch.launch import cost
+
+    fake_mode = FakeTensorMode()
+
+    def fake(x):
+        return DTensor.from_local(fake_mode.from_tensor(x.to_local()),
+                                  x.device_mesh, x.placements,
+                                  run_check=False, shape=x.shape,
+                                  stride=x.stride())
+
+    t0 = time.perf_counter()
+    args = (tree_map(fake, state), tree_map(fake, batch))
+    with mesh_context(mesh), fake_mode:
+        rec = cost.trace(low.fn, args, low.donate)
+    mem = rec["memory"]
+    traced = mem["argument_bytes"] + mem["temp_bytes"] + \
+        mem["output_bytes"] - mem["alias_bytes"]
+    trace_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with uncounted(), mesh_context(mesh):
+        low.fn(state, batch)
+    torch.cuda.synchronize()
+    max_allocated = torch.cuda.max_memory_allocated()
+    measured = max_allocated - held + mem["argument_bytes"]
+    return {"traced_peak_bytes": traced, "memory": mem,
+            "max_memory_allocated": max_allocated, "held_before": held,
+            "measured_peak_bytes": measured,
+            "traced_over_measured": traced / measured,
+            "trace_s": trace_s}
 
 
 def sharded_two_tower(dev, seed: int, mesh, check) -> dict:
@@ -5930,6 +6106,9 @@ def main(argv=None) -> int:
           "batched_plan_ptxas": ptxas["batched_plan"],
           "b5_ptxas": ptxas["slice_batch"]})
 
+    # The dry run's trace, on the host beside the phases below (11b).
+    dryrun_started = start_dryrun()
+
     # -- the cube, the payload and the requests -------------------------
     iwc, requests = weather_setup()
     cube = iwc.cube
@@ -6319,7 +6498,8 @@ def main(argv=None) -> int:
                                           path_launches)
 
     # -- 11b. distributed: torch.distributed on a group of one, C14 ------
-    c14_variant = distributed(dev, args.seed, card, path_launches)
+    c14_variant = distributed(dev, args.seed, card, path_launches,
+                              dryrun_started)
 
     # -- 11b2. sharded_models: DLRM-RM2, two-tower and NequIP through
     # their cells' Lowering.fn on DTensors (B6, B1, B7 on the mesh) ------

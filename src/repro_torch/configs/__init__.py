@@ -25,6 +25,9 @@ _MODULES = {
 }
 
 ARCH_IDS = tuple(_MODULES)
+# The decoders: the architectures whose depth ``get_arch`` can cut.
+DECODER_IDS = ("deepseek-v3-671b", "arctic-480b", "glm4-9b", "yi-34b",
+               "granite-3-8b")
 
 
 def get_config(arch_id: str, smoke: bool = False):
@@ -37,12 +40,16 @@ def get_config(arch_id: str, smoke: bool = False):
     return mod._smoke() if smoke else mod._cfg()
 
 
-def get_arch(arch_id: str):
-    """The ``common.ArchDef`` of ``arch_id``."""
+def get_arch(arch_id: str, layers: int | None = None):
+    """The ``common.ArchDef`` of ``arch_id``; with ``layers``, a
+    decoder's with each layer group cut to at most that many layers
+    (``common.cut_layers``; the other families have no such cut)."""
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    return importlib.import_module(
-        f"{__name__}.{_MODULES[arch_id]}").get()
+    mod = importlib.import_module(f"{__name__}.{_MODULES[arch_id]}")
+    if layers is None or arch_id not in DECODER_IDS:
+        return mod.get()
+    return mod.get(layers=layers)
 
 
 def all_cells() -> list[tuple[str, str]]:

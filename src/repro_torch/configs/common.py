@@ -50,6 +50,7 @@ from torch import nn
 from .. import carry
 from ..distributed import sharding as shd
 from ..distributed.sharding import PartitionSpec as P
+from ..kernels._casting import is_fake
 from ..models import nequip as nq
 from ..models import recsys as rs
 from ..models import transformer as tf
@@ -180,7 +181,8 @@ def model_fn(cls, cfg, body: Callable) -> Callable:
     """``f(params, *args) = body(model, *args)``, ``model`` a ``cls(cfg)``
     that holds ``params`` (keyed by the JAX paths, ``carry.model_params``;
     plain tensors or ``DTensor`` tensors) and its constant buffers
-    (``cls.buffers_for``) on their device, replicated on their mesh.  No
+    (``cls.buffers_for``) on their device, replicated on their mesh
+    (fake where the parameters are: the dry run's trace).  No
     model is allocated: a ``meta`` skeleton's parameters are rebound to
     the given tensors at each call, so gradients reach them, and stay
     bound after it, where a recomputing backward (``remat``) reads
@@ -192,7 +194,8 @@ def model_fn(cls, cfg, body: Callable) -> Callable:
 
     def f(params: dict, *args):
         some = next(iter(params.values()))
-        key = (str(some.device), id(getattr(some, "device_mesh", None)))
+        key = (str(some.device), id(getattr(some, "device_mesh", None)),
+               is_fake(some))
         if key not in cache:
             cache.clear()
             cache[key] = {} if make_buffers is None else {
@@ -220,6 +223,22 @@ def _decoder_params(cfg: tf.TransformerConfig) -> dict:
     """A decoder's train-state parameters (flat, groups stacked) on
     ``meta``."""
     return carry.decoder_params(tf.init_params(cfg, device="meta"), cfg)
+
+
+def cut_layers(cfg: tf.TransformerConfig,
+               layers: int | None) -> tf.TransformerConfig:
+    """``cfg`` with each of its layer groups (``layer_groups``: a
+    decoder's leading dense layers, then its MoE layers) cut to at most
+    ``layers`` layers; ``None`` keeps it whole.  The dry run's trace of
+    a cut decoder (``launch.dryrun --layers``)."""
+    if layers is None:
+        return cfg
+    groups = cfg.layer_groups()
+    dense = min(cfg.n_dense_layers, layers) if len(groups) == 2 else \
+        cfg.n_dense_layers
+    return dataclasses.replace(
+        cfg, n_layers=sum(min(n, layers) for n, _ in groups),
+        n_dense_layers=dense)
 
 
 def lm_arch(arch_id: str, cfg: tf.TransformerConfig,

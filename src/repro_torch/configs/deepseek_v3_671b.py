@@ -7,7 +7,7 @@ import torch
 from ..models.moe import MoEConfig
 from ..models.transformer import TransformerConfig
 from ..train.optimizer import OptimizerConfig
-from .common import lm_arch
+from .common import cut_layers, lm_arch
 
 ID = "deepseek-v3-671b"
 
@@ -43,7 +43,10 @@ def _opt() -> OptimizerConfig:
                            total_steps=100_000)
 
 
-def get():
-    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+def get(layers: int | None = None):
+    """The architecture's ``ArchDef``, with the JAX module's arguments
+    (with ``layers``, each layer group cut to at most that many layers:
+    ``common.cut_layers``)."""
     # 671B params: Adafactor (factored states) + full FSDP×TP sharding.
-    return lm_arch(ID, _cfg(), _smoke(), _opt(), fsdp=True, accum=8)
+    return lm_arch(ID, cut_layers(_cfg(), layers), _smoke(), _opt(),
+                   fsdp=True, accum=8)

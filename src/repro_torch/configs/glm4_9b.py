@@ -5,7 +5,7 @@ import torch
 
 from ..models.transformer import TransformerConfig
 from ..train.optimizer import OptimizerConfig
-from .common import lm_arch
+from .common import cut_layers, lm_arch
 
 ID = "glm4-9b"
 
@@ -30,7 +30,10 @@ def _opt() -> OptimizerConfig:
                            total_steps=100_000)
 
 
-def get():
-    """The architecture's ``ArchDef``, with the JAX module's arguments."""
+def get(layers: int | None = None):
+    """The architecture's ``ArchDef``, with the JAX module's arguments
+    (with ``layers``, each layer group cut to at most that many layers:
+    ``common.cut_layers``)."""
     # 9B dense: pure TP within the pod (no FSDP), AdamW states ZeRO-1.
-    return lm_arch(ID, _cfg(), _smoke(), _opt(), fsdp=False)
+    return lm_arch(ID, cut_layers(_cfg(), layers), _smoke(), _opt(),
+                   fsdp=False)

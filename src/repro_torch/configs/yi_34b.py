@@ -5,7 +5,7 @@ import torch
 
 from ..models.transformer import TransformerConfig
 from ..train.optimizer import OptimizerConfig
-from .common import lm_arch
+from .common import cut_layers, lm_arch
 
 ID = "yi-34b"
 
@@ -30,6 +30,9 @@ def _opt() -> OptimizerConfig:
                            total_steps=100_000)
 
 
-def get():
-    """The architecture's ``ArchDef``, with the JAX module's arguments."""
-    return lm_arch(ID, _cfg(), _smoke(), _opt(), fsdp=True)
+def get(layers: int | None = None):
+    """The architecture's ``ArchDef``, with the JAX module's arguments
+    (with ``layers``, each layer group cut to at most that many layers:
+    ``common.cut_layers``)."""
+    return lm_arch(ID, cut_layers(_cfg(), layers), _smoke(), _opt(),
+                   fsdp=True)

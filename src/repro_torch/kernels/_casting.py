@@ -10,7 +10,8 @@ naming the cube size instead of reading the wrong bytes.
 
 Accepts numpy arrays and torch tensors; a tensor is validated where it
 lies (a CUDA tensor's min/max cost one small device reduction and a
-synchronising read) and cast on its own device.
+synchronising read) and cast on its own device.  A fake tensor
+(``is_fake``) has no values to validate: it is cast unread.
 """
 
 from __future__ import annotations
@@ -35,6 +36,19 @@ def ensure_i32_addressable(n_elements: int, what: str = "datacube") -> None:
             f"kernels consume them.")
 
 
+def is_fake(x) -> bool:
+    """``x`` is a fake tensor (``torch._subclasses.FakeTensor``: a shape,
+    a dtype and a device, no values), or a ``DTensor`` whose local
+    tensor is one.  The dry run's trace (``launch.cost``) runs the
+    cells on such tensors: the id checks read none of one (they have
+    nothing to read), and ``configs.common.model_fn`` keeps the
+    constants it builds for them apart from real ones."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    local = getattr(x, "_local_tensor", x)
+    return isinstance(local, FakeTensor)
+
+
 def checked_cast_i32(indices, *, what: str = "offsets",
                      n_elements: int | None = None,
                      allow_negative_one: bool = False):
@@ -52,7 +66,7 @@ def checked_cast_i32(indices, *, what: str = "offsets",
     is_tensor = isinstance(indices, torch.Tensor)
     arr = indices if is_tensor else np.asarray(indices)
     n = arr.numel() if is_tensor else arr.size
-    if n:
+    if n and not (is_tensor and is_fake(arr)):
         hi = int(arr.max())
         lo = int(arr.min())
         if hi >= I32_LIMIT:

@@ -3,7 +3,11 @@ over every rank at once, and node rows moved between ranks around B7.
 
 ``checked_ids`` is the range check of ``DTensor`` ids (one all-reduce
 of each rank's min and max, one host read), and of the decoders' ids
-on one card (``id_spans`` reads several spans back at once).
+on one card (``id_spans`` reads several spans back at once).  Fake
+ids (``is_fake``: the dry run's trace, shapes and dtypes with no
+values) are read by neither: they pass unchecked, and the ids a check
+returns are their cast, so a trace runs what a real run runs after
+the check.  A real tensor is always checked.
 ``whole_rows`` and ``scatter_rows`` are the two row collectives of an
 edge-sharded segment sum: every rank's rows of a ``DTensor`` gathered
 whole, and every rank's sums into all rows reduce-scattered back to the
@@ -25,7 +29,7 @@ import torch
 import torch.distributed as dist
 
 from ..distributed import sharding as shd
-from ._casting import ensure_i32_addressable
+from ._casting import ensure_i32_addressable, is_fake
 
 
 def id_spans(*ids) -> list:
@@ -34,7 +38,10 @@ def id_spans(*ids) -> list:
     the mesh for ``DTensor`` ids (each rank's own, then a max over each
     mesh dim's group), so every rank sees the same.  The ids may mix
     plain tensors, the same on every rank, and ``DTensor`` ids of one
-    mesh."""
+    mesh.  Fake ids have no values: if any of ``ids`` is fake, nothing
+    runs and every span is ``None``."""
+    if any(is_fake(x) for x in ids):
+        return [None] * len(ids)
     vals, mesh = [], None
     for x in ids:
         if shd.is_dtensor(x):
@@ -63,10 +70,12 @@ def checked_ids(ids, *, what: str, n_rows: int,
     ``allow_negative_one``) on every rank at once (``id_spans``; each
     rank raises alike) and returned as int32.  ``span`` is their
     (lowest, highest) where the caller has read it: then nothing is
-    read back here."""
+    read back here.  Fake ids (``is_fake``) are cast unchecked."""
     ensure_i32_addressable(n_rows, what=f"{what}: index space")
-    if ids.numel():
-        lo, hi = span if span is not None else id_spans(ids)[0]
+    if span is None and ids.numel():
+        span = id_spans(ids)[0]         # None for fake ids
+    if span is not None:
+        lo, hi = span
         if hi >= n_rows or lo < (-1 if allow_negative_one else 0):
             raise IndexError(f"{what}: ids span [{lo}, {hi}], outside "
                              f"[{-1 if allow_negative_one else 0}, "
@@ -109,22 +118,27 @@ def _row_collectives():
     """The two row collectives as autograd Functions, each the other's
     backward, so that a graph through them differentiates any number of
     times (a force's gradient goes back through its own backward).  Rows
-    split over a group in ``torch.chunk`` pieces; under NCCL each piece
-    is padded to the ceil size for the collective and the padding cut."""
+    split over a group in ``torch.chunk`` pieces; under NCCL (and on the
+    dry run's fake group, which stands for it) each piece is padded to
+    the ceil size for the collective and the padding cut.  A group of one
+    rank runs no collective: the rows are copied."""
 
     class AllGatherRows(torch.autograd.Function):
         """The ``total`` rows of a group, whole, from this rank's piece
-        (gloo: each rank's piece in zeros at its place, all-reduced)."""
+        (gloo: each rank's piece in zeros at its place, all-reduced; NCCL
+        and the dry run's fake group: an all-gather)."""
 
         @staticmethod
         def forward(ctx, local, group, total):
             ctx.group = group
             size, lo, hi = _piece(total, group)
-            if dist.get_backend(group) != "nccl":
+            n = dist.get_world_size(group)
+            if n == 1:                  # one rank holds every row
+                return local.clone(memory_format=torch.contiguous_format)
+            if dist.get_backend(group) == "gloo":
                 out = _zeros_around(local, lo, total - hi)
                 dist.all_reduce(out, group=group)
                 return out
-            n = dist.get_world_size(group)
             out = local.new_empty((n * size,) + tuple(local.shape[1:]))
             dist.all_gather_into_tensor(
                 out, _zeros_around(local, 0, size - hi + lo), group=group)
@@ -143,11 +157,13 @@ def _row_collectives():
         def forward(ctx, x, group):
             ctx.group, ctx.total = group, x.shape[0]
             size, lo, hi = _piece(ctx.total, group)
-            if dist.get_backend(group) != "nccl":
+            n = dist.get_world_size(group)
+            if n == 1:                  # one rank's sums are the sums
+                return x.clone(memory_format=torch.contiguous_format)
+            if dist.get_backend(group) == "gloo":
                 out = x.clone(memory_format=torch.contiguous_format)
                 dist.all_reduce(out, group=group)
                 return out[lo:hi]
-            n = dist.get_world_size(group)
             out = x.new_empty((size,) + tuple(x.shape[1:]))
             dist.reduce_scatter_tensor(
                 out, _zeros_around(x, 0, n * size - ctx.total), group=group)

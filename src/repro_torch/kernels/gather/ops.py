@@ -143,7 +143,9 @@ def gather_rows_bag_backward_op(grad_out: torch.Tensor, bags: torch.Tensor,
 
 @gather_rows_bag_backward_op.register_fake
 def _(grad_out, bags, n_rows):
-    return grad_out.new_empty((n_rows, grad_out.shape[1]))
+    # The op's rows of a buffer with its spare row, as ``ref`` returns
+    # them: the dry run's trace counts the buffer's bytes.
+    return grad_out.new_empty((n_rows + 1, grad_out.shape[1]))[:n_rows]
 
 
 def _save_ids(ctx, inputs, output):

@@ -232,9 +232,11 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     here (one read back from the card).  On a mesh each rank works on
     its own rows and vocabulary columns (``_vocab_parallel_nll``)."""
     v = logits.shape[-1]
-    if labels.numel():
-        lo, hi = label_span if label_span is not None else \
-            id_spans(labels)[0]
+    span = label_span
+    if span is None and labels.numel():
+        span = id_spans(labels)[0]      # None for fake labels
+    if span is not None:
+        lo, hi = span
         if lo < 0 or hi >= v:
             raise IndexError(f"cross_entropy: labels span [{lo}, {hi}], "
                              f"outside [0, {v})")

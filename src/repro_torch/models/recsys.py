@@ -93,9 +93,11 @@ class EmbeddingBag(nn.Module):
         # would read the next table's row of the flattened view.  This is
         # the call's one range check (one read back from the card; on a
         # mesh, over every rank at once); it bounds every flat id below
-        # T·R, so B6 is called past ``ops``.
-        if bags.numel():
-            (lo, hi), = id_spans(bags)
+        # T·R, so B6 is called past ``ops``.  Fake bags (the dry run's
+        # trace) have no span.
+        span, = id_spans(bags) if bags.numel() else (None,)
+        if span is not None:
+            lo, hi = span
             if lo < -1 or hi >= rows:
                 raise IndexError(
                     f"EmbeddingBag: ids span [{lo}, {hi}], outside "

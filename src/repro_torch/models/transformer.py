@@ -257,7 +257,13 @@ def _ffn_block(cfg: TransformerConfig, use_moe: bool, lp: Params,
                x: torch.Tensor, dropless: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """The residual FFN half of a layer (``_layer_apply``'s second half):
-    (x + FFN(norm(x)), the MoE aux loss or None)."""
+    (x + FFN(norm(x)), the MoE aux loss or None).  On a mesh the residual
+    is first pinned to the batch axes, whole over the others, as the
+    layer's input is: the attention's output reaches it as a sum over
+    "model", and left to itself ``DTensor`` would split the residual on
+    D there and move the FFN's weights to meet it (an all-to-all of each
+    weight, and one weight's gradient formed whole on every rank)."""
+    x = constrain(x, DP, None, None)
     f = rmsnorm(lp["ffn_norm"], x)
     if not use_moe:
         return x + glu_ffn(lp["ffn"], f), None
@@ -362,9 +368,25 @@ def loss_fn(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,
     if cfg.mtp:
         mtp_ce = _mtp_loss(params, cfg, tokens, labels, tok_span,
                            lab_span)
-        loss = loss + cfg.mtp_loss_weight * mtp_ce
+        # On a mesh the two losses are partial over the batch axes in two
+        # kinds (a mean and a masked sum over a sum), which torch 2.11's
+        # DTensor cannot bring together: each is made whole first.
+        loss = _whole_scalar(loss) + cfg.mtp_loss_weight * \
+            _whole_scalar(mtp_ce)
         metrics["mtp_ce"] = mtp_ce
     return loss, metrics
+
+
+def _whole_scalar(t: torch.Tensor) -> torch.Tensor:
+    """A scalar ``DTensor`` that is partial over some mesh dims reduced
+    to the same value on every rank (one all-reduce of a scalar); any
+    other tensor as it is."""
+    if not shd.is_dtensor(t) or not any(p.is_partial()
+                                         for p in t.placements):
+        return t
+    from torch.distributed.tensor import Replicate
+
+    return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
 
 
 def _mtp_loss(params: Params, cfg: TransformerConfig, tokens: torch.Tensor,

@@ -14,8 +14,8 @@ shape, so a stand-in holds both.
 
 SPMD: the counterparts of ``tests/test_distributed.py::
 TestSPMDExecution`` on gloo process groups of 8 CPU ranks
-(``tests/torch_spmd_cases.py``, each case one subprocess with a 120 s
-limit): the sharded AdamW step within the JAX test's 1e-5 of the plain
+(``tests/torch_spmd_cases.py``, each case one subprocess with a limit
+of its own, ``SPMD_LIMIT_S``): the sharded AdamW step within the JAX test's 1e-5 of the plain
 one, ``quantized_psum`` within its 0.05 relative and bit for bit equal
 to the JAX ``quantized_psum`` under ``shard_map`` on 8 host devices (a
 JAX subprocess), the row-sharded embedding lookup exactly, and the
@@ -67,7 +67,16 @@ SRC = str(REPO / "src")
 TESTS = Path(__file__).resolve().parent
 import torch_spmd_cases as cases  # noqa: E402
 
+# Each case's time limit, from its start: about 6x its own seconds alone
+# on 8 CPU cores (the ``seconds`` each case writes; 2-3x the most that
+# any case took beside the rest of the suite on six workers, up to 4x
+# its time alone), and at least 120 s.  Alone: production_graphs 52.2,
+# nequip_models 20.8, one_rank_models 17.8, recsys_models 12.5, every
+# other case under 8.  ``SPMD_TIMEOUT_S`` is the limit of a case not
+# named here.
 SPMD_TIMEOUT_S = 120
+SPMD_LIMIT_S = {"recsys_models": 120, "nequip_models": 150,
+                "one_rank_models": 120, "production_graphs": 320}
 SPMD_RANKS = 8
 MESHES = {"sp": False, "mp": True}
 CELLS = ref_configs.all_cells()
@@ -160,15 +169,16 @@ def start_spmd_case(case: str, d: Path, world: int = SPMD_RANKS):
          str(world), str(d)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     proc.started = time.monotonic()
+    proc.limit = SPMD_LIMIT_S.get(case, SPMD_TIMEOUT_S)
     return proc
 
 
 def finish_spmd_case(proc, d: Path) -> dict:
-    """The result of a started case, within ``SPMD_TIMEOUT_S`` of its
-    start; a case past it is killed and fails."""
+    """The result of a started case, within its limit (``SPMD_LIMIT_S``)
+    of its start; a case past it is killed and fails."""
     try:
         _, err = proc.communicate(timeout=max(
-            1.0, SPMD_TIMEOUT_S - (time.monotonic() - proc.started)))
+            1.0, proc.limit - (time.monotonic() - proc.started)))
     except subprocess.TimeoutExpired:
         proc.kill()
         proc.communicate()
@@ -545,9 +555,10 @@ def nequip_models(tmp_path_factory) -> dict:
     """The JAX ``nequip_init`` parameters of each graph shape's smoke
     configuration under ``dir/params``; the ``nequip_models`` case run
     on them (one subprocess of 4 ranks), and meanwhile every cell's JAX
-    step (``"jax"``), the ``one_rank_models`` case (one rank:
-    ``"one_rank"``) and the ``production_graphs`` case (a fake process
-    group: ``"production"``)."""
+    step (``"jax"``); then, one after the other, each on its own clock,
+    the ``one_rank_models`` case (one rank: ``"one_rank"``) and the
+    ``production_graphs`` case (a fake process group:
+    ``"production"``)."""
     from repro.models import nequip as ref_nq
 
     d = tmp_path_factory.mktemp("nequip_models")
@@ -557,12 +568,12 @@ def nequip_models(tmp_path_factory) -> dict:
             ref_nq.nequip_init(jax.random.PRNGKey(cases.SEED),
                                _ref_graph_cfg(shape))))
     proc = start_spmd_case("nequip_models", d, world=cases.MODEL_WORLD)
-    one = start_spmd_case("one_rank_models", d / "one_rank", world=1)
-    prod = start_spmd_case("production_graphs", d / "production", world=1)
     want = {s: _jax_nequip_cell(d, s) for s in cases.GNN_SHAPES}
     return {"dir": d, "jax": want, "result": finish_spmd_case(proc, d),
-            "one_rank": finish_spmd_case(one, d / "one_rank"),
-            "production": finish_spmd_case(prod, d / "production")}
+            "one_rank": run_spmd_case("one_rank_models", d / "one_rank",
+                                      world=1),
+            "production": run_spmd_case("production_graphs",
+                                        d / "production", world=1)}
 
 
 def _ref_smoke_cfg(arch_id: str):

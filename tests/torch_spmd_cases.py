@@ -752,9 +752,18 @@ def _rank(rank: int, case: str, world: int, d: str) -> None:
 
 
 def main(argv: list[str]) -> int:
+    """Run the case; add to its result the seconds from here to its
+    ranks' end."""
+    import time
+
+    start = time.monotonic()
     case, world, d = argv[0], int(argv[1]), argv[2]
     torch.multiprocessing.spawn(_rank, args=(case, world, d), nprocs=world,
                                 join=True)
+    path = Path(d) / "result.json"
+    result = json.loads(path.read_text())
+    result["seconds"] = time.monotonic() - start
+    path.write_text(json.dumps(result))
     return 0
 
 
